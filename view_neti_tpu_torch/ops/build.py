@@ -1,0 +1,111 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each source in view_neti_tpu_torch/csrc/ is compiled on first use into a
+shared library with a plain C interface under build/kernels/ at the root of
+the checkout. The library's name carries a hash of its source and flags, so
+an edited source never loads a stale build. `build()` starts one nvcc
+process per missing library, all at once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_SOURCES = ("flash_attention_fwd", "fused_conv")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = Path(cuda_home) / "bin" / "nvcc"
+    if nvcc.exists():
+        return str(nvcc)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
+            "CUDA kernels of view_neti_tpu_torch are built on first use")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile every library in `names` that is not built yet, in parallel.
+    Returns the compiler's output (register and shared-memory use) by name;
+    raises with that output if a compile fails."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if need be."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of csrc/<name>.cu, returning an int, with
+    its argument types set once; the library is built and loaded first if
+    need be."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a C entry point of csrc/<name>.cu returned a non-zero
+    cudaError_t."""
+    if err != 0:
+        msg = load(name).kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
