@@ -1,5 +1,6 @@
-"""The hand-written Hopper kernels of view_neti_tpu_torch against their plain
-PyTorch versions, on the card.
+"""The hand-written Hopper kernels of view_neti_tpu_torch (K1 flash-attention
+forward, K2/K3 its backward, K4 the fused conv) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA device: the module carries the `cuda` marker
 and each test skips without a card. The file imports torch, numpy and the
@@ -82,6 +83,114 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
                     (ok, ok[:, :4], ok)):
         with pytest.raises(ValueError):
             tfa.flash_attention(q, k, v)
+
+
+def _bwd_tolerance(ref):
+    """The limit on |got - ref| per element, as K1's: the bf16 rounding of
+    the output (2^-8 |ref|) plus 2^-4 of the RMS for the bf16 rounding of p
+    and ds before their products, a sum of independent roundings."""
+    return 2 ** -8 * ref.abs() + 2 ** -4 * ref.square().mean().sqrt()
+
+
+def _bwd_launches():
+    return (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches)
+
+
+def _check_backward(q, k, v, do):
+    o, lse = tfa.flash_attention(q, k, v)
+    before = _bwd_launches()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _bwd_launches() == (before[0] + 1, before[1] + 1)
+    ref = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+    for g, r, t in zip(got, ref, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert bool(((g.float() - r).abs() <= _bwd_tolerance(r)).all())
+
+
+# ragged q and kv tiles, cross-attention (Lk = 77), the head dims of SD-1.5
+# (40/80/160) and SD-2.1 (64), and the backward's limits (d = 8 and 192,
+# three keys: with a single key p = 1, and dq and dk are 0 up to the
+# rounding of the two summation orders, which no relative limit can hold)
+@pytest.mark.parametrize("B,Lq,Lk,H,d", [
+    (2, 200, 200, 3, 40), (2, 200, 77, 3, 80), (1, 108, 108, 2, 160),
+    (2, 130, 77, 5, 64), (1, 65, 3, 2, 8), (1, 70, 129, 1, 192)])
+def test_flash_attention_bwd_matches_plain(dev, B, Lq, Lk, H, d):
+    _check_backward(_randn((B, Lq, H, d), 0, dev).bfloat16(),
+                    _randn((B, Lk, H, d), 1, dev).bfloat16(),
+                    _randn((B, Lk, H, d), 2, dev).bfloat16(),
+                    _randn((B, Lq, H, d), 3, dev).bfloat16())
+
+
+def test_flash_attention_bwd_reads_strided_views(dev):
+    q, k, v = _randn((2, 96, 3, 4, 40), 4, dev).bfloat16().unbind(2)
+    do = _randn((2, 96, 2, 4, 40), 5, dev).bfloat16()[:, :, 1]
+    assert not do.is_contiguous()
+    _check_backward(q, k, v, do)
+
+
+def test_flash_attention_function_on_the_card(dev):
+    """FlashAttention.apply runs K1 forward and K2/K3 backward; with q
+    frozen K2 is skipped."""
+    q, k, v, do = (_randn((2, 150, 2, 40), i, dev).bfloat16()
+                   for i in range(4))
+    o, lse = tfa.flash_attention(q, k, v)
+    ref = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+    for need in ("qkv", "kv"):
+        leaves = [t.clone().requires_grad_(n in need)
+                  for n, t in zip("qkv", (q, k, v))]
+        dq0, dkv0 = _bwd_launches()
+        (tfa.FlashAttention.apply(*leaves).float() * do.float()).sum() \
+            .backward()
+        torch.cuda.synchronize()
+        assert _bwd_launches() == (dq0 + ("q" in need), dkv0 + 1)
+        for n, leaf, r in zip("qkv", leaves, ref):
+            if n not in need:
+                assert leaf.grad is None
+                continue
+            assert bool(((leaf.grad.float() - r).abs()
+                         <= _bwd_tolerance(r)).all())
+
+
+def test_kernels_refuse_to_cut_a_gradient(dev):
+    """K1 and K4 fill fresh tensors without a grad_fn: under grad mode they
+    refuse inputs that require grad."""
+    q = torch.zeros(1, 8, 2, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError):
+        tfa.flash_attention(q, q, q)
+    with torch.no_grad():
+        tfa.flash_attention(q, q, q)
+    x = torch.zeros(1, 4, 4, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    ab = torch.zeros(1, 16, device=dev)
+    w = torch.zeros(3, 3, 16, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        tfc.fused_affine_silu_conv3x3(x, ab, ab, w)
+    with torch.no_grad():
+        tfc.fused_affine_silu_conv3x3(x, ab, ab, w)
+
+
+def test_flash_attention_bwd_refuses_what_the_kernels_do_not_take(dev):
+    def args(d=16, L=8, dtype=torch.bfloat16):
+        t = torch.zeros(1, L, 2, d, device=dev, dtype=dtype)
+        rows = torch.zeros(1, 2, L, device=dev)
+        return [t, t, t, t, rows, rows]             # q, k, v, do, lse, delta
+
+    bad = [args(d=200), args(d=12), args(dtype=torch.float32)]
+    a = args()
+    bad.append(a[:4] + [a[4][..., :4], a[5]])            # lse shape
+    bad.append(a[:4] + [a[4].double(), a[5]])            # lse dtype
+    bad.append(a[:5] + [a[5].cpu()])                     # delta off the card
+    bad.append(a[:3] + [a[3].cpu()] + a[4:])             # do off the card
+    bad.append(a[:3] + [a[3][:, :4]] + a[4:])            # do not q's shape
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        for q, k, v, do, lse, delta in bad:
+            with pytest.raises(ValueError):
+                fn(q, k, v, do, lse, delta)
 
 
 # (Cin, Cout, bias, add_bc, residual dtype, output dtype): ragged Cout (the

@@ -1,9 +1,10 @@
-"""Run configuration for the serving stack, without YAML.
+"""Run configuration, without YAML.
 
 The port's counterpart of view_neti_tpu/config.py, cut to the fields that
-conditioning, the mappers and the model builder read. Field names and
-defaults are those of the JAX package (and of the reference's pyrallis
-surface), so a config written for one reads the same in the other.
+conditioning, the mappers, the model builder and the train step's optimizer
+read. Field names and defaults are those of the JAX package (and of the
+reference's pyrallis surface), so a config written for one reads the same
+in the other.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ class ModelConfig:
     word_embedding_dim: int = 768
     arch_mlp_hidden_dims: int = 128
     use_nested_dropout: bool = True
+    nested_dropout_prob: float = 0.5
     normalize_object_mapper_output: bool = True
     normalize_view_mapper_output: bool = False
     use_positional_encoding_object: int = 1
@@ -89,10 +91,32 @@ class ModelConfig:
 
 
 @dataclass
+class OptimConfig:
+    """The optimization fields (view_neti_tpu/config.py OptimConfig) that
+    training/optim.py:make_optimizer reads. The TPU-only fields are left
+    out: steps_per_dispatch, and fuse_conv's auto rule (the port always
+    runs the frozen VAE encode through the fused conv). The accumulation
+    window runs as one fused batch of train_batch_size x
+    gradient_accumulation_steps, as fuse_accumulation=True runs it."""
+    max_train_steps: int = 1_000
+    learning_rate: float = 1e-3
+    scale_lr: bool = True
+    train_batch_size: int = 3
+    gradient_accumulation_steps: int = 3
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-08
+
+
+@dataclass
 class RunConfig:
-    """The top-level fields the serving stack reads. learnable_mode as in
+    """The top-level fields the port reads. learnable_mode as in
     view_neti_tpu/config.py RunConfig (2 = view + object jointly)."""
     learnable_mode: int = 0
     seed: int = 0
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)

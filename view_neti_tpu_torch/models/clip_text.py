@@ -10,7 +10,11 @@ loads strictly. As in the JAX module:
     merges the bypass after the encoder;
   * the token table carries `vocab_headroom` spare rows for placeholder
     tokens;
-  * attention logits are fp32 with a finfo(f32).min causal bias.
+  * attention logits are fp32 with a finfo(f32).min causal bias;
+  * gradients reach the mappers' vectors through the placeholder overwrite
+    and the bypass merge, which write nothing in place; with
+    `gradient_checkpointing` the encoder layers are recomputed in the
+    backward (torch.utils.checkpoint), as nn.remat does there.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from view_neti_tpu_torch.ops.norm import LayerNorm
 
@@ -35,6 +40,9 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"     # "quick_gelu" (SD1.x) | "gelu" (SD2.x)
+    # recompute the encoder layers in the backward (the reference's
+    # text_encoder.gradient_checkpointing_enable())
+    gradient_checkpointing: bool = False
 
     @property
     def total_vocab(self) -> int:
@@ -150,7 +158,8 @@ def _merge_bypass(hidden: torch.Tensor, input_ids: torch.Tensor,
     """Post-encoder bypass merge at the placeholder position.
 
     constrained: new = existing + alpha * normalize(bypass) * ||existing||
-    unconstrained: new = normalize(bypass) * mean_seq_norm(hidden)
+    unconstrained: new = normalize(bypass) * mean_seq_norm(hidden), the
+    norm term detached (stop_gradient in the JAX module)
     """
     mask = input_ids == placeholder_ids[:, None]            # (B, L)
     has = mask.any(dim=1)                                   # (B,)
@@ -158,7 +167,7 @@ def _merge_bypass(hidden: torch.Tensor, input_ids: torch.Tensor,
     bypass = bypass.to(hidden.dtype)
     b_normed = bypass / _safe_norm(bypass)
     if unconstrained:
-        norm_term = _safe_norm(hidden, keepdim=False).mean(dim=-1)
+        norm_term = _safe_norm(hidden, keepdim=False).mean(dim=-1).detach()
         new_state = b_normed * norm_term[:, None]
     else:
         new_state = existing + alpha * b_normed * _safe_norm(existing)
@@ -199,8 +208,13 @@ class NeTICLIPTextEncoder(nn.Module):
             dtype)
         causal = torch.triu(torch.full((L, L), torch.finfo(torch.float32).min,
                                        device=input_ids.device), diagonal=1)
+        remat = self.config.gradient_checkpointing and torch.is_grad_enabled()
         for layer in tm.encoder.layers:
-            x = layer(x, causal[None, None])
+            if remat:
+                x = checkpoint(layer, x, causal[None, None],
+                               use_reentrant=False)
+            else:
+                x = layer(x, causal[None, None])
 
         hidden = x
         hidden_bypass = hidden

@@ -1,15 +1,16 @@
 """NeTIMapper: (timestep, UNet layer[, camera]) -> CLIP word embedding and
-bypass vector (view_neti_tpu/models/neti_mapper.py), for inference.
+bypass vector (view_neti_tpu/models/neti_mapper.py).
 
 The paths the reference ships: arch_view_net 15 (Fourier features over
 [t, l (+ camera)] -> 2-block MLP -> output head), the legacy object paths
 (arch <= 14, use_positional_encoding 0 or 1) and original TI. Nested
-dropout applies only as truncation (`truncation_idx`); the training-time
-random drop lands with the training slice.
+dropout zeroes the tail of the hidden vector: at inference from a fixed
+`truncation_idx`, in training from random draws that the caller passes in
+(`sample_nested_dropout`), since torch's generator never gives JAX's bits.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +30,30 @@ def lookup_view_rows(batch_view_ids: torch.Tensor,
     return torch.argmax(eq.int(), dim=1)
 
 
+NestedDropoutDraws = Tuple[torch.Tensor, torch.Tensor]
+
+
+def sample_nested_dropout(generator: torch.Generator, rows: int, dim: int,
+                          prob: float, device=None) -> NestedDropoutDraws:
+    """The training-time nested-dropout draws for `rows` hidden vectors of
+    width `dim`: whether each row drops (Bernoulli(prob)) and where its tail
+    starts (uniform on [0, dim)), as jax.random.bernoulli / randint draw
+    them in the JAX mapper."""
+    apply = torch.rand(rows, generator=generator, device=device) < prob
+    idx = torch.randint(0, dim, (rows,), generator=generator, device=device)
+    return apply, idx
+
+
+def nested_dropout(h: torch.Tensor, draws: NestedDropoutDraws
+                   ) -> torch.Tensor:
+    """Zero h[i, idx[i]:] in every row i with apply[i]
+    (view_neti_tpu/models/neti_mapper.py _nested_dropout, train=True)."""
+    apply, idx = draws
+    pos = torch.arange(h.shape[-1], device=h.device)
+    keep = (pos[None, :] < idx[:, None]) | ~apply[:, None]
+    return h * keep
+
+
 class NeTIMapper(nn.Module):
     """Constructor arguments are the JAX module's fields; parameter names
     follow its tree (net_dense0, net_ln0, ..., output_layer), and the
@@ -38,6 +63,7 @@ class NeTIMapper(nn.Module):
     def __init__(self, embedding_type: str, output_dim: int = 768,
                  arch_mlp_hidden_dims: int = 128,
                  use_nested_dropout: bool = True,
+                 nested_dropout_prob: float = 0.5,
                  norm_scale: Optional[float] = None,
                  normalize_output: bool = False,
                  use_positional_encoding: int = 1,
@@ -58,6 +84,7 @@ class NeTIMapper(nn.Module):
         self.embedding_type = embedding_type
         self.output_dim = output_dim
         self.use_nested_dropout = use_nested_dropout
+        self.nested_dropout_prob = nested_dropout_prob
         self.norm_scale = norm_scale
         self.normalize_output = normalize_output
         self.use_positional_encoding = use_positional_encoding
@@ -118,6 +145,11 @@ class NeTIMapper(nn.Module):
         self.net_ln1 = nn.LayerNorm(h, eps=1e-5, device=device)
         self.output_layer = nn.Linear(h, out_dim, device=device)
 
+    @property
+    def hidden_dim(self) -> int:
+        """Width of the hidden vector that nested dropout cuts."""
+        return self.net_dense1.out_features
+
     def _sigmas(self, s: PESigmas):
         sigmas = [s.sigma_t, s.sigma_l]
         if self.embedding_type == "view":
@@ -160,10 +192,15 @@ class NeTIMapper(nn.Module):
                 view_params: Optional[torch.Tensor] = None,
                 view_rows: Optional[torch.Tensor] = None,
                 truncation_idx: Optional[int] = None,
-                norm_scale: Optional[torch.Tensor] = None) -> MapperOutput:
+                norm_scale: Optional[torch.Tensor] = None,
+                dropout: Optional[NestedDropoutDraws] = None
+                ) -> MapperOutput:
         """timestep, unet_layer: (B,) raw values in [0, 1000) and [0, 16);
         view_params: (B, C) scaled to (-1, 1) or None; view_rows: (B,) table
-        rows (original-TI view path). Returns (B, output_dim) embeddings."""
+        rows (original-TI view path). dropout: the training-time nested
+        dropout draws (sample_nested_dropout); given, they take the place
+        of truncation_idx, as train=True does in the JAX mapper. Returns
+        (B, output_dim) embeddings."""
         if self.is_ti:
             if self.embedding_type == "view":
                 emb = self.ti_embeddings[view_rows]
@@ -177,7 +214,9 @@ class NeTIMapper(nn.Module):
         h = self._encode(timestep, unet_layer, view_params)
         h = F.leaky_relu(self.net_ln0(self.net_dense0(h)), 0.01)
         h = F.leaky_relu(self.net_ln1(self.net_dense1(h)), 0.01)
-        if self.use_nested_dropout and truncation_idx is not None:
+        if self.use_nested_dropout and dropout is not None:
+            h = nested_dropout(h, dropout)
+        elif self.use_nested_dropout and truncation_idx is not None:
             # zero the tail h[idx:] (reference neti_mapper.py:411-413)
             pos = torch.arange(h.shape[-1], device=h.device)
             h = h * (pos < truncation_idx)

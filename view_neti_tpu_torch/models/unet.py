@@ -11,7 +11,9 @@ checkpoint loads strictly. As in the JAX module:
     conv_out runs in fp32;
   * every attention call goes through ops.attention.multi_head_attention,
     the flash-attention kernel on the card;
-  * the ResNet convs stay unfused (the fused conv serves the VAE).
+  * the ResNet convs stay unfused (the fused conv serves the VAE);
+  * with `gradient_checkpointing` the ResNet blocks are recomputed in the
+    backward (torch.utils.checkpoint), as nn.remat does there.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from view_neti_tpu_torch.ops.attention import multi_head_attention
 from view_neti_tpu_torch.ops.conv import conv_nhwc
@@ -43,6 +46,7 @@ class UNetConfig:
     use_linear_projection: bool = False    # True for SD2.x
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    gradient_checkpointing: bool = False
 
     def heads_for(self, channels: int) -> int:
         if self.attention_head_dim is not None:
@@ -304,11 +308,18 @@ class UNet2DCondition(nn.Module):
         te = self.time_embedding
         temb = te.linear_2(F.silu(te.linear_1(temb.to(dtype))))
 
+        remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+
+        def resnet(block, x):
+            if remat:
+                return checkpoint(block, x, temb, use_reentrant=False)
+            return block(x, temb)
+
         x = conv_nhwc(self.conv_in, latents.to(dtype))
         skips = [x]
         for block in self.down_blocks:
             for j, res in enumerate(block.resnets):
-                x = res(x, temb)
+                x = resnet(res, x)
                 if block.attentions is not None:
                     x = block.attentions[j](x, context, context_bypass)
                 skips.append(x)
@@ -317,13 +328,13 @@ class UNet2DCondition(nn.Module):
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
+        x = resnet(mid.resnets[0], x)
         x = mid.attentions[0](x, context, context_bypass)
-        x = mid.resnets[1](x, temb)
+        x = resnet(mid.resnets[1], x)
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=-1), temb)
+                x = resnet(res, torch.cat([x, skips.pop()], dim=-1))
                 if block.attentions is not None:
                     x = block.attentions[j](x, context, context_bypass)
             if block.upsamplers is not None:

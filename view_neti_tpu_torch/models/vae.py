@@ -1,14 +1,14 @@
 """The Stable Diffusion AutoencoderKL in PyTorch (view_neti_tpu/models/vae.py).
 
 The whole autoencoder is built, with diffusers' state_dict keys, so a
-diffusers checkpoint loads strictly; the serving path runs only `decode`.
-The encoder's forward (training's VAE encode) lands with the training
-slice. Activations are NHWC; GroupNorm eps 1e-6 with fp32 statistics.
+diffusers checkpoint loads strictly. Serving runs `decode`; training runs
+`encode_sample` (or `moments`) under no_grad. Activations are NHWC;
+GroupNorm eps 1e-6 with fp32 statistics.
 
-With `fuse_conv=True` every norm -> SiLU -> conv3x3 section of the decoder
-(both convs of each ResNet block and conv_out) runs through
+With `fuse_conv=True` every norm -> SiLU -> conv3x3 section of the encoder
+and the decoder (both convs of each ResNet block and conv_out) runs through
 ops.fused_conv.fused_affine_silu_conv3x3: the hand-written kernel K4 on the
-card. Parameters are identical either way.
+card, which is forward-only. Parameters are identical either way.
 """
 from __future__ import annotations
 
@@ -124,8 +124,8 @@ class _MidBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """The encoder's parameters, so checkpoints load strictly; its forward
-    (the training path's VAE encode) is not part of the serving slice."""
+    """Images (N, H, W, 3) -> the last conv's (N, h, w, 2 * latent) output
+    (view_neti_tpu/models/vae.py Encoder, without quant_conv)."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -146,6 +146,18 @@ class Encoder(nn.Module):
         self.mid_block = _MidBlock(cur, G)
         self.conv_norm_out = GroupNorm(G, cur, eps=1e-6)
         self.conv_out = nn.Conv2d(cur, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x, fuse: bool = False):
+        h = conv_nhwc(self.conv_in, x)
+        for block in self.down_blocks:
+            for res in block.resnets:
+                h = res(h, fuse)
+            if block.downsamplers is not None:
+                # asymmetric (0, 1) pad of H and W, then the stride-2 conv
+                h = conv_nhwc(block.downsamplers[0].conv,
+                              F.pad(h, (0, 0, 0, 1, 0, 1)))
+        h = self.mid_block(h, fuse)
+        return _norm_silu_conv(self.conv_norm_out, self.conv_out, h, fuse)
 
 
 class Decoder(nn.Module):
@@ -191,6 +203,26 @@ class AutoencoderKL(nn.Module):
                                     2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels,
                                          config.latent_channels, 1)
+
+    def moments(self, x: torch.Tensor) -> torch.Tensor:
+        """Images (N, H, W, 3) in [-1, 1] -> posterior moments
+        (N, H/f, W/f, 2 * latent): mean | logvar."""
+        return conv_nhwc(self.quant_conv,
+                         self.encoder(x, self.config.fuse_conv))
+
+    def encode_sample(self, x: torch.Tensor, eps: torch.Tensor
+                      ) -> torch.Tensor:
+        """z = (mean + std * eps) * scaling factor, with logvar clamped to
+        [-30, 20] (diffusers' DiagonalGaussianDistribution). eps is the
+        standard-normal draw of the latent's shape, passed in as data; it is
+        cast to the moments' dtype, in which the JAX package draws it."""
+        mean, logvar = self.moments(x).chunk(2, dim=-1)
+        std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+        return (mean + std * eps.to(mean.dtype)) * self.config.scaling_factor
+
+    def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
+        """The posterior mode (the mean), scaled."""
+        return self.moments(x).chunk(2, dim=-1)[0] * self.config.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents (N, h, w, 4) -> images (N, H, W, 3) in [-1, 1]."""

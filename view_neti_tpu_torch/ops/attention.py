@@ -1,9 +1,10 @@
 """Attention entry points of the models (view_neti_tpu/ops/attention.py).
 
-Every UNet attention call goes through `multi_head_attention`, which is the
-flash-attention forward: the hand-written kernel K1 on a CUDA tensor, its
-plain version on a CPU tensor. Unlike the TPU gate there is no shape rule
-that sends small levels elsewhere. The VAE's single-head bottleneck
+Every UNet attention call goes through `multi_head_attention`, which is
+the flash-attention autograd Function: the hand-written kernels K1 forward
+and K2/K3 backward on a CUDA tensor, their plain versions on a CPU tensor.
+Unlike the TPU gate there is no shape rule that sends small levels
+elsewhere. The VAE's single-head bottleneck
 attention (d = 512, past the kernel's d <= 256) stays plain PyTorch, as it
 stays jnp in the JAX package.
 
@@ -15,13 +16,13 @@ from __future__ import annotations
 
 import torch
 
-from view_neti_tpu_torch.ops.flash_attention import flash_attention
+from view_neti_tpu_torch.ops.flash_attention import FlashAttention
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q: (B, Lq, H, hd); k/v: (B, Lk, H, hd). Returns (B, Lq, H, hd)."""
-    return flash_attention(q, k, v)[0]
+    return FlashAttention.apply(q, k, v)
 
 
 def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

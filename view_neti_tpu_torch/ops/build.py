@@ -19,7 +19,7 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_attention_fwd", "fused_conv")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

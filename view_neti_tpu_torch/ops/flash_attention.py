@@ -1,17 +1,19 @@
-"""Flash-attention forward: the hand-written Hopper kernel (K1) and its plain
-PyTorch version.
+"""Flash attention: the hand-written Hopper kernels K1 (forward), K2 (dq) and
+K3 (dk, dv), their plain PyTorch versions, and the autograd Function that
+joins them.
 
-Replaces view_neti_tpu/ops/flash_attention.py::_fwd_kernel (launched by
-_flash_fwd, the TPU's Pallas kernel). The CUDA source is
-csrc/flash_attention_fwd.cu; see its header for the design and what bounds
-it on an H100.
+Replaces view_neti_tpu/ops/flash_attention.py: K1 its _fwd_kernel (launched
+by _flash_fwd), K2 and K3 its _bwd_dq_kernel and _bwd_dkv_kernel (launched
+by _flash_bwd_rule, the custom_vjp backward). The CUDA sources are
+csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu; see their
+headers for the design and what bounds each kernel on an H100.
 
 Layout at this module's functions is the JAX package's: q (B, Lq, H, d),
-k/v (B, Lk, H, d); returns o (B, Lq, H, d) in q's dtype and the per-row
-logsumexp lse (B, H, Lq) in fp32, which the backward of the training slice
-reads. The TPU wrapper's padding of q and kv to 128-multiples and its
-(B, L, H, d) -> (B*H, L, d) transposes become strides and bounds checks in
-the kernel.
+k/v (B, Lk, H, d); the forward returns o (B, Lq, H, d) in q's dtype and the
+per-row logsumexp lse (B, H, Lq) in fp32, which the backward reads back to
+recompute the probabilities. The TPU wrapper's padding of q and kv to
+128-multiples and its (B, L, H, d) -> (B*H, L, d) transposes become strides
+and bounds checks in the kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +26,13 @@ from view_neti_tpu_torch.ops import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = ([_P] * 5 + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _P])
+_F = ctypes.c_float
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P]
+_DQ_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P]
+_DKV_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 18 + [_F, _P]
+# K3 keeps two fp32 (64 x d) accumulators in shared memory beside its
+# operand tiles, which caps the head dim of the backward
+MAX_BWD_HEAD_DIM = 192
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -38,52 +46,211 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return o.to(q.dtype), lse
 
 
-def _check_inputs(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention: q, k, v must be (B, L, H, d)")
-    B, Lq, H, d = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, d):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d % 8 != 0 or d > 256:
-        raise ValueError(f"flash_attention: head dim {d} unsupported "
-                         f"(the kernel needs d % 8 == 0 and d <= 256)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}, "
-                             f"q on {q.device}")
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * o) in fp32, (B, Lq, H, d) -> (B, H, Lq): the term
+    the JAX backward computes outside its kernels (_flash_bwd_rule)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, do, lse, delta, need_dq=True, need_dkv=True):
+    """The backward's arithmetic in fp32 from delta: (dq or None,
+    dk or None, dv or None) in q's, k's and v's dtypes."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None])
+    dq = dk = dv = None
+    if need_dq:
+        dq = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+    if need_dkv:
+        dk = (torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale).to(k.dtype)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(v.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, need_dq: bool = True,
+                            need_dkv: bool = True):
+    """Plain backward in fp32 by the recomputation formulas of the JAX
+    backward: p = exp(scale q kᵀ - lse), ds = p (do vᵀ - delta),
+    dq = scale ds k, dk = scale dsᵀ q, dv = pᵀ do, with
+    delta = rowsum(do o). Returns (dq, dk, dv) in q's, k's and v's dtypes;
+    a gradient that is not needed comes back as None."""
+    return _bwd_plain(q, k, v, do, lse, attention_delta(o, do), need_dq,
+                      need_dkv)
+
+
+def _check_operands(what: str, named, max_d: int):
+    """Raise unless every (name, tensor) is a bf16 (B, L, H, d) CUDA tensor on
+    the first one's device that the kernels' 16-byte loads can read."""
+    first = named[0][1]
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, "
+                             f"{named[0][0]} on {first.device}")
         if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}; the "
-                             f"kernel takes bfloat16")
+            raise ValueError(f"{what}: {name} is {t.dtype}; the kernel "
+                             f"takes bfloat16")
+        if t.dim() != 4:
+            raise ValueError(f"{what}: {name} must be (B, L, H, d)")
+        d = t.shape[3]
+        if d % 8 != 0 or d > max_d:
+            raise ValueError(f"{what}: head dim {d} unsupported (the kernel "
+                             f"needs d % 8 == 0 and d <= {max_d})")
         # 16-byte vector loads along d: unit stride in d, 8-element
         # multiples elsewhere, a 16-byte aligned base
         if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
-            raise ValueError(f"flash_attention: {name} strides "
-                             f"{t.stride()} / alignment not supported")
+            raise ValueError(f"{what}: {name} strides {t.stride()} / "
+                             f"alignment not supported")
+
+
+def _check_shapes(what: str, q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be (B, L, H, d)")
+    B, _, H, d = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, d):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """softmax(q kᵀ / sqrt(d)) v over (B, L, H, d) tensors -> (o, lse).
 
     A CPU tensor takes the plain version; a CUDA tensor launches K1 or
-    raises."""
+    raises. K1's output carries no gradient, so on the card it refuses
+    inputs that require one while grad mode is on: differentiate through
+    FlashAttention.apply instead."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
-    _check_inputs(q, k, v)
+    _check_shapes("flash_attention", q, k, v)
+    _check_operands("flash_attention", (("q", q), ("k", k), ("v", v)), 256)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: inputs require grad with grad mode on, and the "
+            "kernel's output has no grad_fn; use FlashAttention.apply")
     B, Lq, H, d = q.shape
     Lk = k.shape[1]
     o = torch.empty((B, Lq, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     fn = build.entry("flash_attention_fwd", "flash_attention_fwd_bf16",
-                     _ARGTYPES)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+                     _FWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, H, Lq, Lk, d, *strides, d ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lse.data_ptr(), B, H, Lq, Lk, d, *_strides(q, k, v, o),
+             d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_fwd", err, "flash_attention_fwd_bf16")
     flash_attention.launches += 1
     return o, lse
 
 
 flash_attention.launches = 0
+
+
+def _check_bwd(what, q, k, v, do, lse, delta):
+    _check_shapes(what, q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"{what}: do {tuple(do.shape)} must be q's shape")
+    _check_operands(what, (("q", q), ("k", k), ("v", v), ("do", do)),
+                    MAX_BWD_HEAD_DIM)
+    B, Lq, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, H, Lq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{what}: {name} must be a contiguous fp32 "
+                             f"(B, H, Lq) tensor on q's device")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta):
+    """dq of flash attention from the forward's lse, the output gradient do
+    and delta = attention_delta(o, do).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K2 or
+    raises."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, need_dkv=False)[0]
+    _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    B, Lq, H, d = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    fn = build.entry("flash_attention_bwd", "flash_attention_bwd_dq_bf16",
+                     _DQ_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq,
+             k.shape[1], d, *_strides(q, k, v, do, dq), d ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_bwd", err, "flash_attention_bwd_dq_bf16")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
+    """(dk, dv) of flash attention from the same inputs as
+    flash_attention_bwd_dq.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K3 or
+    raises."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, need_dq=False)[1:]
+    _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    B, Lq, H, d = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    fn = build.entry("flash_attention_bwd", "flash_attention_bwd_dkv_bf16",
+                     _DKV_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, H, Lq, k.shape[1], d, *_strides(q, k, v, do, dk, dv),
+             d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_bwd", err, "flash_attention_bwd_dkv_bf16")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, need_dq: bool = True,
+                        need_dkv: bool = True):
+    """(dq, dk, dv) of flash attention from the forward's o and lse and the
+    output gradient do; a gradient that is not needed comes back as None.
+    delta = rowsum(do·o) is a PyTorch reduction, as in the JAX backward;
+    K2 computes dq and K3 dk and dv (their plain versions on the CPU)."""
+    if o.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} must be "
+                         f"q's shape {tuple(q.shape)}")
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta) if need_dq else None
+    dk, dv = (flash_attention_bwd_dkv(q, k, v, do, lse, delta) if need_dkv
+              else (None, None))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash attention of (q, k, v), differentiable: the forward is K1
+    and saves q, k, v, o and lse; the backward is K2 (skipped when q needs no
+    gradient) and K3 (skipped when neither k nor v needs one), the
+    counterpart of the JAX package's custom_vjp. On CPU tensors both passes
+    are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         need_dq=need_q,
+                                         need_dkv=need_k or need_v)
+        return dq, (dk if need_k else None), (dv if need_v else None)

@@ -68,7 +68,13 @@ def fused_affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor,
     """conv3x3(silu(a*x + b)) + bias + add_bc + residual, NHWC.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K4 or
-    raises."""
+    raises. The function is forward-only, as in the JAX package: it
+    refuses inputs that require grad while grad mode is on."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a, b, kernel, bias, add_bc, residual)):
+        raise RuntimeError("fused_affine_silu_conv3x3 is forward-only: its "
+                           "inputs require grad with grad mode on")
     if x.device.type == "cpu":
         return fused_affine_silu_conv3x3_ref(x, a, b, kernel, bias, add_bc,
                                              residual, out_dtype)

@@ -1,18 +1,21 @@
-"""Assemble the serving stack from a RunConfig
-(view_neti_tpu/training/builder.py, serving part).
+"""Assemble the model stack from a RunConfig
+(view_neti_tpu/training/builder.py).
 
 Grows the tokenizer with the placeholder tokens, initialises their rows
 from the super-category rows, computes the target norms, builds the
-mappers for the learnable mode, and builds the frozen SD stack (CLIP, UNet,
-VAE) with seeded random weights on the given device. Real weights are
-loaded afterwards with load_state_dict (weight_port.py carries JAX trees
-across).
+mappers for the learnable mode (fp32), and builds the frozen SD stack
+(CLIP, UNet, VAE) with seeded random weights on the given device. Real
+weights are loaded afterwards with load_state_dict (weight_port.py carries
+JAX trees across). For training, `trainable_groups` hands the mappers'
+parameters to the optimizer, `fuse_vae_for_training` routes the frozen VAE
+encode through the fused conv and `with_gradient_checkpointing` turns on
+recomputation in the UNet and CLIP.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ from view_neti_tpu_torch.models.vae import (AutoencoderKL, VAEConfig,
 from view_neti_tpu_torch.models.view_tokens import (ViewTokenTable,
                                                     build_view_token_table)
 from view_neti_tpu_torch.ops.norm import GroupNorm, LayerNorm
+from view_neti_tpu_torch.schedulers.ddpm import DDPMSchedule
 from view_neti_tpu_torch.training.text_forward import TextModels
 from view_neti_tpu_torch.utils.device import resolve_device
 
@@ -63,6 +67,16 @@ def resolve_arch(name: str, word_embedding_dim: int) -> SDArch:
     return arch
 
 
+def with_gradient_checkpointing(arch: SDArch) -> SDArch:
+    """Recompute the UNet's ResNet blocks and the CLIP encoder layers in the
+    backward (the reference's optim.gradient_checkpointing applies to
+    both)."""
+    return dataclasses.replace(
+        arch,
+        unet=dataclasses.replace(arch.unet, gradient_checkpointing=True),
+        text=dataclasses.replace(arch.text, gradient_checkpointing=True))
+
+
 def tiny_arch(ctx_dim: int = 32) -> SDArch:
     """Miniature stack for tests (builder.tiny_arch of the JAX package)."""
     text = CLIPTextConfig(vocab_size=512, vocab_headroom=128,
@@ -75,10 +89,12 @@ def tiny_arch(ctx_dim: int = 32) -> SDArch:
 
 @dataclass
 class BuiltModels:
-    """The serving stack and the placeholder bookkeeping."""
+    """The model stack, the training noise schedule and the placeholder
+    bookkeeping."""
     text: TextModels
     unet: UNet2DCondition
     vae: AutoencoderKL
+    schedule: DDPMSchedule
     arch: SDArch
     tokenizer: Any
     placeholder_token_ids: List[int]
@@ -188,6 +204,7 @@ def _init_mapper(cfg: RunConfig, embedding_type: str, num_view_cond_dims: int,
         output_dim=m.word_embedding_dim,
         arch_mlp_hidden_dims=m.arch_mlp_hidden_dims,
         use_nested_dropout=m.use_nested_dropout,
+        nested_dropout_prob=m.nested_dropout_prob,
         normalize_output=normalize,
         use_positional_encoding=(
             m.use_positional_encoding_object if embedding_type == "object"
@@ -284,7 +301,9 @@ def build_models(cfg: RunConfig, tokenizer,
         obj_norm_scales=obj_norm_scales, view_norm_scale=view_norm_scale,
         original_ti=m.original_ti)
     return BuiltModels(
-        text=text, unet=unet, vae=vae, arch=arch, tokenizer=tokenizer,
+        text=text, unet=unet, vae=vae,
+        schedule=DDPMSchedule(prediction_type=arch.prediction_type),
+        arch=arch, tokenizer=tokenizer,
         placeholder_token_ids=all_ids,
         placeholder_object_token_ids=object_ids,
         placeholder_view_token_ids=view_ids, view_table=view_table,
@@ -292,8 +311,32 @@ def build_models(cfg: RunConfig, tokenizer,
 
 
 def fuse_for_inference(vae: AutoencoderKL) -> AutoencoderKL:
-    """Route the VAE decoder's norm+SiLU+conv3x3 sections through the fused
-    conv (ops/fused_conv.py). Parameters are unchanged; the UNet stays
-    unfused, as in the JAX package's default."""
+    """Route the VAE's norm+SiLU+conv3x3 sections, the decoder's and the
+    encoder's, through the fused conv (ops/fused_conv.py). Parameters are
+    unchanged; the UNet stays unfused, as in the JAX package's default."""
     vae.config = dataclasses.replace(vae.config, fuse_conv=True)
     return vae
+
+
+def fuse_vae_for_training(vae: AutoencoderKL) -> AutoencoderKL:
+    """The same fused VAE for the train step: its encode runs under
+    no_grad, so the forward-only kernel is safe there while the UNet stays
+    differentiable."""
+    return fuse_for_inference(vae)
+
+
+def trainable_groups(built: BuiltModels
+                     ) -> Dict[str, List[List[nn.Parameter]]]:
+    """The mappers' parameters for the optimizer, {"object": [one list per
+    object mapper], "view": [the view mapper's]}, switched to requires_grad
+    (they are fp32 whatever the compute dtype). The frozen keys of a mode
+    are dropped by the optimizer, not here."""
+    groups: Dict[str, List[List[nn.Parameter]]] = {}
+    text = built.text
+    if text.obj_mappers:
+        groups["object"] = [list(m.requires_grad_(True).parameters())
+                            for m in text.obj_mappers]
+    if text.view_mapper is not None:
+        groups["view"] = [list(text.view_mapper.requires_grad_(True)
+                               .parameters())]
+    return groups

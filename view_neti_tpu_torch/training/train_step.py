@@ -1,0 +1,157 @@
+"""The textual-inversion train step (view_neti_tpu/training/train_step.py).
+
+One call is one optimizer step over one fused batch (the Coach's
+fuse_accumulation layout: train_batch_size x gradient_accumulation_steps
+samples): VAE-encode the pixels under no_grad (or sample latents from
+cached posterior moments), noise them at per-sample timesteps, compute the
+16-layer NeTI text conditioning in one folded pass, predict with the UNet,
+take the fp32 MSE, backpropagate to the mappers only and step the sliced
+AdamW. The gradient reaches the mappers only through the UNet's
+cross-attention K/V, so every attention call after the first runs K1
+forward and K2/K3 backward (ops/flash_attention.py), and the fused VAE
+encode runs K4.
+
+JAX draws every random number inside its step from one key; torch's
+generator never gives JAX's bits, so the port takes them as data: a
+StepDraws record that `sample_step_draws` fills from a torch.Generator and
+that the tests fill with JAX's own draws.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from view_neti_tpu_torch.constants import NUM_UNET_LAYERS
+from view_neti_tpu_torch.models.neti_mapper import (NestedDropoutDraws,
+                                                    sample_nested_dropout)
+from view_neti_tpu_torch.training.optim import SlicedAdamW
+from view_neti_tpu_torch.training.text_forward import neti_text_conditioning
+
+
+@dataclass
+class TrainBatch:
+    """One fused batch (mode 0-2: one object mapper for the whole batch).
+
+    pixel_values: images (B, H, W, 3) in [-1, 1], or, for a step built with
+      from_moments=True, VAE posterior moments (B, h, w, 8);
+    input_ids: (B, L); input_ids_placeholder_object / _view: (B,) the
+      placeholder id of each prompt, -1 where absent;
+    object_idx: which object mapper conditions the batch.
+    """
+    pixel_values: torch.Tensor
+    input_ids: torch.Tensor
+    input_ids_placeholder_object: torch.Tensor
+    input_ids_placeholder_view: torch.Tensor
+    object_idx: int = 0
+
+
+@dataclass
+class StepDraws:
+    """The random numbers of one step.
+
+    vae_eps: (B, h, w, 4) standard normal, the posterior sample's noise;
+    noise: (B, h, w, 4) standard normal fp32, the diffusion noise;
+    timesteps: (B,) integers in [0, num_train_timesteps);
+    dropout: nested-dropout draws per mapper key ("object", "view") for its
+      16 * B rows, or None for no dropout.
+    """
+    vae_eps: torch.Tensor
+    noise: torch.Tensor
+    timesteps: torch.Tensor
+    dropout: Optional[Dict[str, NestedDropoutDraws]] = None
+
+
+def latent_shape(models, batch: TrainBatch, from_moments: bool = False
+                 ) -> Tuple[int, int, int, int]:
+    """The (B, h, w, 4) latent shape of a batch."""
+    B, H, W = batch.pixel_values.shape[:3]
+    if from_moments:
+        return B, H, W, batch.pixel_values.shape[3] // 2
+    f = 2 ** (len(models.vae.config.channel_mults) - 1)
+    return B, H // f, W // f, models.vae.config.latent_channels
+
+
+def sample_step_draws(generator: torch.Generator, models, batch: TrainBatch,
+                      from_moments: bool = False) -> StepDraws:
+    """Draw a step's random numbers on the generator's device: normals for
+    the posterior sample and the noise, uniform integer timesteps, and
+    nested-dropout draws for every mapper that uses it."""
+    device = generator.device
+    shape = latent_shape(models, batch, from_moments)
+    B = shape[0]
+    vae_eps = torch.randn(shape, generator=generator, device=device)
+    noise = torch.randn(shape, generator=generator, device=device)
+    timesteps = torch.randint(0, models.schedule.num_train_timesteps, (B,),
+                              generator=generator, device=device)
+    text = models.text
+    mappers = {"object": (text.obj_mappers[batch.object_idx]
+                          if text.obj_mappers else None),
+               "view": text.view_mapper}
+    dropout = {key: sample_nested_dropout(generator, NUM_UNET_LAYERS * B,
+                                          m.hidden_dim, m.nested_dropout_prob,
+                                          device)
+               for key, m in mappers.items()
+               if m is not None and m.use_nested_dropout and not m.is_ti}
+    return StepDraws(vae_eps, noise, timesteps, dropout or None)
+
+
+@torch.no_grad()
+def encode_latents(models, batch: TrainBatch, draws: StepDraws,
+                   compute_dtype: torch.dtype, from_moments: bool = False
+                   ) -> torch.Tensor:
+    """fp32 latents (B, h, w, 4) sampled from the posterior of the pixels
+    (the frozen VAE encode, K4 on the card) or of cached moments."""
+    if from_moments:
+        mean, logvar = batch.pixel_values.float().chunk(2, dim=-1)
+        std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+        latents = ((mean + std * draws.vae_eps.float())
+                   * models.vae.config.scaling_factor)
+    else:
+        latents = models.vae.encode_sample(
+            batch.pixel_values.to(compute_dtype), draws.vae_eps)
+    return latents.float()
+
+
+def diffusion_loss(models, batch: TrainBatch, draws: StepDraws,
+                   latents: torch.Tensor, compute_dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """The fp32 MSE between the UNet's prediction on the noised latents and
+    the schedule's target, differentiable in the mappers."""
+    schedule = models.schedule
+    noisy = schedule.add_noise(latents, draws.noise, draws.timesteps)
+    target = schedule.target(latents, draws.noise, draws.timesteps)
+    ctx, ctx_b = neti_text_conditioning(
+        models.text, batch.input_ids, batch.input_ids_placeholder_object,
+        batch.input_ids_placeholder_view, draws.timesteps,
+        object_idx=int(batch.object_idx), train=True, draws=draws.dropout)
+    pred = models.unet(noisy.to(compute_dtype), draws.timesteps,
+                       ctx.to(compute_dtype), ctx_b.to(compute_dtype))
+    return torch.mean((pred.float() - target.float()) ** 2)
+
+
+def make_train_step(optimizer: SlicedAdamW,
+                    compute_dtype: torch.dtype = torch.float32,
+                    from_moments: bool = False) -> Callable:
+    """Build the train step around `optimizer` (training/optim.py).
+
+    from_moments: batch.pixel_values holds VAE posterior moments (the
+    latent cache); the step samples latents from them and skips the
+    encoder.
+
+    Returns step(models, batch, draws) -> {"total_loss": fp32 scalar}, with
+    models the builder's BuiltModels (text, unet, vae, schedule). The
+    mappers' gradients stay in their .grad after the step.
+    """
+
+    def step(models, batch: TrainBatch, draws: StepDraws):
+        latents = encode_latents(models, batch, draws, compute_dtype,
+                                 from_moments)
+        loss = diffusion_loss(models, batch, draws, latents, compute_dtype)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return {"total_loss": loss.detach()}
+
+    return step

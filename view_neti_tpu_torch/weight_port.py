@@ -262,3 +262,27 @@ def from_jax_mapper(params: Mapping, constants: Optional[Mapping] = None
     leaves = _leaves(tree)
     present = {k: v for k, v in mapping.items() if v[0] in leaves}
     return _carry(tree, present, "mapper")
+
+
+def from_jax_trainable(trainable: Mapping,
+                       obj_constants: Optional[Mapping] = None,
+                       view_constants: Optional[Mapping] = None
+                       ) -> Dict[str, object]:
+    """The JAX trainable tree {"object": bank stacked on a leading axis N,
+    "view": one mapper's params} -> {"object": [N state_dicts, one per
+    object mapper], "view": state_dict}; absent keys stay absent."""
+    out: Dict[str, object] = {}
+    bank = trainable.get("object")
+    if bank is not None:
+        leaves = _leaves(bank)
+        n = np.asarray(next(iter(leaves.values()))).shape[0]
+
+        def slice_tree(tree, i):
+            return {k: slice_tree(v, i) if isinstance(v, Mapping)
+                    else np.asarray(v)[i] for k, v in tree.items()}
+
+        out["object"] = [from_jax_mapper(slice_tree(bank, i), obj_constants)
+                         for i in range(n)]
+    if trainable.get("view") is not None:
+        out["view"] = from_jax_mapper(trainable["view"], view_constants)
+    return out
