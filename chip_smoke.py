@@ -5,8 +5,11 @@
 
 Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the three kernel libraries from
-                view_neti_tpu_torch/csrc/ (in parallel);
+  2. build   -- nvcc builds the four kernel libraries from
+                view_neti_tpu_torch/csrc/ (in parallel) and prints each
+                kernel's registers and spills; the instantiations the two
+                paths run (K1 and K3 at head dims 40, 80, 160) must not
+                spill;
   3. kernels -- the flash-attention forward (K1), its backward (K2 dq, K3
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path and the 384x512 B=9
@@ -14,7 +17,8 @@ Phases; any failure ends the run with a non-zero exit:
                 inputs from a seed, held against their plain versions in
                 fp32 with TF32 off, each limit with a control it must
                 catch, and timed with CUDA events beside the plain version,
-                one PyTorch library call and the card's bound;
+                one PyTorch library call and the card's bound (and the
+                bound's share of the kernel's time);
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -46,6 +50,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,7 +118,7 @@ def kernel_group(name: str) -> str:
         return "K1 flash_attention_fwd"
     if "flash_bwd_dq_kernel" in low:
         return "K2 flash_attention_bwd_dq"
-    if "flash_bwd_dkv_kernel" in low:
+    if "flash_bwd_dkv" in low:        # the kernel and its split reduction
         return "K3 flash_attention_bwd_dkv"
     if "fused_conv_kernel" in low:
         return "K4 fused_conv"
@@ -127,6 +132,51 @@ def kernel_group(name: str) -> str:
     if "reduce" in low or "norm" in low:
         return "reduction/norm"
     return "elementwise/other"
+
+
+def ptxas_usage(logs):
+    """{(library, function): (registers, spill bytes)} from the build's
+    `-Xptxas -v` output: spill bytes are the stores plus the loads."""
+    usage, spills = {}, {}
+    for lib, log in logs.items():
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                entry = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry:
+                spills[entry] = int(m.group(1)) + int(m.group(2))
+                continue
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                usage[(lib, entry)] = int(m.group(1))
+    return {key: (regs, spills.get(key[1])) for key, regs in usage.items()}
+
+
+def check_path_spills(usage):
+    """The instantiations of K1 and K3 at the paths' head-dim buckets (48,
+    80, 160) must spill nothing; prints every K1/K3 instantiation."""
+    seen = 0
+    for (lib, fn), (regs, spill) in sorted(usage.items()):
+        m = re.search(r"(flash_fwd_kernel|flash_bwd_dkv_kernel)I((?:Li\d+E)+)",
+                      fn)
+        if not m:
+            continue
+        args = [int(a) for a in re.findall(r"\d+", m.group(2))]
+        dp = args[0]
+        print(f"build {lib}: {m.group(1)}<{', '.join(map(str, args))}>: "
+              f"{regs} registers, {spill} bytes spill", flush=True)
+        if dp in (48, 80, 160):
+            seen += 1
+            check(spill == 0, f"{fn} (on the path) spills {spill} bytes")
+    return seen
 
 
 def launch_counts(reset: bool = False):
@@ -444,7 +494,8 @@ def print_row(key, row, card):
           f"{row['control_of_limit']:.3g}){extra} | kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}) [{card}]", flush=True)
+          f"({row['bound_by']}, {row['share_of_bound']:.4f} of the kernel's "
+          f"time) [{card}]", flush=True)
 
 
 def phase_kernels(torch, dev, card, serve_steps):
@@ -462,6 +513,7 @@ def phase_kernels(torch, dev, card, serve_steps):
     for shape in attention_shapes(serve_steps):
         for key, row in attention_rows(torch, F, fa, shape, g,
                                        dev).items():
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             results[key].append(row)
             print_row(key, row, card)
     shapes = k4_shapes()
@@ -470,6 +522,7 @@ def phase_kernels(torch, dev, card, serve_steps):
           "K4 shape table")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         results["K4"].append(row)
         print_row("K4", row, card)
     (torch.backends.cuda.matmul.allow_tf32,
@@ -771,9 +824,10 @@ def phase_train(torch, dev, card, built, tok, steps):
 
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
-    library_ms at its heaviest main-path shape, and the same summed over
-    one serving run (serve_path_*) and one train step (train_path_*), each
-    shape weighted by its launches there."""
+    library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
+    shape, and the same summed over one serving run (serve_path_*) and one
+    train step (train_path_*), each shape weighted by its launches
+    there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -785,7 +839,7 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu/ops/flash_attention.py:160",
              "dq: 2^-8|dq| + 2^-4 rms(dq)"),
             ("K3", "flash_attention_bwd_dkv",
-             "view_neti_tpu_torch/csrc/flash_attention_bwd.cu",
+             "view_neti_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
              "view_neti_tpu/ops/flash_attention.py:190",
              "dk, dv: 2^-8|x| + 2^-4 rms(x)"),
             ("K4", "fused_affine_silu_conv3x3",
@@ -798,6 +852,10 @@ def kernel_report(kernels, launches, card):
                 for p in ("serve", "train")
                 if any(p in r["per_run"] for r in rows)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        for p in ("serve", "train"):
+            if f"{p}_path_ms" in path:
+                path[f"{p}_path_share_of_bound"] = (
+                    path[f"{p}_path_bound_ms"] / path[f"{p}_path_ms"])
         report.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(n.get(key, 0) for n in launches.values()),
@@ -808,6 +866,7 @@ def kernel_report(kernels, launches, card):
             control_of_limit=min(r["control_of_limit"] for r in rows),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            share_of_bound=top["share_of_bound"],
             library_ms=top["library_ms"], shape=top["shape"], **path,
             card=card))
     return report
@@ -842,8 +901,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}")
+    # the logs of libraries built earlier come from beside them, so every
+    # run reads the three path buckets of K1 (in two key-tile widths, 64
+    # and 80) and of K3
+    n = check_path_spills(ptxas_usage(logs))
+    check(n == 9, f"found {n} path instantiations of K1/K3 in the build "
+                  f"logs, want 9")
 
     kernels = phase_kernels(torch, dev, card, args.steps)
     serve_launches, _, built, tok = phase_slice(torch, dev, card,

@@ -54,7 +54,7 @@ def _check_attention(q, k, v):
     assert (lse - rlse).abs().max().item() <= 1e-3
 
 
-# ragged q and kv tiles (64 rows each), cross-attention (Lk = 77), the head
+# ragged q and kv tiles, cross-attention (Lk = 77), the head
 # dims of SD-1.5 (40/80/160) and SD-2.1 (64), and the kernel's limits
 # (d = 8 and 256, a single key)
 @pytest.mark.parametrize("B,Lq,Lk,H,d", [
@@ -64,6 +64,26 @@ def test_flash_attention_matches_plain(dev, B, Lq, Lk, H, d):
     _check_attention(_randn((B, Lq, H, d), 0, dev).bfloat16(),
                      _randn((B, Lk, H, d), 1, dev).bfloat16(),
                      _randn((B, Lk, H, d), 2, dev).bfloat16())
+
+
+# K1's new code paths: Lq not a multiple of the 128-query block, Lk around
+# the key-tile widths (one 80-key tile for Lk <= 80, 64-key tiles above)
+@pytest.mark.parametrize("Lq,Lk", [(300, 300), (129, 77), (257, 80),
+                                   (100, 81), (131, 129)])
+def test_flash_attention_tile_edges(dev, Lq, Lk):
+    _check_attention(_randn((2, Lq, 2, 40), 0, dev).bfloat16(),
+                     _randn((2, Lk, 2, 40), 1, dev).bfloat16(),
+                     _randn((2, Lk, 2, 40), 2, dev).bfloat16())
+
+
+# one head dim in each of K1's padded buckets (16, 32, ..., 160, 192, 256),
+# each with a single-tile key range and a streamed one
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160, 192, 256])
+@pytest.mark.parametrize("Lk", [77, 150])
+def test_flash_attention_head_dim_buckets(dev, d, Lk):
+    _check_attention(_randn((1, 140, 2, d), 0, dev).bfloat16(),
+                     _randn((1, Lk, 2, d), 1, dev).bfloat16(),
+                     _randn((1, Lk, 2, d), 2, dev).bfloat16())
 
 
 def test_flash_attention_reads_strided_views(dev):
@@ -122,6 +142,42 @@ def test_flash_attention_bwd_matches_plain(dev, B, Lq, Lk, H, d):
                     _randn((B, Lk, H, d), 1, dev).bfloat16(),
                     _randn((B, Lk, H, d), 2, dev).bfloat16(),
                     _randn((B, Lq, H, d), 3, dev).bfloat16())
+
+
+# one head dim in each of K3's buckets (16, 32, ..., 160, 192)
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160, 192])
+def test_flash_attention_bwd_head_dim_buckets(dev, d):
+    _check_backward(_randn((1, 150, 2, d), 0, dev).bfloat16(),
+                    _randn((1, 140, 2, d), 1, dev).bfloat16(),
+                    _randn((1, 140, 2, d), 2, dev).bfloat16(),
+                    _randn((1, 150, 2, d), 3, dev).bfloat16())
+
+
+# K3 with Lq split across blocks (the last split short: 200 queries in
+# four 64-query splits) and unsplit (the key tiles fill two waves)
+@pytest.mark.parametrize("B,Lq,Lk,H,splits", [
+    (1, 200, 77, 2, 4), (4, 70, 1100, 8, 1)])
+def test_flash_attention_bwd_query_splits(dev, B, Lq, Lk, H, splits):
+    assert tfa.dkv_splits(B, H, Lq, Lk, tfa.sm_count(dev)) == splits
+    _check_backward(_randn((B, Lq, H, 40), 0, dev).bfloat16(),
+                    _randn((B, Lk, H, 40), 1, dev).bfloat16(),
+                    _randn((B, Lk, H, 40), 2, dev).bfloat16(),
+                    _randn((B, Lq, H, 40), 3, dev).bfloat16())
+
+
+def test_flash_attention_bwd_dkv_is_deterministic(dev):
+    """The split reduction sums in a fixed order, with no atomics: two K3
+    calls on the same inputs agree bit for bit."""
+    q, do = (_randn((3, 3072, 2, 40), i, dev).bfloat16() for i in (0, 3))
+    k, v = (_randn((3, 77, 2, 40), i, dev).bfloat16() for i in (1, 2))
+    assert tfa.dkv_splits(3, 2, 3072, 77, tfa.sm_count(dev)) > 1
+    o, lse = tfa.flash_attention(q, k, v)
+    delta = tfa.attention_delta(o, do)
+    first = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bwd_reads_strided_views(dev):

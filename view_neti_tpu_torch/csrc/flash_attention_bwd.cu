@@ -1,59 +1,58 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulators.
+// Flash-attention backward, dq (K2), for Hopper (sm_90a), bf16 in, fp32
+// accumulators.
 //
-// Two kernels replace the two TPU kernels of the custom_vjp backward in
-// view_neti_tpu/ops/flash_attention.py (_flash_bwd_rule):
-//   K2 flash_bwd_dq_kernel  <- _bwd_dq_kernel  (pallas_call at :250)
-//   K3 flash_bwd_dkv_kernel <- _bwd_dkv_kernel (pallas_call at :275)
-// Both recompute the probabilities from the logsumexp that the forward
-// (K1, flash_attention_fwd.cu) wrote, instead of storing them:
+// Replaces the TPU kernel view_neti_tpu/ops/flash_attention.py::
+// _bwd_dq_kernel (pallas_call at :250), one of the two kernels of the
+// custom_vjp backward _flash_bwd_rule; the other, _bwd_dkv_kernel, is K3 in
+// flash_attention_bwd_dkv.cu. It recomputes the probabilities from the
+// logsumexp that the forward (K1, flash_attention_fwd.cu) wrote, instead of
+// storing them:
 //     s  = scale * q k^T          (keys >= Lk masked: p = 0)
 //     p  = exp(s - lse)
 //     ds = p * (do v^T - delta),  delta = rowsum(do * o)  (computed outside)
-//     dq = scale * ds k           (K2)
-//     dv = p^T do,  dk = scale * ds^T q   (K3)
-// q is not pre-scaled: the scale enters in s and again in dq and dk.
+//     dq = scale * ds k
+// q is not pre-scaled: the scale enters in s and again in dq.
 //
-// What bounds them on an H100: at the UNet's self-attention (L = 3072,
-// d = 40) K2 does 6*L*L*d and K3 8*L*L*d operations per head against O(L*d)
-// bytes, so the tensor cores bound them (989 TFLOP/s bf16); at the
-// cross-attention (Lk = 77) the bytes of q, do and lse dominate and memory
-// (3.35 TB/s) bounds them.
+// What bounds it on an H100: at the UNet's self-attention (L = 3072,
+// d = 40) it does 6*L*L*d operations per head against O(L*d) bytes, so the
+// tensor cores bound it (989 TFLOP/s bf16); at the cross-attention
+// (Lk = 77) the bytes of q, do and lse dominate and memory (3.35 TB/s)
+// bounds it.
 //
-// Design (simple and right first; register-resident wgmma versions are
-// later work):
-//   * K2: one block of 4 warps per (64-query tile, batch*head), looping
-//     over 64-key tiles; each warp owns 16 query rows. K3: one block per
-//     (64-key tile, batch*head), looping over all 64-query tiles; each warp
-//     owns 16 key rows. Every warp touches only its own rows of the score,
-//     probability and accumulator tiles, so inside a tile only __syncwarp
-//     is needed; __syncthreads guards the shared operand tiles;
-//   * all four products of each kernel run on the tensor cores through
-//     WMMA 16x16x16 bf16 fragments with fp32 accumulation; the head dim is
-//     zero-padded to a multiple of 16 in shared memory, which leaves every
-//     product unchanged;
+// Design (simple and right first; a register-resident version like K1's
+// and K3's is later work):
+//   * one block of 4 warps per (64-query tile, batch*head), looping over
+//     64-key tiles; each warp owns 16 query rows and touches only its own
+//     rows of the score, ds and accumulator tiles, so inside a tile only
+//     __syncwarp is needed; __syncthreads guards the shared operand tiles;
+//   * all three products run on the tensor cores through WMMA 16x16x16
+//     bf16 fragments with fp32 accumulation; the head dim is zero-padded to
+//     a multiple of 16 in shared memory, which leaves every product
+//     unchanged;
 //   * p stays in fp32 registers (2 columns x 16 rows per lane) between its
 //     computation and the ds step, so the score tile's shared memory is
-//     reused for do v^T; p (K3 only) and ds go to the tensor cores in bf16;
-//   * the dq / dk / dv accumulators live in shared memory as fp32 and are
-//     loaded, added to and stored by each tile's product, as K1 keeps its
-//     output accumulator;
+//     reused for do v^T; ds goes to the tensor cores in bf16;
+//   * the dq accumulator lives in shared memory as fp32 and is loaded,
+//     added to and stored by each tile's product;
 //   * the (B, L, H, d) layout is read through strides (no transposes), and
 //     the ragged edges are bounds-checked (no padding copies): keys >= Lk
-//     contribute p = 0, query rows >= Lq contribute p = 0 to dk / dv, and
-//     rows past the end are never written.
-// Shared memory caps the padded head dim at 192 (K3 holds K, V, Q, dO and
-// two fp32 accumulators of 64 x dp: 1024*dp + 24 KB <= 227 KB).
+//     contribute p = 0, and rows past the end are never written.
+// The backward's head dim is capped at 192, K3's limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <atomic>
 #include <mma.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 using namespace nvcuda;
 
 namespace {
+
+using mma_tiles::ensure_smem_limit;
+using mma_tiles::Strides;
 
 constexpr int kBQ = 64;                    // query rows per tile
 constexpr int kBK = 64;                    // keys per tile
@@ -61,10 +60,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 16;           // one WMMA row block
 constexpr int kMaxDp = 192;
-
-struct Strides {
-  long long b, l, h;
-};
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                              wmma::row_major>;
@@ -79,13 +74,6 @@ using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 __host__ __device__ constexpr size_t dq_smem_bytes(int dp) {
   return size_t(2 * kBQ + 2 * kBK) * dp * 2 + size_t(kBQ) * kBK * 4 +
          size_t(kBQ) * kBK * 2 + size_t(kBQ) * dp * 4;
-}
-
-// K3: K, V, Q, dO tiles (bf16) + score tile (fp32) + p/ds tile (bf16) + dk
-// and dv accumulators (fp32)
-__host__ __device__ constexpr size_t dkv_smem_bytes(int dp) {
-  return size_t(2 * kBK + 2 * kBQ) * dp * 2 + size_t(kBK) * kBQ * 4 +
-         size_t(kBK) * kBQ * 2 + size_t(2 * kBK) * dp * 4;
 }
 
 // Copy rows [row0, row0 + tile_rows) of one head into a (tile_rows x dp)
@@ -245,127 +233,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int Lq,
-                         int Lk, int d, int dp, Strides qs, Strides ks,
-                         Strides vs, Strides dos, Strides dks, Strides dvs,
-                         float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kBK * dp;
-  __nv_bfloat16* Qs = Vs + kBK * dp;
-  __nv_bfloat16* dOs = Qs + kBQ * dp;
-  float* Ss = reinterpret_cast<float*>(dOs + kBQ * dp);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + kBK * kBQ);
-  float* dKs = reinterpret_cast<float*>(Ps + kBK * kBQ);
-  float* dVs = dKs + kBK * dp;
-  __shared__ float lse_s[kBQ];
-  __shared__ float delta_s[kBQ];
-
-  const int bh = blockIdx.y;
-  const int bidx = bh / H;
-  const int h = bh - bidx * H;
-  const int k0 = blockIdx.x * kBK;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wrow = warp * kRowsPerWarp;   // this warp's 16 key rows
-
-  load_tile(Ks, k, ks, bidx, h, k0, Lk, d, dp, kBK);
-  load_tile(Vs, v, vs, bidx, h, k0, Lk, d, dp, kBK);
-  for (int i = threadIdx.x; i < 2 * kBK * dp; i += kThreads) dKs[i] = 0.f;
-
-  float* S = Ss + wrow * kBQ;
-  __nv_bfloat16* P = Ps + wrow * kBQ;
-  const int n_tiles = (Lq + kBQ - 1) / kBQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's Q/dO/lse/delta reads are done
-    load_tile(Qs, q, qs, bidx, h, q0, Lq, d, dp, kBQ);
-    load_tile(dOs, dout, dos, bidx, h, q0, Lq, d, dp, kBQ);
-    load_rows(lse_s, lse, bh, q0, Lq, Lq);
-    load_rows(delta_s, delta, bh, q0, Lq, Lq);
-    __syncthreads();
-
-    // S^T = K Q^T (keys x queries); p^T = exp(scale * S^T - lse[query]);
-    // query columns >= Lq contribute nothing
-    product_abt(S, Ks + wrow * dp, Qs, dp);
-    __syncwarp();
-    const bool ok0 = q0 + lane < Lq;
-    const bool ok1 = q0 + lane + 32 < Lq;
-    const float m0 = lse_s[lane], m1 = lse_s[lane + 32];
-    float p0[kRowsPerWarp], p1[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      p0[r] = ok0 ? expf(S[r * kBQ + lane] * scale - m0) : 0.f;
-      p1[r] = ok1 ? expf(S[r * kBQ + lane + 32] * scale - m1) : 0.f;
-      P[r * kBQ + lane] = __float2bfloat16(p0[r]);
-      P[r * kBQ + lane + 32] = __float2bfloat16(p1[r]);
-    }
-    __syncwarp();
-
-    // dV += p^T dO
-    accumulate_ab(dVs + wrow * dp, P, dOs, dp);
-    __syncwarp();
-
-    // dP^T = V dO^T into the score tile; ds^T = p^T (dP^T - delta[query])
-    // over p in the same tile
-    product_abt(S, Vs + wrow * dp, dOs, dp);
-    __syncwarp();
-    const float dl0 = delta_s[lane], dl1 = delta_s[lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      P[r * kBQ + lane] = __float2bfloat16(p0[r] * (S[r * kBQ + lane] - dl0));
-      P[r * kBQ + lane + 32] =
-          __float2bfloat16(p1[r] * (S[r * kBQ + lane + 32] - dl1));
-    }
-    __syncwarp();
-
-    // dK += ds^T Q
-    accumulate_ab(dKs + wrow * dp, P, Qs, dp);
-    __syncwarp();
-  }
-
-  // dk = scale * dK, dv = dV in k's / v's dtype
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int ki = k0 + wrow + r;
-    if (ki >= Lk) break;
-    __nv_bfloat16* dkd = dk + bidx * dks.b + (long long)ki * dks.l + h * dks.h;
-    __nv_bfloat16* dvd = dv + bidx * dvs.b + (long long)ki * dvs.l + h * dvs.h;
-    for (int c = lane; c < d; c += 32) {
-      dkd[c] = __float2bfloat16(dKs[(wrow + r) * dp + c] * scale);
-      dvd[c] = __float2bfloat16(dVs[(wrow + r) * dp + c]);
-    }
-  }
-}
-
-// The opt-in shared-memory limit is a property of each function on each
-// device: raise it once per (function, device), at the first launch there.
-template <typename Kernel>
-cudaError_t ensure_smem_limit(Kernel kernel, size_t bytes,
-                              std::atomic<bool>* done) {
-  constexpr int kMaxDevices = 64;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
-    return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < kMaxDevices)
-    done[dev].store(true, std::memory_order_release);
-  return err;
-}
-
 std::atomic<bool> dq_smem_done[64];
-std::atomic<bool> dkv_smem_done[64];
 
 bool bad_shape(int B, int H, int Lq, int Lk, int d) {
   return d <= 0 || d % 8 != 0 || d > kMaxDp || Lq <= 0 || Lk <= 0 ||
@@ -410,38 +278,6 @@ int flash_attention_bwd_dq_bf16(
       Strides{q_sb, q_sl, q_sh}, Strides{k_sb, k_sl, k_sh},
       Strides{v_sb, v_sl, v_sh}, Strides{do_sb, do_sl, do_sh},
       Strides{dq_sb, dq_sl, dq_sh}, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same inputs; dk, dv: (B, Lk, H, d) bf16 with the given strides.
-// Launches K3 on `stream`; returns the launch's cudaError_t.
-int flash_attention_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Lq, int Lk, int d, long long q_sb, long long q_sl, long long q_sh,
-    long long k_sb, long long k_sl, long long k_sh, long long v_sb,
-    long long v_sl, long long v_sh, long long do_sb, long long do_sl,
-    long long do_sh, long long dk_sb, long long dk_sl, long long dk_sh,
-    long long dv_sb, long long dv_sl, long long dv_sh, float scale,
-    void* stream) {
-  if (bad_shape(B, H, Lq, Lk, d))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int dp = (d + 15) / 16 * 16;
-  const cudaError_t err = ensure_smem_limit(
-      flash_bwd_dkv_kernel, dkv_smem_bytes(kMaxDp), dkv_smem_done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lk + kBK - 1) / kBK, B * H);
-  flash_bwd_dkv_kernel<<<grid, kThreads, dkv_smem_bytes(dp),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
-      Lq, Lk, d, dp, Strides{q_sb, q_sl, q_sh}, Strides{k_sb, k_sl, k_sh},
-      Strides{v_sb, v_sl, v_sh}, Strides{do_sb, do_sl, do_sh},
-      Strides{dk_sb, dk_sl, dk_sh}, Strides{dv_sb, dv_sl, dv_sh}, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,24 +2,28 @@
 
 Each source in view_neti_tpu_torch/csrc/ is compiled on first use into a
 shared library with a plain C interface under build/kernels/ at the root of
-the checkout. The library's name carries a hash of its source and flags, so
-an edited source never loads a stale build. `build()` starts one nvcc
-process per missing library, all at once, and waits for them together.
+the checkout, with the compiler's output (ptxas registers and spills) in a
+.log beside it. The library's name carries a hash of its source, the
+headers it includes and the flags, so an edited source never loads a stale
+build. `build()` starts one nvcc process per missing library, all at once,
+and waits for them together.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_conv")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+                  "flash_attention_bwd_dkv", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,21 +45,37 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and the csrc headers it includes, directly or through
+    another header."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in re.findall(
+            r'^#include "([^"]+)"', path.read_text(), re.MULTILINE)]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b"".join(p.read_bytes() for p in _sources(name))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
     """Compile every library in `names` that is not built yet, in parallel.
-    Returns the compiler's output (register and shared-memory use) by name;
-    raises with that output if a compile fails."""
+    Returns the compiler's output (register and shared-memory use) of every
+    library in `names` by name, from the log kept beside a library built
+    earlier; raises with that output if a compile fails."""
     jobs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -63,18 +83,20 @@ def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, proc, tmp, out))
-    logs: Dict[str, str] = {}
     failed = []
     for name, proc, tmp, out in jobs:
         log, _ = proc.communicate()
-        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        tmp_log = tmp.with_suffix(".log.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, out.with_suffix(".log"))
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return logs
+    return {name: library_path(name).with_suffix(".log").read_text()
+            for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,7 +5,8 @@ joins them.
 Replaces view_neti_tpu/ops/flash_attention.py: K1 its _fwd_kernel (launched
 by _flash_fwd), K2 and K3 its _bwd_dq_kernel and _bwd_dkv_kernel (launched
 by _flash_bwd_rule, the custom_vjp backward). The CUDA sources are
-csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu; see their
+csrc/flash_attention_fwd.cu (K1), csrc/flash_attention_bwd.cu (K2) and
+csrc/flash_attention_bwd_dkv.cu (K3, with its split reduction); see their
 headers for the design and what bounds each kernel on an H100.
 
 Layout at this module's functions is the JAX package's: q (B, Lq, H, d),
@@ -18,6 +19,8 @@ and bounds checks in the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -29,10 +32,53 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P]
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P]
-_DKV_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 18 + [_F, _P]
-# K3 keeps two fp32 (64 x d) accumulators in shared memory beside its
-# operand tiles, which caps the head dim of the backward
+_DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 18 + [_F, _P]
+# K3 keeps a warp's dK and dV accumulators (2 x 16 x d fp32) in registers
+# beside its score fragments, which caps the head dim of the backward
 MAX_BWD_HEAD_DIM = 192
+# K3's key rows per block and the query granule of its split across blocks;
+# the library reports its own, and the first launch checks they agree
+DKV_KEY_TILE = 128
+DKV_QUERY_GRANULE = 64
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _check_dkv_tiles() -> None:
+    lib = build.load("flash_attention_bwd_dkv")
+    have = (lib.flash_attention_bwd_dkv_key_tile(),
+            lib.flash_attention_bwd_dkv_query_granule())
+    if have != (DKV_KEY_TILE, DKV_QUERY_GRANULE):
+        raise RuntimeError(f"flash_attention_bwd_dkv: the library's key tile "
+                           f"and query granule {have} are not the wrapper's "
+                           f"{(DKV_KEY_TILE, DKV_QUERY_GRANULE)}")
+
+
+def dkv_splits(B: int, H: int, Lq: int, Lk: int, sms: int) -> int:
+    """How many query splits K3 runs on a card with `sms` multiprocessors:
+    1 when its (key tile, batch*head) blocks already fill two waves, else
+    enough splits of whole 64-query granules to reach about two waves. Each
+    split holds at least one granule:
+    (splits - 1) * dkv_split_rows(Lq, splits) < Lq."""
+    blocks = math.ceil(Lk / DKV_KEY_TILE) * B * H
+    if blocks >= 2 * sms:
+        return 1
+    granules = math.ceil(Lq / DKV_QUERY_GRANULE)
+    want = min(granules, math.ceil(2 * sms / blocks))
+    # splits = ceil(granules / per_split) leaves no split empty
+    return math.ceil(granules / math.ceil(granules / want))
+
+
+def dkv_split_rows(Lq: int, splits: int) -> int:
+    """The queries of each of K3's splits (the last may hold fewer): whole
+    64-query granules."""
+    granules = math.ceil(Lq / DKV_QUERY_GRANULE)
+    return math.ceil(granules / splits) * DKV_QUERY_GRANULE
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -196,20 +242,30 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     flash_attention_bwd_dq.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K3 or
-    raises."""
+    raises. Where dkv_splits > 1, K3 splits Lq across blocks into an fp32
+    scratch allocated here, and its reduction kernel sums the splits in a
+    fixed order (no atomics: the result is the same from run to run)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, need_dq=False)[1:]
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    _check_dkv_tiles()
     B, Lq, H, d = q.shape
+    Lk = k.shape[1]
+    splits = dkv_splits(B, H, Lq, Lk, sm_count(q.device))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    fn = build.entry("flash_attention_bwd", "flash_attention_bwd_dkv_bf16",
-                     _DKV_ARGTYPES)
+    part = (torch.empty((2, splits, B * H, Lk, d), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    fn = build.entry("flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, H, Lq, k.shape[1], d, *_strides(q, k, v, do, dk, dv),
-             d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_bwd", err, "flash_attention_bwd_dkv_bf16")
+             part.data_ptr() if part is not None else None, B, H, Lq, Lk, d,
+             splits, dkv_split_rows(Lq, splits),
+             *_strides(q, k, v, do, dk, dv), d ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_bwd_dkv", err,
+                "flash_attention_bwd_dkv_bf16")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
