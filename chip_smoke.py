@@ -8,17 +8,19 @@ Phases; any failure ends the run with a non-zero exit:
   2. build   -- nvcc builds the four kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
                 kernel's registers and spills; the instantiations the two
-                paths run (K1 and K3 at head dims 40, 80, 160) must not
-                spill;
+                paths run (K1, K2 and K3 at head dims 40, 80, 160, and
+                every K4 instantiation) must not spill;
   3. kernels -- the flash-attention forward (K1), its backward (K2 dq, K3
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path and the 384x512 B=9
                 train step give them (plus one SD-2.1 d=64 K1 shape), bf16
                 inputs from a seed, held against their plain versions in
                 fp32 with TF32 off, each limit with a control it must
-                catch, and timed with CUDA events beside the plain version,
-                one PyTorch library call and the card's bound (and the
-                bound's share of the kernel's time);
+                catch (K4 two: a lost input-channel chunk and the halo
+                padded before the SiLU), and timed with CUDA events
+                beside the plain version, one PyTorch library call and
+                the card's bound (and the bound's share of the kernel's
+                time);
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -161,19 +163,21 @@ def ptxas_usage(logs):
 
 
 def check_path_spills(usage):
-    """The instantiations of K1 and K3 at the paths' head-dim buckets (48,
-    80, 160) must spill nothing; prints every K1/K3 instantiation."""
+    """The instantiations of K1, K2 and K3 at the paths' head-dim buckets
+    (48, 80, 160) and every K4 instantiation must spill nothing; prints
+    every instantiation of the four kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
-        m = re.search(r"(flash_fwd_kernel|flash_bwd_dkv_kernel)I((?:Li\d+E)+)",
+        m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                      r"flash_bwd_dkv_kernel|fused_conv_kernel)I((?:Li\d+E)+)",
                       fn)
         if not m:
             continue
         args = [int(a) for a in re.findall(r"\d+", m.group(2))]
-        dp = args[0]
         print(f"build {lib}: {m.group(1)}<{', '.join(map(str, args))}>: "
               f"{regs} registers, {spill} bytes spill", flush=True)
-        if dp in (48, 80, 160):
+        # K1-K3's first template argument is the head-dim bucket
+        if m.group(1) == "fused_conv_kernel" or args[0] in (48, 80, 160):
             seen += 1
             check(spill == 0, f"{fn} (on the path) spills {spill} bytes")
     return seen
@@ -449,16 +453,27 @@ def k4_row(torch, F, fc, shape, g, dev):
             x[..., :cin], a[:, :cin], b[:, :cin], w[:, :, :cin], bias,
             residual=res, out_dtype=torch.float32)
 
+    def padded_before_silu():
+        # the zero padding applied to x, not to silu(a x + b): the border
+        # taps read silu(b) instead of 0, the fault of a halo tile staged
+        # without its out-of-image mask
+        pad = (0, 0, 1, 1, 1, 1)
+        return fc.fused_affine_silu_conv3x3_ref(
+            F.pad(x, pad), a, b, w, bias,
+            residual=F.pad(res, pad) if use_res else None,
+            out_dtype=torch.float32)[:, 1:-1, 1:-1]
+
     want = ref()
     # bf16 output rounding plus 2e-2 for summation order
     tol = 2e-2 + 2 ** -8 * want.abs()
     ratio = of_limit(out, want, tol)
-    # the control: the last 32 input channels left out, the fault of a
-    # lost k-step of the kernel's 32-channel loop
-    control = of_limit(ref(Ci - 32), want, tol)
+    # the controls: the last chunk of input channels left out (a lost
+    # chunk of the kernel's channel loop), and the halo fault above
+    controls = dict(chunk=of_limit(ref(Ci - fc.CIN_CHUNK), want, tol),
+                    halo=of_limit(padded_before_silu(), want, tol))
     check(ratio <= 1, f"K4 disagrees at {label}: {ratio:.3g} of the limit")
-    check(control > 1, f"K4's limit at {label} misses a lost k-step "
-                       f"({control:.3g} of the limit)")
+    check(min(controls.values()) > 1,
+          f"K4's limit at {label} misses a control's fault: {controls}")
     gn_w = torch.ones(Ci, device=dev, dtype=torch.bfloat16)
     gn_b = torch.zeros(Ci, device=dev, dtype=torch.bfloat16)
     x_cl = x.permute(0, 3, 1, 2)
@@ -477,7 +492,8 @@ def k4_row(torch, F, fc, shape, g, dev):
                     + 8.0 * B * Ci)
     return dict(shape=label, per_run=per_run,
                 max_abs_err=(out.float() - want).abs().max().item(),
-                err_of_limit=ratio, control_of_limit=control,
+                err_of_limit=ratio,
+                control_of_limit=min(controls.values()), controls=controls,
                 ms=time_ms(torch, lambda: fc.fused_affine_silu_conv3x3(
                     x, a, b, w, bias, residual=res)),
                 plain_ms=time_ms(torch, lambda:
@@ -489,6 +505,9 @@ def k4_row(torch, F, fc, shape, g, dev):
 
 def print_row(key, row, card):
     extra = (f", lse {row['lse_err']:.3g}" if "lse_err" in row else "")
+    if "controls" in row:
+        extra += ", controls " + ", ".join(
+            f"{k} {v:.3g}" for k, v in row["controls"].items())
     print(f"{key} {row['shape']}: err {row['max_abs_err']:.3g} "
           f"({row['err_of_limit']:.3g} of the limit; control "
           f"{row['control_of_limit']:.3g}){extra} | kernel "
@@ -835,7 +854,7 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu/ops/flash_attention.py:83",
              "o: 2^-8|o| + 2^-4 rms(o), lse: 1e-3"),
             ("K2", "flash_attention_bwd_dq",
-             "view_neti_tpu_torch/csrc/flash_attention_bwd.cu",
+             "view_neti_tpu_torch/csrc/flash_attention_bwd_dq.cu",
              "view_neti_tpu/ops/flash_attention.py:160",
              "dq: 2^-8|dq| + 2^-4 rms(dq)"),
             ("K3", "flash_attention_bwd_dkv",
@@ -905,10 +924,10 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
     # run reads the three path buckets of K1 (in two key-tile widths, 64
-    # and 80) and of K3
+    # and 80), of K2 and of K3, and K4's two output-channel tiles
     n = check_path_spills(ptxas_usage(logs))
-    check(n == 9, f"found {n} path instantiations of K1/K3 in the build "
-                  f"logs, want 9")
+    check(n == 14, f"found {n} path instantiations of K1-K4 in the build "
+                   f"logs, want 14")
 
     kernels = phase_kernels(torch, dev, card, args.steps)
     serve_launches, _, built, tok = phase_slice(torch, dev, card,

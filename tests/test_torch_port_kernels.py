@@ -187,6 +187,43 @@ def test_flash_attention_bwd_reads_strided_views(dev):
     _check_backward(q, k, v, do)
 
 
+def _check_dq(q, k, v, do):
+    """K2 alone against the plain backward's dq from the same lse and
+    delta."""
+    o, lse = tfa.flash_attention(q, k, v)
+    delta = tfa.attention_delta(o, do)
+    before = tfa.flash_attention_bwd_dq.launches
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dq.launches == before + 1
+    ref = tfa._bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta, need_dkv=False)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert bool(((dq.float() - ref).abs() <= _bwd_tolerance(ref)).all())
+
+
+# K2's 128-query blocks (two 16-row blocks a warp at d 40, one at d 80)
+# and 64-key tiles: Lq around the block, Lk around the tile
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("Lq,Lk", [(127, 63), (129, 64), (257, 65),
+                                   (129, 130)])
+def test_flash_attention_bwd_dq_tile_edges(dev, Lq, Lk, d):
+    _check_dq(_randn((2, Lq, 2, d), 0, dev).bfloat16(),
+              _randn((2, Lk, 2, d), 1, dev).bfloat16(),
+              _randn((2, Lk, 2, d), 2, dev).bfloat16(),
+              _randn((2, Lq, 2, d), 3, dev).bfloat16())
+
+
+# one head dim in each of K2's buckets (16, 32, ..., 160, 192): Q and dO
+# in registers up to 128, from shared memory above
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80, 96, 120, 160, 192])
+def test_flash_attention_bwd_dq_head_dim_buckets(dev, d):
+    _check_dq(_randn((1, 150, 3, d), 4, dev).bfloat16(),
+              _randn((1, 140, 3, d), 5, dev).bfloat16(),
+              _randn((1, 140, 3, d), 6, dev).bfloat16(),
+              _randn((1, 150, 3, d), 7, dev).bfloat16())
+
+
 def test_flash_attention_function_on_the_card(dev):
     """FlashAttention.apply runs K1 forward and K2/K3 backward; with q
     frozen K2 is skipped."""
@@ -249,18 +286,8 @@ def test_flash_attention_bwd_refuses_what_the_kernels_do_not_take(dev):
                 fn(q, k, v, do, lse, delta)
 
 
-# (Cin, Cout, bias, add_bc, residual dtype, output dtype): ragged Cout (the
-# decoder's conv_out has 3), a ragged output-channel tile, every epilogue
-# term, Cin below one 32-channel k-step and not a multiple of it, fp32
-# residual and output
-@pytest.mark.parametrize("Ci,Co,use_bias,use_add,res,out", [
-    (16, 3, True, False, None, "bfloat16"),
-    (64, 72, True, True, "bfloat16", "bfloat16"),
-    (128, 128, True, False, "bfloat16", "bfloat16"),
-    (8, 16, False, True, "float32", "float32"),
-    (40, 64, True, True, None, "float32")])
-def test_fused_conv_matches_plain(dev, Ci, Co, use_bias, use_add, res, out):
-    B, H, W = 2, 9, 13
+def _check_conv(dev, B, H, W, Ci, Co, use_bias=True, use_add=False,
+                res=None, out="bfloat16"):
     x = _randn((B, H, W, Ci), 0, dev).bfloat16()
     a = 1 + _randn((B, Ci), 1, dev, 0.1)
     b = _randn((B, Ci), 2, dev, 0.1)
@@ -285,6 +312,45 @@ def test_fused_conv_matches_plain(dev, Ci, Co, use_bias, use_add, res, out):
     else:
         tol = 2e-2 + 2 ** -8 * want.abs()
     assert bool(((got.float() - want).abs() <= tol).all())
+
+
+# (Cin, Cout, bias, add_bc, residual dtype, output dtype): ragged Cout (the
+# decoder's conv_out has 3), a ragged output-channel tile, every epilogue
+# term, Cin below one 64-channel chunk and not a multiple of it, fp32
+# residual and output
+@pytest.mark.parametrize("Ci,Co,use_bias,use_add,res,out", [
+    (16, 3, True, False, None, "bfloat16"),
+    (64, 72, True, True, "bfloat16", "bfloat16"),
+    (128, 128, True, False, "bfloat16", "bfloat16"),
+    (8, 16, False, True, "float32", "float32"),
+    (40, 64, True, True, None, "float32")])
+def test_fused_conv_matches_plain(dev, Ci, Co, use_bias, use_add, res, out):
+    _check_conv(dev, 2, 9, 13, Ci, Co, use_bias, use_add, res, out)
+
+
+# K4's pixel tiles (4 x 32 at 128 output channels, 8 x 32 at 16), 64-channel
+# chunks and 128-channel output tiles: H and W across tile seams in both
+# directions (neither a multiple of the tile), W below one tile, H = 1, Cin
+# not a multiple of the chunk, Cout above one output tile and ragged, B > 1
+# with add_bc and an fp32 residual
+@pytest.mark.parametrize("B,H,W,Ci,Co,use_add,res,out", [
+    (2, 9, 70, 64, 128, False, None, "bfloat16"),
+    (1, 6, 5, 72, 40, True, "bfloat16", "bfloat16"),
+    (1, 1, 40, 128, 16, False, "bfloat16", "bfloat16"),
+    (3, 7, 33, 136, 200, True, "float32", "bfloat16"),
+    (2, 5, 64, 96, 130, True, "float32", "float32"),
+    (2, 4, 32, 512, 8, False, None, "bfloat16")])
+def test_fused_conv_tile_edges(dev, B, H, W, Ci, Co, use_add, res, out):
+    _check_conv(dev, B, H, W, Ci, Co, True, use_add, res, out)
+
+
+# each output-channel tile of K4 (16 and 128) at the narrow Couts of the
+# VAE (3, 8) and a wider one, whatever conv_n_tile would pick
+@pytest.mark.parametrize("n_tile", [16, 128])
+@pytest.mark.parametrize("Co", [3, 8, 24])
+def test_fused_conv_each_n_tile(dev, monkeypatch, n_tile, Co):
+    monkeypatch.setattr(tfc, "conv_n_tile", lambda cout: n_tile)
+    _check_conv(dev, 2, 10, 37, 72, Co, True, True, "bfloat16")
 
 
 def test_fused_conv_refuses_what_the_kernel_does_not_take(dev):

@@ -1,8 +1,8 @@
-// Register-level building blocks of the flash-attention kernels K1
-// (flash_attention_fwd.cu) and K3 (flash_attention_bwd_dkv.cu): cp.async
-// copies with zero fill, ldmatrix loads and the bf16 mma.sync.m16n8k16
-// tensor-core product with fp32 accumulators; K2 (flash_attention_bwd.cu)
-// shares its Strides and ensure_smem_limit.
+// Register-level building blocks of the hand-written kernels K1
+// (flash_attention_fwd.cu), K2 (flash_attention_bwd_dq.cu), K3
+// (flash_attention_bwd_dkv.cu) and K4 (fused_conv.cu): cp.async copies with
+// zero fill, ldmatrix loads and the bf16 mma.sync.m16n8k16 tensor-core
+// product with fp32 accumulators.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4):

@@ -5,7 +5,7 @@ joins them.
 Replaces view_neti_tpu/ops/flash_attention.py: K1 its _fwd_kernel (launched
 by _flash_fwd), K2 and K3 its _bwd_dq_kernel and _bwd_dkv_kernel (launched
 by _flash_bwd_rule, the custom_vjp backward). The CUDA sources are
-csrc/flash_attention_fwd.cu (K1), csrc/flash_attention_bwd.cu (K2) and
+csrc/flash_attention_fwd.cu (K1), csrc/flash_attention_bwd_dq.cu (K2) and
 csrc/flash_attention_bwd_dkv.cu (K3, with its split reduction); see their
 headers for the design and what bounds each kernel on an H100.
 
@@ -223,13 +223,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     B, Lq, H, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    fn = build.entry("flash_attention_bwd", "flash_attention_bwd_dq_bf16",
+    fn = build.entry("flash_attention_bwd_dq", "flash_attention_bwd_dq_bf16",
                      _DQ_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq,
              k.shape[1], d, *_strides(q, k, v, do, dq), d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_bwd", err, "flash_attention_bwd_dq_bf16")
+    build.check("flash_attention_bwd_dq", err, "flash_attention_bwd_dq_bf16")
     flash_attention_bwd_dq.launches += 1
     return dq
 

@@ -18,6 +18,7 @@ zero padding 1, applied to the post-SiLU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,7 +28,27 @@ from view_neti_tpu_torch.ops import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I, _P] + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 7 + [_I, _P] + [_I] * 7 + [_P]
+# the input channels of one staged chunk of the kernel's halo tile; the
+# library reports its own, and the first launch checks they agree
+CIN_CHUNK = 64
+
+
+def conv_n_tile(cout: int) -> int:
+    """The output channels of one K4 block: 16 for the narrow convs (the
+    decoder's conv_out, Cout 3, and the encoder's last conv, Cout 8), whose
+    128-channel tile would be 94-98 % padding, else 128."""
+    return 16 if cout <= 16 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _check_chunk() -> None:
+    fn = build.load("fused_conv").fused_conv_cin_chunk
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    have = fn()
+    if have != CIN_CHUNK:
+        raise RuntimeError(f"fused_conv: the library's input-channel chunk "
+                           f"{have} is not the wrapper's {CIN_CHUNK}")
 
 
 def fused_affine_silu_conv3x3_ref(x, a, b, kernel, bias=None, add_bc=None,
@@ -117,6 +138,7 @@ def fused_affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor,
                  f"not contiguous")
     _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
 
+    _check_chunk()
     out = torch.empty((B, H, W, Cout), dtype=out_dtype, device=x.device)
     fn = build.entry("fused_conv", "fused_affine_silu_conv3x3_bf16",
                      _ARGTYPES)
@@ -128,7 +150,7 @@ def fused_affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor,
              ptr(bias), ptr(add_bc), ptr(residual),
              int(residual is not None and residual.dtype == torch.float32),
              out.data_ptr(), int(out_dtype == torch.float32),
-             B, H, W, Cin, Cout,
+             B, H, W, Cin, Cout, conv_n_tile(Cout),
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("fused_conv", err, "fused_affine_silu_conv3x3_bf16")
     fused_affine_silu_conv3x3.launches += 1
