@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (view_neti_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--steps N] [--train-steps N]
+    python3 chip_smoke.py [--steps N] [--train-steps N] [--coach-steps N]
 
 Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
@@ -40,7 +40,23 @@ Phases; any failure ends the run with a non-zero exit:
                 parameters and every kernel's launch count, a check that
                 the kernels' gradient descends (central difference along
                 -g with the draws held fixed), a stage split and a profile;
-  6. report  -- one JSON line of per-kernel results, then the result line.
+  6. coach   -- the training Coach end to end on the shipped mode-2 recipe,
+                as bench.py:_bench_e2e drives the JAX one: six synthetic
+                1600x1200 DTU PNG scans written by the port's PNG writer,
+                the config of the bench (mode 2, arch 15, SD-1.5, preset 7,
+                DTU preprocess 1, fused batch 9, bf16), the uint8 base cache
+                on the card and the preset-7 augmentation there, 2 warm-up
+                and --coach-steps timed steps, the final msgpack
+                checkpoint; prints imgs/sec (the median over the tail half
+                of the per-step rates, and wall time over the timed steps)
+                beside the train phase's raw step, the cache fill, the
+                decode and resize per image, peak memory, the augmentation's
+                device time and launches, and one profiled Coach step;
+                checks the losses, the launches of K1-K4 per step against
+                the train phase's, the augmentation on the card against its
+                CPU run, the cache against a fresh CPU decode and the saved
+                mappers against the live ones;
+  7. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -197,11 +213,14 @@ def launch_counts(reset: bool = False):
     return {key: fn.launches for key, fn in wrappers.items()}
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, ranges=()):
     """Where the device time of fn goes, from torch.profiler: the span from
     the first kernel's start to the last one's end, the union of kernel
     intervals in it (busy), the idle share, and kernel time by group and
-    by name. None when the profiler saw no device activity."""
+    by name. A record_function range named in `ranges` leaves a span on
+    the device's timeline; the kernels that start inside it form a group of
+    that name, with their count under launches_by_range. None when the
+    profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -210,8 +229,16 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e for e in events if e.name in ranges]
+    events = [e for e in events if e.name not in ranges]
     if not events:
         return None
+
+    def range_of(e):
+        return next((m.name for m in marks
+                     if m.time_range.start <= e.time_range.start
+                     < m.time_range.end), None)
+
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us = 0.0
     cur_s, cur_e = spans[0]
@@ -223,10 +250,14 @@ def device_profile(torch, fn):
             cur_e = max(cur_e, e)
     busy_us += cur_e - cur_s
     span_us = max(e for _, e in spans) - spans[0][0]
-    groups, names = {}, {}
+    groups, names, in_range = {}, {}, {}
     for e in events:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        g = kernel_group(e.name)
+        g = range_of(e)
+        if g is not None:
+            in_range[g] = in_range.get(g, 0) + 1
+        else:
+            g = kernel_group(e.name)
         groups[g] = groups.get(g, 0.0) + ms
         names[e.name[:70]] = names.get(e.name[:70], 0.0) + ms
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
@@ -234,7 +265,7 @@ def device_profile(torch, fn):
                 idle_share=1.0 - busy_us / span_us, kernels=len(events),
                 by_group_ms=dict(sorted(groups.items(),
                                         key=lambda kv: -kv[1])),
-                top_ms=dict(top))
+                launches_by_range=in_range, top_ms=dict(top))
 
 
 def attention_shapes(serve_steps: int):
@@ -841,6 +872,178 @@ def phase_train(torch, dev, card, built, tok, steps):
     return launches, result
 
 
+def write_scan(root, image_io, dtu, np):
+    """bench.py:_bench_e2e's synthetic DTU scan: 64 random cal18 matrices
+    and the six dtu_subset-6 cameras at 1600x1200, pixels from
+    RandomState(0) in the bench's order, written by the port's PNG writer
+    with the rows' filters cycling through all five types."""
+    rect = os.path.join(root, "dtu", "Rectified", "scan114")
+    cal = os.path.join(root, "dtu", "Calibration", "cal18")
+    os.makedirs(rect)
+    os.makedirs(cal)
+    rng = np.random.RandomState(0)
+    for i in range(1, 65):
+        m = rng.randn(3, 4) * 100
+        with open(os.path.join(cal, f"pos_{i:03d}.txt"), "w") as f:
+            f.write("\n".join(" ".join(f"{x:.4f}" for x in r) for r in m))
+    paths = []
+    for i in dtu.dtu_get_train_idxs(6):
+        paths.append(os.path.join(rect, f"rect_{i + 1:03d}_3_r5000.png"))
+        image_io.write_png(paths[-1], rng.randint(0, 255, (1200, 1600, 3),
+                                                  np.uint8))
+    return rect, cal, paths
+
+
+def phase_coach(torch, dev, card, train_result, steps):
+    """The Coach of view_neti_tpu_torch.train on the recipe of
+    bench.py:_bench_e2e (bench.py:394-432), at full width."""
+    import numpy as np
+    from view_neti_tpu_torch import weight_port
+    from view_neti_tpu_torch.checkpoint import CheckpointHandler
+    from view_neti_tpu_torch.config import RunConfig, decode
+    from view_neti_tpu_torch.data import dtu, image_io
+    from view_neti_tpu_torch.data.dataset import DataLoader
+    from view_neti_tpu_torch.ops import device_augment as da
+    from view_neti_tpu_torch.training.coach import Coach
+
+    warm, B = 2, TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rect, cal, paths = write_scan(root, image_io, dtu, np)
+        write_s = time.perf_counter() - t0
+        cfg = decode(RunConfig, {
+            "learnable_mode": 2,
+            "model": {"arch_view_net": 15, "arch_view_disable_tl": False,
+                      "word_embedding_dim": 768,
+                      "pretrained_model_name_or_path":
+                          "runwayml/stable-diffusion-v1-5",
+                      "normalize_view_mapper_output": True,
+                      "output_bypass_alpha_view": 5.0,
+                      "pe_sigma_exp_key": 2},
+            "data": {"camera_representation": "dtu-12d", "dtu_subset": 6,
+                     "dtu_preprocess_key": 1, "repeats": 100,
+                     "train_data_dir": rect, "augmentation_key": 7},
+            "log": {"exp_dir": os.path.join(root, "run"),
+                    "save_dataset_images": False, "save_steps": 10 ** 9,
+                    "report_to": "none"},
+            "eval": {"validation_prompts": None},
+            "optim": {"mixed_precision": "bf16", "fuse_accumulation": True,
+                      "max_train_steps": warm + steps}})
+        t0 = time.perf_counter()
+        coach = Coach(cfg, calibration_dir=cal, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(coach.micro_batch_size == B and coach.use_pixel_cache
+              and coach.augment_spec == da.from_augmentation_key(7),
+              "the Coach did not take the fused, cached, preset-7 path")
+
+        # the counted run: the user's entry point, counts from 0
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        result = coach.train()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = coach.global_step
+        per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+        check(n == warm + steps, f"the Coach ran {n} steps")
+        check(launches == {k: v * n for k, v in per_step.items()},
+              f"coach launches {launches} over {n} steps, want "
+              f"{per_step} a step as the train phase")
+        check(train_result["launches"] == {
+            k: v * (2 + train_result["timed_steps"])
+            for k, v in per_step.items()}, "train launches")
+        losses = coach.losses
+        check(len(losses) == n and all(math.isfinite(x) for x in losses),
+              f"coach losses {losses}")
+        marks = coach.step_marks
+        rates = [B / (b - a) for a, b in zip(marks[:-1], marks[1:])]
+        tail = rates[len(rates) // 2:]
+        ms_step = (coach.loop_end_s - marks[warm - 1]) * 1e3 / steps
+        raw_ms = train_result["ms_per_step"]
+
+        # the bases on the card against a fresh decode and resize on the CPU
+        ds = coach.train_dataset
+        cache = coach.built.pixel_cache.cpu().numpy()
+        decode_ms, resize_ms, fresh = [], [], []
+        for p in ds.image_paths_flattened:
+            t0 = time.perf_counter()
+            img = image_io.read_rgb(p)
+            t1 = time.perf_counter()
+            fresh.append(ds._base_image(img))
+            t2 = time.perf_counter()
+            decode_ms.append((t1 - t0) * 1e3)
+            resize_ms.append((t2 - t1) * 1e3)
+        check(cache.shape == (6, TRAIN_HEIGHT, TRAIN_WIDTH, 3)
+              and np.array_equal(cache, np.stack(fresh)),
+              "the base cache on the card differs from the CPU decode")
+
+        # the saved mappers reload bit for bit
+        run_dir = cfg.log.exp_dir
+        for key, module in (("view", coach.built.text.view_mapper),
+                            ("object", coach.built.text.obj_mappers[0])):
+            _, payload = CheckpointHandler.load_mapper(
+                os.path.join(run_dir, f"mapper-final_{key}.msgpack"))
+            entry = payload["mappers"][
+                "view" if key == "view" else coach.placeholder_object_tokens[0]]
+            saved = weight_port.from_jax_mapper(entry["params"],
+                                                entry["constants"])
+            live = module.state_dict()
+            check(saved.keys() == live.keys() and all(
+                torch.equal(saved[k], live[k].cpu()) for k in live),
+                f"mapper-final_{key}.msgpack differs from the live mapper")
+
+        # the augmentation on the card against its CPU run: draws sampled
+        # on the card, the same bases
+        spec = coach.augment_spec
+        idx = torch.arange(B, device=dev) % cache.shape[0]
+        bases = coach.built.pixel_cache[idx]
+        g = torch.Generator(dev).manual_seed(1)
+        draws = da.sample_augment_draws(g, spec, B, TRAIN_HEIGHT,
+                                       TRAIN_WIDTH)
+        got = da.augment_batch(spec, draws, bases)
+        want = da.augment_batch(spec, draws.to("cpu"), bases.cpu())
+        aug_err = (got.cpu() - want).abs().max().item()
+        check(aug_err <= 1e-4, f"the augmentation on the card differs from "
+                               f"its CPU run by {aug_err}")
+        aug_ms = time_ms(torch, lambda: da.augment_batch(spec, draws, bases))
+        aug_prof = device_profile(torch, lambda: da.augment_batch(
+            spec, draws, bases))
+
+        # one more Coach step under the profiler, the augmentation's
+        # kernels in a group of their own
+        batch = coach._build_batch(next(iter(DataLoader(ds, B))))
+
+        def one_step():
+            coach.train_step(coach.built, batch,
+                             coach._step_draws(10 ** 6, batch))
+
+        prof = device_profile(torch, one_step, ranges=("device_augment",))
+    stats = dict(
+        batch=B, height=TRAIN_HEIGHT, width=TRAIN_WIDTH, warmup_steps=warm, timed_steps=steps,
+        imgs_per_sec=float(np.median(tail)),
+        imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
+        raw_step_ms_per_step=raw_ms, ms_ratio_to_raw_step=ms_step / raw_ms,
+        rates_tail=tail, peak_memory_gib=peak_gb,
+        write_scan_s=write_s, build_s=build_s, train_s=train_s,
+        cache_fill_s=coach.cache_fill_s,
+        decode_ms_per_image=float(np.median(decode_ms)),
+        resize_ms_per_image=float(np.median(resize_ms)),
+        augment_ms=aug_ms,
+        augment_launches=aug_prof["kernels"] if aug_prof else None,
+        augment_busy_ms=aug_prof["busy_ms"] if aug_prof else None,
+        augment_max_abs_err_card_vs_cpu=aug_err,
+        launches_per_step={k: v / n for k, v in launches.items()},
+        losses=losses, final_loss=result["final_loss"],
+        timer_rejected=coach.last_step_timer.rejected_total)
+    print(f"coach [{card}]: {json.dumps(stats)}", flush=True)
+    print(f"profile coach step [{card}]: "
+          f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
+    stats["profile"] = prof
+    return launches, stats
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
@@ -898,6 +1101,9 @@ def main() -> int:
     parser.add_argument("--train-steps", type=int, default=5,
                         help="timed train steps after 2 warm-up steps "
                              "(default 5)")
+    parser.add_argument("--coach-steps", type=int, default=12,
+                        help="timed Coach steps after 2 warm-up steps "
+                             "(default 12)")
     args = parser.parse_args()
 
     import torch
@@ -932,10 +1138,18 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, card, args.steps)
     serve_launches, _, built, tok = phase_slice(torch, dev, card,
                                                 args.steps)
-    train_launches, _ = phase_train(torch, dev, card, built, tok,
-                                    args.train_steps)
+    train_launches, train_result = phase_train(torch, dev, card, built, tok,
+                                               args.train_steps)
+    # the Coach builds its own stack: free the slice's and train phase's
+    del built, tok
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    coach_launches, _ = phase_coach(torch, dev, card, train_result,
+                                    args.coach_steps)
     report = kernel_report(kernels, {"serve": serve_launches,
-                                     "train": train_launches}, card)
+                                     "train": train_launches,
+                                     "coach": coach_launches}, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

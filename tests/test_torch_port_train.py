@@ -339,10 +339,10 @@ MODEL = dict(arch_view_net=15, arch_view_disable_tl=False,
 B, IMG, LR, STEPS = 2, 16, 1e-3, 3
 
 
-@pytest.fixture(scope="module")
-def trajectories(tmp_path_factory):
-    """Both stacks, three steps each from the same weights and draws: the
-    loss, the mapper gradients and the mapper parameters after each."""
+def build_both_stacks(tmp_path_factory):
+    """The tiny mode-2 stack built by the JAX package and the port's, with
+    the JAX weights carried across, and one batch for each: (JAX built
+    models, port built models, JAX batch, port batch, batch size)."""
     cal = tmp_path_factory.mktemp("cal")
     rng = np.random.RandomState(0)
     for i in range(1, 65):
@@ -398,6 +398,17 @@ def trajectories(tmp_path_factory):
         input_ids=torch.from_numpy(ids),
         input_ids_placeholder_object=torch.full((B,), obj_id),
         input_ids_placeholder_view=torch.full((B,), view_id))
+    return jb, tb, jbatch, tbatch, B
+
+
+@pytest.fixture(scope="module")
+def trajectories(tmp_path_factory):
+    """Both stacks, three steps each from the same weights and draws: the
+    loss, the mapper gradients and the mapper parameters after each."""
+    jb, tb, jbatch, tbatch, B = build_both_stacks(tmp_path_factory)
+    text = jb.frozen.text
+    sds = twp.from_jax_trainable(_np(jb.trainable), _np(text.obj_constants),
+                                 _np(text.view_constants))
 
     # JAX: a pass-through transformation ahead of the sliced AdamW keeps
     # each step's gradients in the optimizer state

@@ -24,3 +24,43 @@ DTU_TEST_IDX = [
     i for i in range(49) if i not in DTU_TRAIN_IDX + DTU_EXCLUDE_IDX
 ]
 DTU_SPLIT_IDXS = {'test': DTU_TEST_IDX, 'train': DTU_TRAIN_IDX}
+
+# Default validation prompts (reference constants.py:37-42).
+VALIDATION_PROMPTS = [
+    "A photo of a {}",
+    "A photo of a {} on a beach",
+    "App icon of {}",
+    "A painting of {} in the style of Monet",
+]
+
+# Textual-inversion caption templates (reference training/dataset.py,
+# from the diffusers textual_inversion example).
+IMAGENET_TEMPLATES_SMALL = [
+    "a photo of a {}",
+    "a rendering of a {}",
+    "a cropped photo of the {}",
+    "the photo of a {}",
+    "a photo of a clean {}",
+    "a photo of a dirty {}",
+    "a dark photo of the {}",
+    "a photo of my {}",
+    "a photo of the cool {}",
+    "a close-up photo of a {}",
+    "a bright photo of the {}",
+    "a cropped photo of a {}",
+    "a photo of the {}",
+    "a good photo of the {}",
+    "a photo of one {}",
+    "a close-up photo of the {}",
+    "a rendition of the {}",
+    "a photo of the clean {}",
+    "a rendition of a {}",
+    "a photo of a nice {}",
+    "a good photo of a {}",
+    "a photo of the nice {}",
+    "a photo of the small {}",
+    "a photo of the weird {}",
+    "a photo of the large {}",
+    "a photo of a cool {}",
+    "a photo of a small {}",
+]

@@ -1,5 +1,5 @@
-"""DTU helpers the serving path needs: camera <-> token codec, the train
-splits and the calibration reader.
+"""DTU helpers: camera <-> token codec, the train splits, file names and
+the calibration reader.
 
 The port's own copy of the matching parts of view_neti_tpu/data/dtu.py
 (host-side numpy; this layer never touches the accelerator).
@@ -7,7 +7,7 @@ The port's own copy of the matching parts of view_neti_tpu/data/dtu.py
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -39,6 +39,34 @@ def dtu_get_train_idxs(dtu_subset: int) -> List[int]:
     if dtu_subset == -3:
         return list(range(12, 36, 3))
     raise NotImplementedError(f"unknown dtu_subset {dtu_subset}")
+
+
+def dtu_filter_fnames_lighting(image_paths: Sequence[Path],
+                               dtu_lighting: str) -> List[Path]:
+    """Keep only one lighting condition (field 3 of rect_CCC_L_r5000.png)."""
+    return [f for f in image_paths
+            if Path(f).stem.split("_")[2] == str(dtu_lighting)]
+
+
+def dtu_cam_info_from_fname(fname: Union[str, Path]) -> Tuple[int, str]:
+    """(cam_idx, lighting_idx) from a DTU filename. Filenames are
+    1-indexed; the returned cam_idx is 0-indexed."""
+    stem = Path(fname).stem
+    cam_idx, lighting_idx = stem.split("_")[1:3]
+    return int(cam_idx) - 1, lighting_idx
+
+
+def dtu_cam_and_lighting_to_fname(cam_idx: int, lighting_idx: str) -> str:
+    """Inverse of dtu_cam_info_from_fname (re-applies the 1-index shift)."""
+    return f"rect_{cam_idx + 1:03d}_{lighting_idx}_r5000.png"
+
+
+def dtu_filter_image_paths_from_idx(image_paths: Sequence[Path],
+                                    idxs: Sequence[int]) -> List[Path]:
+    """Filter to the given 0-indexed camera idxs, sorted by camera index."""
+    idxs = set(idxs)
+    kept = [f for f in image_paths if dtu_cam_info_from_fname(f)[0] in idxs]
+    return sorted(kept, key=lambda f: dtu_cam_info_from_fname(f)[0])
 
 
 def dtu_cam_params_to_token(cam_params: np.ndarray,

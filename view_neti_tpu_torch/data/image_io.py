@@ -1,0 +1,211 @@
+"""PNG reading and writing and the deterministic resize, without PIL (the
+machine with the card has none).
+
+read_png decodes 8-bit grayscale, gray+alpha, RGB and RGBA PNGs without
+interlacing: the chunks are parsed here, the IDAT stream inflated with zlib
+and the rows unfiltered by a compiled host helper (csrc/png_unfilter.cpp,
+built with the host compiler at first use). `unfilter_plain` is the same
+unfilter in numpy, the reference the tests hold the helper to; the decode
+never falls back to it. write_png writes the same formats with any PNG row
+filter. resize_u8 is the datasets' deterministic resize: torch's
+antialiased bicubic (PIL's kernel, a = -0.5) rounded to uint8, within one
+level of PIL's BICUBIC resize. JPEG is a later module.
+"""
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from pathlib import Path
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}          # PNG color type -> channels
+COLOR_TYPE = {c: t for t, c in CHANNELS.items()}
+FILTERS = ("none", "sub", "up", "average", "paeth")
+
+
+class PNGError(ValueError):
+    pass
+
+
+def _chunks(data: bytes):
+    if data[:8] != SIGNATURE:
+        raise PNGError("not a PNG file")
+    i = 8
+    while i + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[i:i + 8])
+        body = data[i + 8:i + 8 + length]
+        crc = struct.unpack(">I", data[i + 8 + length:i + 12 + length])[0]
+        if zlib.crc32(kind + body) != crc:
+            raise PNGError(f"bad CRC in chunk {kind!r}")
+        yield kind, body
+        i += 12 + length
+        if kind == b"IEND":
+            return
+    raise PNGError("no IEND chunk")
+
+
+def parse_png(data: bytes) -> Tuple[int, int, int, bytes]:
+    """(height, width, channels, inflated filtered rows) of an 8-bit,
+    non-interlaced PNG."""
+    header, idat = None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise PNGError("no IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    if depth != 8 or color not in CHANNELS:
+        raise PNGError(f"unsupported PNG: bit depth {depth}, color type "
+                       f"{color} (8-bit gray, gray+alpha, RGB, RGBA only)")
+    if interlace:
+        raise PNGError("interlaced PNGs are not supported")
+    raw = zlib.decompress(b"".join(idat))
+    channels = CHANNELS[color]
+    if len(raw) != height * (1 + width * channels):
+        raise PNGError("IDAT size does not match the header")
+    return height, width, channels, raw
+
+
+def unfilter_compiled(raw: bytes, height: int, width: int,
+                      channels: int) -> np.ndarray:
+    """(height, width, channels) uint8 by the compiled helper."""
+    from view_neti_tpu_torch.ops import build
+    if len(raw) != height * (1 + width * channels):
+        raise PNGError("filtered rows do not match the image size")
+    fn = build.host_library("png_unfilter").png_unfilter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64]
+    fn.restype = ctypes.c_int
+    out = np.empty((height, width, channels), np.uint8)
+    src = np.frombuffer(raw, np.uint8)
+    err = fn(src.ctypes.data, out.ctypes.data, height, width * channels,
+             channels)
+    if err:
+        raise PNGError(f"unknown filter type in row {err - 1}")
+    return out
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def unfilter_plain(raw: bytes, height: int, width: int,
+                   channels: int) -> np.ndarray:
+    """The same unfilter in numpy. A pixel depends on its left, upper and
+    upper-left neighbours, so the pixels of one anti-diagonal are
+    independent: the loop runs over the width + height - 1 diagonals."""
+    rows = np.frombuffer(raw, np.uint8).reshape(height, 1 + width * channels)
+    kind = rows[:, 0].astype(np.int64)
+    if (kind > 4).any():
+        raise PNGError(f"unknown filter type in row "
+                       f"{int(np.argmax(kind > 4))}")
+    filt = rows[:, 1:].reshape(height, width, channels).astype(np.int64)
+    out = np.zeros((height + 1, width + 1, channels), np.int64)
+    for d in range(height + width - 1):
+        y = np.arange(max(0, d - width + 1), min(height, d + 1))
+        x = d - y
+        a = out[y + 1, x]        # left
+        b = out[y, x + 1]        # up
+        c = out[y, x]            # up-left
+        k = kind[y][:, None]
+        pred = np.select([k == 1, k == 2, k == 3, k == 4],
+                         [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        out[y + 1, x + 1] = (filt[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: Union[str, Path]) -> np.ndarray:
+    """(H, W, C) uint8, C the file's channels (1, 2, 3 or 4)."""
+    height, width, channels, raw = parse_png(Path(path).read_bytes())
+    return unfilter_compiled(raw, height, width, channels)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 as PIL's convert("RGB") gives it: gray replicated,
+    alpha dropped."""
+    if img.ndim == 2:
+        img = img[..., None]
+    c = img.shape[-1]
+    if c in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def read_rgb(path: Union[str, Path]) -> np.ndarray:
+    return to_rgb(read_png(path))
+
+
+def filter_rows(img: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+    """The filtered rows (H, 1 + W * C) of img (H, W, C) uint8, row y with
+    filter kinds[y] (0-4). Filtering reads only the raw image, so each
+    filter runs on the whole image at once."""
+    H, W, C = img.shape
+    x = img.reshape(H, W * C).astype(np.int64)
+    a = np.zeros_like(x)
+    a[:, C:] = x[:, :-C]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, C:] = x[:-1, :-C]
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1,
+                      _paeth(a, b, c)])
+    kinds = np.asarray(kinds, np.int64)
+    filt = (x - preds[kinds, np.arange(H)]) & 0xFF
+    return np.concatenate([kinds[:, None], filt], axis=1).astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray,
+               filters: Optional[Union[int, Sequence[int]]] = None
+               ) -> bytes:
+    """PNG bytes of img (H, W) or (H, W, C) uint8, C in 1-4. filters: one
+    filter type for every row, a sequence of one per row, or None for
+    cycling through all five."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise PNGError("write_png takes uint8 images")
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    if C not in COLOR_TYPE:
+        raise PNGError(f"{C} channels")
+    if filters is None:
+        kinds = np.arange(H) % len(FILTERS)
+    elif isinstance(filters, int):
+        kinds = np.full(H, filters)
+    else:
+        kinds = np.asarray(filters)
+    rows = filter_rows(img, kinds)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, COLOR_TYPE[C], 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: Union[str, Path], img: np.ndarray,
+              filters: Optional[Union[int, Sequence[int]]] = None) -> None:
+    Path(path).write_bytes(encode_png(img, filters))
+
+
+def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C) uint8 by antialiased bicubic
+    interpolation on the CPU, rounded and clamped."""
+    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
+    y = F.interpolate(x.float(), size=(height, width), mode="bicubic",
+                      antialias=True, align_corners=False)
+    y = torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+    return y[0].permute(1, 2, 0).contiguous().numpy()

@@ -7,6 +7,10 @@ the checkout, with the compiler's output (ptxas registers and spills) in a
 headers it includes and the flags, so an edited source never loads a stale
 build. `build()` starts one nvcc process per missing library, all at once,
 and waits for them together.
+
+`host_library` builds a host C++ helper of the same directory (the PNG
+unfilter of data/image_io.py) with the host compiler, the same way. Host
+helpers are not CUDA kernels and stay out of KERNEL_SOURCES.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -131,3 +137,38 @@ def check(name: str, err: int, what: str) -> None:
     if err != 0:
         msg = load(name).kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def _host_cxx() -> str:
+    for cxx in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        if cxx and shutil.which(cxx):
+            return shutil.which(cxx)
+    raise RuntimeError("no host C++ compiler (g++, c++ or clang++) on PATH; "
+                       "view_neti_tpu_torch's host helpers are built on "
+                       "first use")
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host helper csrc/<name>.cpp, compiled first if need be
+    into build/kernels/lib<name>-<hash>.so (the hash covers the source and
+    the flags; the file is renamed into place once complete)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(
+            HOST_CXX_FLAGS).encode()).hexdigest()[:12]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([_host_cxx(), *HOST_CXX_FLAGS, "-o",
+                                   str(tmp), str(src)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {src.name} failed:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _libs[name] = ctypes.CDLL(str(out))
+        return lib

@@ -305,3 +305,10 @@ class FallbackTokenizer(_TokenizerBase):
             for tok in _CLIP_PAT.findall(piece):
                 ids.append(self._hash_word(tok))
         return ids
+
+
+def load_tokenizer(tokenizer_path: Optional[Union[str, Path]] = None):
+    """The BPE tokenizer if its vocab files exist, else the fallback."""
+    if tokenizer_path is not None and Path(tokenizer_path).exists():
+        return ClipBPETokenizer.from_dir(tokenizer_path)
+    return FallbackTokenizer()

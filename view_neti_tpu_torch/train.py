@@ -1,0 +1,64 @@
+"""The training entry point (scripts/train.py of the JAX package):
+
+    python -m view_neti_tpu_torch.train --config_path input_configs/train.yaml \
+        [--section.key value ...]
+
+It reads the config (YAML and dot-overrides), seeds the host, prepares the
+experiment directory and runs the Coach on the card. DTU_CALIBRATION_DIR
+names the DTU calibration directory; SD_WEIGHTS_DIR (weights on disk) is a
+later module and raises. VIEW_NETI_TINY=1 swaps in the miniature stack
+(builder.tiny_arch(), 16-pixel resolution, the 64x48 DTU preprocess) for
+smoke runs; it does not choose the CPU: `main(argv, device="cpu")` does.
+Validation (the eval.* settings) is the port's next module; the run says
+so and trains without it.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+from typing import Dict, List, Optional
+
+from view_neti_tpu_torch.config import parse_cli
+from view_neti_tpu_torch.utils.misc import fixseed
+
+
+def prepare_directories(cfg) -> None:
+    """Create the experiment directory; refuse to overwrite a non-empty one
+    without log.overwrite_ok."""
+    exp_dir = Path(cfg.log.exp_dir)
+    if cfg.log.exp_name:
+        exp_dir = exp_dir / cfg.log.exp_name
+        cfg.log.exp_dir = exp_dir
+    if exp_dir.exists() and any(exp_dir.iterdir()) \
+            and not cfg.log.overwrite_ok and not cfg.log.resume_from:
+        raise FileExistsError(
+            f"{exp_dir} exists; pass --log.overwrite_ok true to overwrite")
+    exp_dir.mkdir(parents=True, exist_ok=True)
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, float]:
+    cfg = parse_cli(argv)
+    fixseed(cfg.seed)
+    prepare_directories(cfg)
+    from view_neti_tpu_torch.training import builder
+    from view_neti_tpu_torch.training.coach import Coach
+    arch = None
+    if os.environ.get("VIEW_NETI_TINY"):
+        arch = builder.tiny_arch()
+        cfg.model.word_embedding_dim = arch.text.hidden_size
+        cfg.data.resolution = 16
+        cfg.data.dtu_preprocess_key = -1
+    coach = Coach(cfg, arch=arch,
+                  calibration_dir=os.environ.get("DTU_CALIBRATION_DIR"),
+                  weights_dir=os.environ.get("SD_WEIGHTS_DIR"),
+                  device=device)
+    if cfg.eval.validation_prompts is not None:
+        coach.logger.log_message(
+            "eval.* settings are not run yet: validation is the port's "
+            "next module")
+    return coach.train()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

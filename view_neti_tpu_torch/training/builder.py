@@ -90,7 +90,9 @@ def tiny_arch(ctx_dim: int = 32) -> SDArch:
 @dataclass
 class BuiltModels:
     """The model stack, the training noise schedule and the placeholder
-    bookkeeping."""
+    bookkeeping. pixel_cache: the Coach's per-image cache on the device
+    (uint8 bases or latent moments) that a cache_pixels train step indexes,
+    or None."""
     text: TextModels
     unet: UNet2DCondition
     vae: AutoencoderKL
@@ -103,6 +105,7 @@ class BuiltModels:
     view_table: Optional[ViewTokenTable]
     target_norm_object: Optional[List[float]]
     target_norm_view: Optional[float]
+    pixel_cache: Optional[torch.Tensor] = None
 
 
 @torch.no_grad()

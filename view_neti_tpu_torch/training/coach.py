@@ -1,0 +1,513 @@
+"""Coach: the textual-inversion trainer (view_neti_tpu/training/coach.py).
+
+The per-step work is the train step (training/train_step.py); the Coach
+owns the host side: the dataset and its loader, the vocabulary growth, the
+optimizer and its learning-rate table, the caches on the card, the
+per-step random numbers, checkpoint cadence and logging.
+
+What it runs, as the JAX Coach runs it:
+  * fuse_accumulation (the default) runs train_batch_size x
+    gradient_accumulation_steps samples as one batch per optimizer step;
+    off, it accumulates the gradients of k micro-batches and steps once
+    (optax.MultiSteps in the JAX package);
+  * augmentation 0 without a flip: every image's VAE posterior moments are
+    encoded once into a latent cache on the card, and the step samples from
+    them;
+  * an augmentation preset (the shipped mode-2 recipe is 7): the uint8
+    bases are decoded once into a cache on the card (when they fit under
+    VIEW_NETI_DEVICE_BASE_CACHE_MB) and the step augments them there;
+    the host sends only indices;
+  * the random numbers of micro-step m come from a generator on the card
+    seeded with a fixed mix of (seed, m), the counterpart of JAX's
+    fold_in(base, m): they depend on the position alone;
+  * losses are read one step behind, from a pinned copy, so the loop never
+    waits for the step it has just launched;
+  * a checkpoint every log.save_steps (pruned to
+    log.checkpoints_total_limit) and a final one, in the JAX package's
+    files (checkpoint.py).
+
+Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
+scan (make_multi_step), the device mesh, the XLA cost hook. Left for later
+modules: mode 3, validation (the JAX loop validates only with a validator
+attached; the port has none yet and never validates), resume_from,
+loading SD weights from disk, and the dataset contact sheet (utils/vis).
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from view_neti_tpu_torch import weight_port
+from view_neti_tpu_torch.checkpoint import CheckpointHandler
+from view_neti_tpu_torch.config import RunConfig
+from view_neti_tpu_torch.data.dataset import (DataLoader,
+                                              TextualInversionDataset)
+from view_neti_tpu_torch.data.loader import PrefetchLoader
+from view_neti_tpu_torch.ops import device_augment
+from view_neti_tpu_torch.tokenizer import FallbackTokenizer, load_tokenizer
+from view_neti_tpu_torch.training import builder
+from view_neti_tpu_torch.training.logger import CoachLogger
+from view_neti_tpu_torch.training.optim import (SlicedAdamW,
+                                                make_lr_schedule,
+                                                scaled_learning_rate,
+                                                trainable_mask_keys)
+from view_neti_tpu_torch.training.train_step import (TrainBatch,
+                                                     make_train_step,
+                                                     sample_step_draws)
+from view_neti_tpu_torch.utils.device import resolve_device
+from view_neti_tpu_torch.utils.misc import fixseed
+from view_neti_tpu_torch.utils.profiling import StepTimer
+
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, micro_step: int) -> int:
+    """The generator seed of a micro-step: splitmix64's finaliser over
+    (seed, micro_step), so nearby positions get unrelated streams."""
+    z = (seed * 0x9E3779B97F4A7C15
+         + (micro_step + 1) * 0xD1B54A32D192ED03) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+class Coach:
+    def __init__(self, cfg: RunConfig,
+                 arch: Optional[builder.SDArch] = None,
+                 calibration_dir: Optional[str] = None,
+                 weights_dir: Optional[str] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.logger = CoachLogger(cfg)
+        if cfg.optim.seed is not None:
+            fixseed(cfg.optim.seed)
+        if cfg.learnable_mode == 3:
+            raise NotImplementedError(
+                "mode 3 is a later module of the port")
+        if cfg.log.resume_from:
+            raise NotImplementedError(
+                "log.resume_from: the port's resume format is a later "
+                "module")
+        if weights_dir is not None:
+            raise NotImplementedError(
+                "loading SD weights from disk is a later module of the "
+                "port; the frozen stack is seeded random weights")
+        self.logger.log_message(
+            "TPU-only settings are ignored: parallel.*, "
+            "optim.steps_per_dispatch, log.checkpoint_backend=orbax")
+        mp = cfg.optim.mixed_precision
+        if mp is False:  # YAML 1.1 reads a bare `no` as False
+            mp = "no"
+        # fp16 runs bf16, as in the JAX package: the kernels are bf16
+        self.compute_dtype = {"no": torch.float32, "fp16": torch.bfloat16,
+                              "bf16": torch.bfloat16}[mp]
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = cfg.optim.allow_tf32
+
+        # ---- architecture, tokenizer, dataset ----------------------------
+        self.arch = arch or builder.resolve_arch(
+            cfg.model.pretrained_model_name_or_path,
+            cfg.model.word_embedding_dim)
+        if cfg.optim.gradient_checkpointing:
+            self.arch = builder.with_gradient_checkpointing(self.arch)
+        self.tokenizer = load_tokenizer(cfg.data.tokenizer_path)
+        if (isinstance(self.tokenizer, FallbackTokenizer)
+                and self.arch.text.vocab_size
+                != self.tokenizer.base_vocab_size):
+            # keep the hashed ids inside the model's table
+            self.tokenizer = FallbackTokenizer(
+                base_vocab_size=self.arch.text.vocab_size)
+        self.tokenizer.model_max_length = \
+            self.arch.text.max_position_embeddings
+        self.train_dataset = self._init_dataset(calibration_dir)
+        self.placeholder_view_tokens = \
+            self.train_dataset.placeholder_view_tokens
+        self.placeholder_object_tokens = \
+            self.train_dataset.placeholder_object_tokens
+        if cfg.eval.validation_view_tokens is not None:
+            assert all(v in self.placeholder_view_tokens
+                       for v in cfg.eval.validation_view_tokens)
+
+        # ---- models --------------------------------------------------------
+        self.built = builder.build_models(
+            cfg, self.tokenizer, self.placeholder_view_tokens,
+            self.placeholder_object_tokens, arch=self.arch,
+            compute_dtype=self.compute_dtype,
+            calibration_dir=calibration_dir, device=self.device)
+        self._maybe_load_pretrained_mappers()
+        fuse = cfg.optim.fuse_conv
+        self.fuse_conv = (self.device.type == "cuda" if fuse is None
+                          else bool(fuse))
+        if self.fuse_conv:
+            builder.fuse_vae_for_training(self.built.vae)
+
+        # ---- optimizer ---------------------------------------------------
+        o = cfg.optim
+        lr = scaled_learning_rate(o.learning_rate, o.scale_lr,
+                                  o.train_batch_size,
+                                  o.gradient_accumulation_steps,
+                                  num_processes=1)
+        self.lr_schedule = make_lr_schedule(o.lr_scheduler, lr,
+                                            o.lr_warmup_steps,
+                                            o.max_train_steps)
+        self._lr_host = np.asarray(
+            [self.lr_schedule(s) for s in range(o.max_train_steps + 2)],
+            np.float32)
+        self.optimizer = SlicedAdamW(
+            builder.trainable_groups(self.built), self.lr_schedule,
+            o.adam_beta1, o.adam_beta2, o.adam_epsilon, o.adam_weight_decay,
+            frozen_keys=trainable_mask_keys(cfg.learnable_mode)[1])
+        if o.fuse_accumulation and o.gradient_accumulation_steps > 1:
+            self.micro_batch_size = (o.train_batch_size
+                                     * o.gradient_accumulation_steps)
+            self.accum_k = 1
+        else:
+            self.micro_batch_size = o.train_batch_size
+            self.accum_k = o.gradient_accumulation_steps
+
+        # ---- caches on the card and the augmentation ---------------------
+        ds = self.train_dataset
+        self.cache_latents = (cfg.data.augmentation_key == 0
+                              and ds.flip_p == 0.0)
+        self.augment_spec = None
+        if (not self.cache_latents and cfg.data.device_augment
+                and ds.uniform_base_shape):
+            self.augment_spec = device_augment.from_augmentation_key(
+                cfg.data.augmentation_key, ds.flip_p)
+        if self.augment_spec is not None:
+            self.logger.log_message(
+                f"device augmentation active: {self.augment_spec}")
+        self.use_pixel_cache = (self.cache_latents
+                                or (self.augment_spec is not None
+                                    and self._base_cache_fits()))
+        self.train_step = make_train_step(
+            self.optimizer, compute_dtype=self.compute_dtype,
+            from_moments=self.cache_latents, augment=self.augment_spec,
+            cache_pixels=self.use_pixel_cache,
+            accumulation_steps=self.accum_k)
+
+        self.checkpoint_handler = CheckpointHandler(
+            cfg=cfg,
+            placeholder_view_tokens=self.placeholder_view_tokens,
+            placeholder_view_token_ids=self.built.placeholder_view_token_ids,
+            placeholder_object_tokens=self.placeholder_object_tokens,
+            placeholder_object_token_ids=(
+                self.built.placeholder_object_token_ids),
+            save_root=cfg.log.exp_dir)
+        self.global_step = 0
+        seed = cfg.optim.seed if cfg.optim.seed is not None else cfg.seed
+        self._base_seed = int(seed)
+        self._generator = torch.Generator(self.device)
+        # what the loop measured: the host clock after each step's launch,
+        # the end of the loop (after the last step's loss was read), the
+        # logged losses and the cache fill's seconds
+        self.step_marks = []
+        self.loop_end_s = None
+        self.losses = []
+        self.cache_fill_s = None
+
+    # ------------------------------------------------------------------
+    def _init_dataset(self, calibration_dir) -> TextualInversionDataset:
+        cfg = self.cfg
+        return TextualInversionDataset(
+            learnable_mode=cfg.learnable_mode,
+            fixed_object_token_or_path=cfg.data.fixed_object_token_or_path,
+            data_root=cfg.data.train_data_dir,
+            tokenizer=self.tokenizer,
+            size=cfg.data.resolution,
+            placeholder_object_token=cfg.data.placeholder_object_token,
+            repeats=cfg.data.repeats,
+            center_crop=cfg.data.center_crop,
+            caption_strategy=cfg.data.caption_strategy,
+            camera_representation=cfg.data.camera_representation,
+            dtu_lighting=cfg.data.dtu_lighting,
+            dtu_subset=cfg.data.dtu_subset,
+            dtu_preprocess_key=cfg.data.dtu_preprocess_key,
+            augmentation_key=cfg.data.augmentation_key,
+            flip_p=cfg.data.flip_p,
+            calibration_dir=calibration_dir,
+            seed=cfg.seed,
+            set_name="train")
+
+    def _maybe_load_pretrained_mappers(self) -> None:
+        """Modes 4/5: the pretrained view mapper; modes 1/2 with an object
+        mapper checkpoint: that mapper. Both from the msgpack files of
+        checkpoint.py (the JAX package's or the port's)."""
+        cfg = self.cfg
+        text = self.built.text
+        if cfg.learnable_mode in (4, 5) and cfg.model.pretrained_view_mapper:
+            p = Path(cfg.model.pretrained_view_mapper)
+            if p.suffix in (".pt", ".bin", ".pth"):
+                raise NotImplementedError(
+                    f"{p}: importing a reference torch view mapper is a "
+                    "later module; pass a mapper-*_view.msgpack")
+            if p.exists():
+                _, payload = CheckpointHandler.load_mapper(p)
+                entry = payload["mappers"]["view"]
+                text.view_mapper.load_state_dict(weight_port.from_jax_mapper(
+                    entry["params"], entry["constants"]), strict=True)
+                self.logger.log_message(f"loaded pretrained view mapper {p}")
+            else:
+                self.logger.log_message(
+                    f"pretrained view mapper {p} not found; training from "
+                    "fresh init")
+        fot = cfg.data.fixed_object_token_or_path
+        if (cfg.learnable_mode in (1, 2) and fot
+                and str(fot).endswith(".msgpack") and Path(fot).exists()
+                and text.obj_mappers):
+            _, payload = CheckpointHandler.load_mapper(Path(fot))
+            for tok, mapper in zip(self.placeholder_object_tokens,
+                                   text.obj_mappers):
+                if tok in payload["mappers"]:
+                    entry = payload["mappers"][tok]
+                    mapper.load_state_dict(weight_port.from_jax_mapper(
+                        entry["params"], entry["constants"]), strict=True)
+            self.logger.log_message(f"loaded pretrained object mapper {fot}")
+
+    # ------------------------------------------------------------------
+    def train(self) -> Dict[str, float]:
+        cfg = self.cfg
+        ds = self.train_dataset
+        self.logger.log_start_of_training(
+            total_batch_size=(cfg.optim.train_batch_size
+                              * cfg.optim.gradient_accumulation_steps),
+            num_samples=len(ds))
+        if cfg.log.save_dataset_images:
+            self.logger.log_message(
+                "log.save_dataset_images: the contact sheet waits for the "
+                "port of utils/vis; skipped")
+        if len(ds) < self.micro_batch_size:
+            raise ValueError(
+                f"dataset yields {len(ds)} examples (num_images x repeats) "
+                f"< batch {self.micro_batch_size}; raise data.repeats")
+        if self.cache_latents:
+            if self.built.pixel_cache is None:
+                self._fill_latent_cache()
+            ds.skip_pixels = True
+        elif self.augment_spec is not None:
+            if self.use_pixel_cache:
+                self._fill_base_cache()
+                ds.skip_pixels = True
+            else:
+                ds.emit_base_pixels = True
+        k = self.accum_k
+        # the data stream is a function of the batch position, the draws
+        # of the micro-step: a later start replays the same stream
+        micro_step = self.global_step * k
+        if os.environ.get("VIEW_NETI_NO_PREFETCH"):
+            loader = DataLoader(ds, batch_size=self.micro_batch_size,
+                                seed=cfg.seed, start_batch=micro_step)
+            prepare = self._pack
+        else:
+            loader = PrefetchLoader(ds, batch_size=self.micro_batch_size,
+                                    seed=cfg.seed, start_batch=micro_step,
+                                    prepare=self._pack)
+            prepare = None
+
+        def stream():
+            while True:
+                for b in loader:
+                    yield prepare(b) if prepare else b
+
+        batches = stream()
+        last_loss = float("nan")
+        pending = None
+        timer = StepTimer()
+        t0 = time.time()
+        while self.global_step < cfg.optim.max_train_steps:
+            batch = self._to_device(next(batches))
+            draws = self._step_draws(micro_step, batch)
+            metrics = self.train_step(self.built, batch, draws)
+            self.step_marks.append(time.perf_counter())
+            micro_step += 1
+            timer.tick()
+            if micro_step % k:
+                continue
+            self.global_step += 1
+            # read the PREVIOUS step's loss: this step is still running
+            prev = pending
+            pending = (self.global_step,
+                       self._stage(metrics["total_loss"]))
+            if prev is not None:
+                last_loss = self._log_step_metrics(prev, timer)
+            self.logger.update_step(self.global_step)
+            if self.global_step % cfg.log.save_steps == 0:
+                self._save(f"learned_embeds-steps-{self.global_step}"
+                           ".msgpack",
+                           f"mapper-steps-{self.global_step}.msgpack")
+        if pending is not None:
+            last_loss = self._log_step_metrics(pending, timer)
+        self.loop_end_s = time.perf_counter()
+        self.last_step_timer = timer
+        if isinstance(loader, PrefetchLoader):
+            loader.close()
+        self._save("learned_embeds-final.msgpack", "mapper-final.msgpack")
+        wall = time.time() - t0
+        self.logger.log_message(
+            f"training done: {self.global_step} steps in {wall:.1f}s")
+        self.logger.close()
+        return {"steps": self.global_step, "wall_s": wall,
+                "final_loss": last_loss}
+
+    def _stage(self, loss: torch.Tensor):
+        """Start the loss's copy to the host without waiting for it: a
+        pinned buffer and an event on the card, a plain tensor on the
+        CPU."""
+        if loss.device.type != "cuda":
+            return loss, None
+        host = torch.empty((), dtype=loss.dtype, pin_memory=True)
+        host.copy_(loss, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _log_step_metrics(self, pending, timer) -> float:
+        step, (loss, done) = pending
+        if done is not None:
+            done.synchronize()
+        value = float(loss)
+        self.losses.append(value)
+        logs = {"total_loss": value,
+                "lr": float(self._lr_host[min(step,
+                                              len(self._lr_host) - 1)])}
+        ips = timer.imgs_per_sec(self.micro_batch_size)
+        if ips:
+            logs["imgs_per_sec"] = ips
+        self.logger.log_metrics(logs, step=step)
+        if not math.isfinite(value):
+            self.logger.log_message(f"step {step}: loss {value}")
+        return value
+
+    def _step_draws(self, micro_step: int, batch: TrainBatch):
+        self._generator.manual_seed(step_seed(self._base_seed, micro_step))
+        return sample_step_draws(self._generator, self.built, batch,
+                                 from_moments=self.cache_latents,
+                                 augment=self.augment_spec)
+
+    def _pack(self, batch_np) -> Dict:
+        """A collated host batch as torch tensors: the token ids, the two
+        placeholder ids and the image indices in one int64 array (one copy
+        to the card), and the pixels where there is no cache; pinned when
+        the run is on the card."""
+        ids = np.asarray(batch_np["input_ids"], np.int64)
+        ints = np.concatenate(
+            [ids] + [np.asarray(batch_np[k], np.int64)[:, None]
+                     for k in ("input_ids_placeholder_object",
+                               "input_ids_placeholder_view", "image_idxs")],
+            axis=1)
+        host = {"ints": torch.from_numpy(ints), "pixels": None,
+                "length": ids.shape[1],
+                "object_idx": int(batch_np["object_idx"])}
+        if not self.use_pixel_cache:
+            host["pixels"] = torch.from_numpy(
+                np.ascontiguousarray(batch_np["pixel_values"]))
+        if self.device.type == "cuda":
+            for key in ("ints", "pixels"):
+                if host[key] is not None:
+                    host[key] = host[key].pin_memory()
+        return host
+
+    def _to_device(self, host: Dict) -> TrainBatch:
+        ints = host["ints"].to(self.device, non_blocking=True)
+        L = host["length"]
+        pixels = (ints[:, L + 2] if self.use_pixel_cache
+                  else host["pixels"].to(self.device, non_blocking=True))
+        return TrainBatch(pixel_values=pixels, input_ids=ints[:, :L],
+                          input_ids_placeholder_object=ints[:, L],
+                          input_ids_placeholder_view=ints[:, L + 1],
+                          object_idx=host["object_idx"])
+
+    def _build_batch(self, batch_np) -> TrainBatch:
+        """The train batch on the card of a collated host batch: with a
+        cache, pixel_values holds the image indices."""
+        return self._to_device(self._pack(batch_np))
+
+    # ---- caches ------------------------------------------------------
+    def _base_cache_fits(self) -> bool:
+        """Do all uint8 bases fit under VIEW_NETI_DEVICE_BASE_CACHE_MB
+        (default 4096)?"""
+        ds = self.train_dataset
+        limit = int(os.environ.get("VIEW_NETI_DEVICE_BASE_CACHE_MB",
+                                   "4096")) * 1_000_000
+        first = ds._load_base(Path(ds.image_paths_flattened[0]))
+        return first.nbytes * ds.num_images <= limit
+
+    def _fill_base_cache(self) -> None:
+        """Every uint8 base image on the card once; the step gathers rows
+        by index."""
+        if self.built.pixel_cache is not None:
+            return
+        t0 = time.perf_counter()
+        ds = self.train_dataset
+        bases = np.stack([ds._load_base(Path(p))
+                          for p in ds.image_paths_flattened])
+        self.built.pixel_cache = torch.from_numpy(bases).to(self.device)
+        self.cache_fill_s = time.perf_counter() - t0
+        self.logger.log_message(
+            f"device base-image cache: {bases.shape[0]} images "
+            f"({bases.nbytes / 1e6:.0f} MB uint8) in "
+            f"{self.cache_fill_s:.2f} s")
+
+    @torch.no_grad()
+    def _fill_latent_cache(self) -> None:
+        """Every image's VAE posterior moments (fp32), encoded once."""
+        t0 = time.perf_counter()
+        ds = self.train_dataset
+        chunks = []
+        for start in range(0, ds.num_images, 8):
+            pix = np.stack([ds[i]["pixel_values"]
+                            for i in range(start,
+                                           min(start + 8, ds.num_images))])
+            x = torch.from_numpy(pix).to(self.device, self.compute_dtype)
+            chunks.append(self.built.vae.moments(x).float())
+        self.built.pixel_cache = torch.cat(chunks)
+        self.cache_fill_s = time.perf_counter() - t0
+        self.logger.log_message(
+            f"latent cache: {self.built.pixel_cache.shape[0]} images -> "
+            f"moments {tuple(self.built.pixel_cache.shape[1:])}")
+
+    # ---- checkpoints -------------------------------------------------
+    def jax_trainable(self):
+        """(trainable, object constants, view constants) of the live
+        mappers in the JAX tree layout."""
+        text = self.built.text
+        return weight_port.to_jax_trainable(
+            [m.state_dict() for m in text.obj_mappers]
+            if text.obj_mappers else None,
+            text.view_mapper.state_dict()
+            if text.view_mapper is not None else None)
+
+    def _save(self, embeds_name: str, mapper_name: str) -> None:
+        trainable, obj_c, view_c = self.jax_trainable()
+        table = self.built.text.clip.text_model.embeddings.token_embedding
+        self.checkpoint_handler.save_model(
+            trainable=trainable, obj_constants=obj_c, view_constants=view_c,
+            view_table=self.built.view_table,
+            token_table=table.weight.detach().float().cpu().numpy(),
+            embeds_save_name=embeds_name, mapper_save_name=mapper_name)
+        self.logger.log_message(f"saved checkpoint at step "
+                                f"{self.global_step}")
+        if "steps" in embeds_name:
+            self._prune_old_checkpoints()
+
+    def _prune_old_checkpoints(self) -> None:
+        """Keep the newest log.checkpoints_total_limit step checkpoints;
+        final checkpoints are never pruned."""
+        limit = self.cfg.log.checkpoints_total_limit
+        if not limit:
+            return
+        root = Path(self.cfg.log.exp_dir)
+        steps = sorted({
+            int(p.name.split("-steps-")[1].split(".")[0].split("_")[0])
+            for p in root.glob("*-steps-*.msgpack")})
+        for step in steps[:-limit]:
+            for pattern in (f"*-steps-{step}.msgpack",
+                            f"*-steps-{step}_*.msgpack"):
+                for p in root.glob(pattern):
+                    p.unlink()

@@ -6,7 +6,9 @@ the flax tree and a transform (flax HWIO conv kernels -> torch OIHW, flax
 (in, out) dense kernels -> torch (out, in), norm scale -> weight). The
 result loads with load_state_dict(strict=True) into the port's modules.
 Every leaf of the tree must be consumed and every expected key found, or
-the port raises: a partial carry must never pass silently.
+the port raises: a partial carry must never pass silently. For the
+mappers, to_jax_mapper and to_jax_trainable go the other way, so that
+checkpoints carry them in the JAX tree layout (checkpoint.py).
 """
 from __future__ import annotations
 
@@ -286,3 +288,51 @@ def from_jax_trainable(trainable: Mapping,
     if trainable.get("view") is not None:
         out["view"] = from_jax_mapper(trainable["view"], view_constants)
     return out
+
+
+def _set_path(tree: Dict, path: Path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def to_jax_mapper(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Tuple[Dict, Dict]:
+    """The inverse of from_jax_mapper: a port NeTIMapper state_dict ->
+    (params, constants) in the JAX module's tree layout, float32 numpy
+    leaves (dense kernels back to (in, out), LayerNorm weight to scale)."""
+    mapping = mapper_mapping()
+    tree: Dict = {"params": {}, "constants": {}}
+    for key, value in state_dict.items():
+        if key not in mapping:
+            raise KeyError(f"mapper: unexpected state_dict key {key!r}")
+        path, tf = mapping[key]
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        # the dense transform is a transpose, its own inverse
+        _set_path(tree, path, np.ascontiguousarray(arr.T) if tf is _linear_w
+                  else arr)
+    return tree["params"], tree["constants"]
+
+
+def to_jax_trainable(object_state_dicts: Optional[list] = None,
+                     view_state_dict: Optional[Mapping] = None
+                     ) -> Tuple[Dict, Optional[Dict], Optional[Dict]]:
+    """The inverse of from_jax_trainable: the port's object mappers'
+    state_dicts (stacked on a leading axis, the JAX bank) and its view
+    mapper's -> (trainable {"object": bank, "view": params}, the object
+    mappers' constants, the view mapper's constants)."""
+    trainable: Dict = {}
+    obj_constants = view_constants = None
+    if object_state_dicts:
+        trees = [to_jax_mapper(sd) for sd in object_state_dicts]
+
+        def stack(*leaves):
+            if isinstance(leaves[0], Mapping):
+                return {k: stack(*(t[k] for t in leaves)) for k in leaves[0]}
+            return np.stack(leaves)
+
+        trainable["object"] = stack(*(p for p, _ in trees))
+        obj_constants = trees[0][1]
+    if view_state_dict is not None:
+        trainable["view"], view_constants = to_jax_mapper(view_state_dict)
+    return trainable, obj_constants, view_constants
