@@ -12,11 +12,12 @@ Phases; any failure ends the run with a non-zero exit:
                 every K4 instantiation) must not spill;
   3. kernels -- the flash-attention forward (K1), its backward (K2 dq, K3
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
-                shape the SD-1.5 768x576 serving path and the 384x512 B=9
-                train step give them (plus one SD-2.1 d=64 K1 shape), bf16
-                inputs from a seed, held against their plain versions in
-                fp32 with TF32 off, each limit with a control it must
-                catch (K4 two: a lost input-channel chunk and the halo
+                shape the SD-1.5 768x576 serving path, the 384x512 B=9
+                train step and the DTU sweep (B=4 at 768x576, its 512x512
+                object renders) give them (plus one SD-2.1 d=64 K1
+                shape), bf16 inputs from a seed, held against their plain
+                versions in fp32 with TF32 off, each limit with a control
+                it must catch (K4 two: a lost input-channel chunk and the halo
                 padded before the SiLU), and timed with CUDA events
                 beside the plain version, one PyTorch library call and
                 the card's bound (and the bound's share of the kernel's
@@ -56,7 +57,30 @@ Phases; any failure ends the run with a non-zero exit:
                 the train phase's, the augmentation on the card against its
                 CPU run, the cache against a fresh CPU decode and the saved
                 mappers against the live ones;
-  7. report  -- one JSON line of per-kernel results, then the result line.
+  7. weights -- SD-1.5 read from disk: a seeded stack written in the
+                diffusers layout by the port's safetensors writer under
+                build/ (deleted afterwards), loaded by a Coach given
+                weights_dir; every PortReport clean, every parameter equal
+                to the written one, one UNet forward bit-equal; prints the
+                GB read, the load seconds and the peak memory;
+  8. validate -- the shipped mode-2 recipe with validation on: 34
+                synthetic 1600x1200 DTU scans with IDR masks from
+                RandomState(0), the Coach (DTU preprocess 1, preset 7,
+                bf16) trains 3 steps and validates once after its step-2
+                checkpoint: the DTU sweep over the 34 eval cameras at
+                768x576 (seeds [0, 1], 30 steps, CFG 7.5) reloading that
+                checkpoint, masked PSNR / SSIM / LPIPS (random VGG) on the
+                card, the object-token renders; prints the sweep's seconds
+                and sec/image, the metric means, peak memory, and the
+                launches and idle share of one CFG denoise step at the
+                sweep's shapes; checks K1-K4's launches;
+  9. inference -- python -m view_neti_tpu_torch.inference on that run with
+                --debug 1: its predictions equal the sweep's for the first
+                two cameras bit for bit; then python -m
+                view_neti_tpu_torch.summarize_dtu on the sweep's bundle:
+                its per-seed means equal the sweep's per-view means to
+                1e-6;
+ 10. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -80,6 +104,15 @@ BATCH = 6                # 3 seeds x CFG
 HEIGHT, WIDTH = 576, 768
 TRAIN_BATCH = 9          # train_batch_size 3 x gradient_accumulation 3
 TRAIN_HEIGHT, TRAIN_WIDTH = 384, 512
+# the shipped recipe's validation (input_configs/train.yaml): seeds [0, 1],
+# 30 denoising steps; the sweep denoises one camera at a time with CFG
+VAL_SEEDS = [0, 1]
+SWEEP_BATCH = 2 * len(VAL_SEEDS)
+VAL_DENOISE = 30
+VAL_TRAIN_STEPS = 3      # the validate phase's Coach steps ...
+VAL_EVERY = 2            # ... with a checkpoint and a validation at step 2
+EVAL_CAMS = 34           # the DTU eval cameras of inference_dtu.get_cam_idxs
+INFER_CAMS = 2           # offline inference with --debug 1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -269,30 +302,45 @@ def device_profile(torch, fn, ranges=()):
 
 
 def attention_shapes(serve_steps: int):
-    """Every attention shape of the two paths, with its launches per
-    serving run (K1, 30 UNet forwards) and per train step (K1, K2, K3).
+    """Every attention shape of the paths, with its launches per run of
+    each (K1, 30 UNet forwards per serving run; K1, K2, K3 per train step).
 
     SD-1.5 has 8 heads and 5 transformer blocks on each of its three
     attention levels (2 down, 3 up) plus 1 in the mid block; each block
     runs a self- and a cross-attention (Lk = 77). Serving: B = 6 (3 seeds x
-    CFG) at 72x96 latents. Training: B = 9 at 48x64 latents; the first
+    CFG) at 72x96 latents. The DTU sweep (validate, inference; and the
+    weights phase's two UNet forwards): B = 4 (2 seeds x CFG) at 72x96, 30
+    steps a camera. The object-token renders of a validation round: B = 4
+    at 64x64 latents (512x512). Training (the train step and the validate
+    phase's Coach steps): B = 9 at 48x64 latents; the first
     self-attention's inputs need no gradient (no backward) and the first
     cross-attention's q needs none (K3 only), so a step runs K2 30 times
     and K3 31 times. The last row is SD-2.1's level 0 (head dim 64), off
-    both paths."""
+    the paths."""
     shapes = []
-    for path, B, lengths in (("serve", BATCH, (6912, 1728, 432, 108)),
-                             ("train", TRAIN_BATCH, (3072, 768, 192, 48))):
+    for kind, B, lengths in (
+            ("serve", BATCH, (6912, 1728, 432, 108)),
+            ("sweep", SWEEP_BATCH, (6912, 1728, 432, 108)),
+            ("render", SWEEP_BATCH, (4096, 1024, 256, 64)),
+            ("train", TRAIN_BATCH, (3072, 768, 192, 48))):
         for level, (L, d, n) in enumerate(zip(lengths, (40, 80, 160, 160),
                                               (5, 5, 5, 1))):
             for Lk in (L, 77):
-                first = path == "train" and level == 0
-                if path == "serve":
+                first = kind == "train" and level == 0
+                if kind == "serve":
                     per_run = {"K1": {"serve": n * serve_steps}}
+                elif kind == "sweep":
+                    per_run = {"K1": {
+                        "validate": n * VAL_DENOISE * EVAL_CAMS,
+                        "inference": n * VAL_DENOISE * INFER_CAMS,
+                        "weights": 2 * n}}
+                elif kind == "render":
+                    per_run = {"K1": {"validate": n * VAL_DENOISE}}
                 else:
-                    per_run = {"K1": {"train": n},
-                               "K2": {"train": n - first},
-                               "K3": {"train": n - (first and Lk == L)}}
+                    per_run = {
+                        key: {"train": m, "validate": m * VAL_TRAIN_STEPS}
+                        for key, m in (("K1", n), ("K2", n - first),
+                                       ("K3", n - (first and Lk == L)))}
                 shapes.append(dict(B=B, Lq=L, Lk=Lk, H=8, d=d,
                                    per_run=per_run))
     shapes.append(dict(B=BATCH, Lq=6912, Lk=6912, H=5, d=64,
@@ -429,40 +477,42 @@ def attention_rows(torch, F, fa, shape, g, dev):
 
 
 def k4_shapes():
-    """Every norm->SiLU->conv3x3 section of the VAE decoder (serving, B = 3,
-    29 per decode) and of its encoder (training, B = 9, 21 per step):
-    (B, H, W, Cin, Cout, residual, {path: launches per run}). conv1 of each
-    ResNet block has no residual, conv2 adds it."""
-    D, E = BATCH // 2, TRAIN_BATCH
+    """Every norm->SiLU->conv3x3 section of the VAE decoder (29 per decode)
+    and of its encoder (21 per train step): (B, H, W, Cin, Cout, residual,
+    {path: launches per run}). conv1 of each ResNet block has no residual,
+    conv2 adds it. Decodes: serving B = 3 from 72x96 latents; the DTU sweep
+    B = 2 (one camera's seeds) from 72x96, once a camera; the object
+    renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
+    step and in the validate phase's Coach steps."""
+    def decoder(D, h, w, per):
+        return [(D, h * s, w * s, ci, co, res, per(n)) for s, ci, co, res, n
+                in ((1, 512, 512, False, 5), (1, 512, 512, True, 5),
+                    (2, 512, 512, False, 3), (2, 512, 512, True, 3),
+                    (4, 512, 256, False, 1), (4, 256, 256, False, 2),
+                    (4, 256, 256, True, 3), (8, 256, 128, False, 1),
+                    (8, 128, 128, False, 2), (8, 128, 128, True, 3),
+                    (8, 128, 3, False, 1))]
 
-    def serve(n):
-        return {"serve": n}
+    E = TRAIN_BATCH
 
     def train(n):
-        return {"train": n}
+        return {"train": n, "validate": n * VAL_TRAIN_STEPS}
 
-    return [(D, 72, 96, 512, 512, False, serve(5)),
-            (D, 72, 96, 512, 512, True, serve(5)),
-            (D, 144, 192, 512, 512, False, serve(3)),
-            (D, 144, 192, 512, 512, True, serve(3)),
-            (D, 288, 384, 512, 256, False, serve(1)),
-            (D, 288, 384, 256, 256, False, serve(2)),
-            (D, 288, 384, 256, 256, True, serve(3)),
-            (D, 576, 768, 256, 128, False, serve(1)),
-            (D, 576, 768, 128, 128, False, serve(2)),
-            (D, 576, 768, 128, 128, True, serve(3)),
-            (D, 576, 768, 128, 3, False, serve(1)),
-            (E, 384, 512, 128, 128, False, train(2)),
-            (E, 384, 512, 128, 128, True, train(2)),
-            (E, 192, 256, 128, 256, False, train(1)),
-            (E, 192, 256, 256, 256, False, train(1)),
-            (E, 192, 256, 256, 256, True, train(2)),
-            (E, 96, 128, 256, 512, False, train(1)),
-            (E, 96, 128, 512, 512, False, train(1)),
-            (E, 96, 128, 512, 512, True, train(2)),
-            (E, 48, 64, 512, 512, False, train(4)),
-            (E, 48, 64, 512, 512, True, train(4)),
-            (E, 48, 64, 512, 8, False, train(1))]
+    return (decoder(BATCH // 2, 72, 96, lambda n: {"serve": n})
+            + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
+                "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS})
+            + decoder(len(VAL_SEEDS), 64, 64, lambda n: {"validate": n})
+            + [(E, 384, 512, 128, 128, False, train(2)),
+               (E, 384, 512, 128, 128, True, train(2)),
+               (E, 192, 256, 128, 256, False, train(1)),
+               (E, 192, 256, 256, 256, False, train(1)),
+               (E, 192, 256, 256, 256, True, train(2)),
+               (E, 96, 128, 256, 512, False, train(1)),
+               (E, 96, 128, 512, 512, False, train(1)),
+               (E, 96, 128, 512, 512, True, train(2)),
+               (E, 48, 64, 512, 512, False, train(4)),
+               (E, 48, 64, 512, 512, True, train(4)),
+               (E, 48, 64, 512, 8, False, train(1))])
 
 
 def k4_row(torch, F, fc, shape, g, dev):
@@ -568,7 +618,9 @@ def phase_kernels(torch, dev, card, serve_steps):
             print_row(key, row, card)
     shapes = k4_shapes()
     check(sum(s[-1].get("serve", 0) for s in shapes) == 29
-          and sum(s[-1].get("train", 0) for s in shapes) == 21,
+          and sum(s[-1].get("train", 0) for s in shapes) == 21
+          and sum(s[-1].get("validate", 0) for s in shapes)
+          == 29 * (EVAL_CAMS + 1) + 21 * VAL_TRAIN_STEPS,
           "K4 shape table")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
@@ -872,13 +924,18 @@ def phase_train(torch, dev, card, built, tok, steps):
     return launches, result
 
 
-def write_scan(root, image_io, dtu, np):
+def write_scan(root, image_io, dtu, np, cams=None, masks=False):
     """bench.py:_bench_e2e's synthetic DTU scan: 64 random cal18 matrices
-    and the six dtu_subset-6 cameras at 1600x1200, pixels from
+    and the six dtu_subset-6 cameras (or `cams`) at 1600x1200, pixels from
     RandomState(0) in the bench's order, written by the port's PNG writer
-    with the rows' filters cycling through all five types."""
+    with the rows' filters cycling through all five types, in 8 threads.
+    masks: an IDR object mask per camera too (idrmasks/scan114/mask/, an
+    ellipse of seeded centre and radii). Returns (scan, calibration, masks
+    root, image paths)."""
+    from concurrent.futures import ThreadPoolExecutor
     rect = os.path.join(root, "dtu", "Rectified", "scan114")
     cal = os.path.join(root, "dtu", "Calibration", "cal18")
+    mask_dir = os.path.join(root, "dtu", "idrmasks", "scan114", "mask")
     os.makedirs(rect)
     os.makedirs(cal)
     rng = np.random.RandomState(0)
@@ -886,12 +943,49 @@ def write_scan(root, image_io, dtu, np):
         m = rng.randn(3, 4) * 100
         with open(os.path.join(cal, f"pos_{i:03d}.txt"), "w") as f:
             f.write("\n".join(" ".join(f"{x:.4f}" for x in r) for r in m))
-    paths = []
-    for i in dtu.dtu_get_train_idxs(6):
-        paths.append(os.path.join(rect, f"rect_{i + 1:03d}_3_r5000.png"))
-        image_io.write_png(paths[-1], rng.randint(0, 255, (1200, 1600, 3),
-                                                  np.uint8))
-    return rect, cal, paths
+    jobs = []
+    for i in (dtu.dtu_get_train_idxs(6) if cams is None else cams):
+        jobs.append((os.path.join(rect, f"rect_{i + 1:03d}_3_r5000.png"),
+                     rng.randint(0, 255, (1200, 1600, 3), np.uint8)))
+    if masks:
+        os.makedirs(mask_dir)
+        yy, xx = np.mgrid[0:1200, 0:1600]
+        for i in cams:
+            cy, cx, ry, rx = rng.uniform((400, 500, 200, 300),
+                                         (800, 1100, 500, 700))
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+            jobs.append((os.path.join(mask_dir, f"{i:03d}.png"),
+                         (inside * 255).astype(np.uint8)))
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(image_io.write_png, path, img)
+                  for path, img in jobs]:
+            f.result()
+    paths = [p for p, _ in jobs if p.startswith(rect)]
+    return rect, cal, os.path.dirname(os.path.dirname(mask_dir)), paths
+
+
+def mode2_config(rect, exp_dir, **changes):
+    """bench.py:_bench_e2e's mode-2 recipe at full SD-1.5 width (coach
+    phase), DTU preprocess 1: 512x384 training, 768x576 evaluation."""
+    from view_neti_tpu_torch.config import RunConfig, decode
+    data = {
+        "learnable_mode": 2,
+        "model": {"arch_view_net": 15, "arch_view_disable_tl": False,
+                  "word_embedding_dim": 768,
+                  "pretrained_model_name_or_path":
+                      "runwayml/stable-diffusion-v1-5",
+                  "normalize_view_mapper_output": True,
+                  "output_bypass_alpha_view": 5.0, "pe_sigma_exp_key": 2},
+        "data": {"camera_representation": "dtu-12d", "dtu_subset": 6,
+                 "dtu_preprocess_key": 1, "repeats": 100,
+                 "train_data_dir": rect, "augmentation_key": 7},
+        "log": {"exp_dir": exp_dir, "save_dataset_images": False,
+                "save_steps": 10 ** 9, "report_to": "none"},
+        "eval": {"validation_prompts": None},
+        "optim": {"mixed_precision": "bf16", "fuse_accumulation": True}}
+    for section, values in changes.items():
+        data[section].update(values)
+    return decode(RunConfig, data)
 
 
 def phase_coach(torch, dev, card, train_result, steps):
@@ -900,7 +994,6 @@ def phase_coach(torch, dev, card, train_result, steps):
     import numpy as np
     from view_neti_tpu_torch import weight_port
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
-    from view_neti_tpu_torch.config import RunConfig, decode
     from view_neti_tpu_torch.data import dtu, image_io
     from view_neti_tpu_torch.data.dataset import DataLoader
     from view_neti_tpu_torch.ops import device_augment as da
@@ -909,26 +1002,10 @@ def phase_coach(torch, dev, card, train_result, steps):
     warm, B = 2, TRAIN_BATCH
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        rect, cal, paths = write_scan(root, image_io, dtu, np)
+        rect, cal, _, paths = write_scan(root, image_io, dtu, np)
         write_s = time.perf_counter() - t0
-        cfg = decode(RunConfig, {
-            "learnable_mode": 2,
-            "model": {"arch_view_net": 15, "arch_view_disable_tl": False,
-                      "word_embedding_dim": 768,
-                      "pretrained_model_name_or_path":
-                          "runwayml/stable-diffusion-v1-5",
-                      "normalize_view_mapper_output": True,
-                      "output_bypass_alpha_view": 5.0,
-                      "pe_sigma_exp_key": 2},
-            "data": {"camera_representation": "dtu-12d", "dtu_subset": 6,
-                     "dtu_preprocess_key": 1, "repeats": 100,
-                     "train_data_dir": rect, "augmentation_key": 7},
-            "log": {"exp_dir": os.path.join(root, "run"),
-                    "save_dataset_images": False, "save_steps": 10 ** 9,
-                    "report_to": "none"},
-            "eval": {"validation_prompts": None},
-            "optim": {"mixed_precision": "bf16", "fuse_accumulation": True,
-                      "max_train_steps": warm + steps}})
+        cfg = mode2_config(rect, os.path.join(root, "run"),
+                           optim={"max_train_steps": warm + steps})
         t0 = time.perf_counter()
         coach = Coach(cfg, calibration_dir=cal, device=dev)
         torch.cuda.synchronize()
@@ -1044,12 +1121,294 @@ def phase_coach(torch, dev, card, train_result, steps):
     return launches, stats
 
 
+def phase_weights(torch, dev, card, rect, cal):
+    """SD-1.5 read from disk: a seeded stack (seed 1) written in the
+    diffusers layout (unet/, vae/, text_encoder/; the CLIP table without
+    its headroom rows) by the port's safetensors writer, in the dtypes the
+    stack holds, under build/; a Coach (seed 0) given weights_dir. Every
+    PortReport clean, every loaded parameter equal to the written one,
+    the placeholders' rows the loaded super-category rows, and one UNet
+    forward of the loaded stack bit-equal to the written stack's."""
+    import shutil
+    from view_neti_tpu_torch.config import ModelConfig, RunConfig
+    from view_neti_tpu_torch.tokenizer import FallbackTokenizer
+    from view_neti_tpu_torch.training import builder
+    from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.utils import safetensors_io
+
+    arch = builder.resolve_arch("sd-1.5", 768)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_sd_weights")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    mem = builder.build_models(
+        RunConfig(seed=1, model=ModelConfig(word_embedding_dim=768)),
+        FallbackTokenizer(base_vocab_size=arch.text.vocab_size), [],
+        ["<skull>"], arch=arch,
+        compute_dtype=torch.bfloat16, device=dev)
+    files = {"unet": (mem.unet, "unet/diffusion_pytorch_model.safetensors"),
+             "vae": (mem.vae, "vae/diffusion_pytorch_model.safetensors"),
+             "clip": (mem.text.clip, "text_encoder/model.safetensors")}
+    table_key = "text_model.embeddings.token_embedding.weight"
+    written = {}
+    for name, (module, rel) in files.items():
+        sd = dict(module.state_dict())
+        if name == "clip":
+            sd[table_key] = sd[table_key][:arch.text.vocab_size]
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        safetensors_io.save_file(sd, path)
+        written[name] = sd
+    nbytes = sum(os.path.getsize(os.path.join(root, rel))
+                 for _, rel in files.values())
+    write_s = time.perf_counter() - t0
+    dtypes = sorted({str(v.dtype) for sd in written.values()
+                     for v in sd.values()})
+
+    with tempfile.TemporaryDirectory() as exp:
+        # the counted run: the user's entry point and one UNet forward of
+        # each stack, counts from 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        coach = Coach(mode2_config(rect, exp), calibration_dir=cal,
+                      weights_dir=root, device=dev)
+        torch.cuda.synchronize()
+        coach_s = time.perf_counter() - t0
+        log = open(os.path.join(exp, "logs", "log.txt")).read()
+        g = torch.Generator(dev).manual_seed(0)
+        lat = torch.randn(SWEEP_BATCH, HEIGHT // 8, WIDTH // 8, 4,
+                          generator=g, device=dev).bfloat16()
+        t = torch.tensor([999.0, 999.0, 500.0, 500.0], device=dev)
+        ctx = torch.randn(16, SWEEP_BATCH, 77, 768, generator=g,
+                          device=dev).bfloat16()
+        with torch.no_grad():
+            out_loaded = coach.built.unet(lat, t, ctx, ctx)
+            out_mem = mem.unet(lat, t, ctx, ctx)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the load alone, again on the same Coach (the files are in the
+        # page cache either way)
+        t0 = time.perf_counter()
+        coach._load_pretrained_weights(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for name in ("unet", "vae", "clip"):
+        check(re.search(rf"{name}: ported \d+ tensors \(\d+ optional "
+                        rf"absent\)\n", log) is not None,
+              f"the {name} PortReport is not clean: {log[-2000:]}")
+    built = coach.built
+    worst = 0.0
+    for name, module in (("unet", built.unet), ("vae", built.vae),
+                         ("clip", built.text.clip)):
+        got = module.state_dict()
+        check(got.keys() == written[name].keys(), f"{name} keys differ")
+        for k, v in written[name].items():
+            mine = got[k][:v.shape[0]] if k == table_key else got[k]
+            check(mine.dtype == v.dtype, f"{name}.{k}: {mine.dtype}")
+            worst = max(worst, (mine.float() - v.float()).abs().max().item())
+    check(worst == 0, f"a loaded parameter differs by {worst}")
+    table = built.text.clip.text_model.embeddings.token_embedding.weight
+    sup = coach.tokenizer.encode("view", add_special_tokens=False)[0]
+    check(all(torch.equal(table[i], table[sup])
+              for i in built.placeholder_view_token_ids),
+          "the view placeholders' rows are not the loaded 'view' row")
+    check(torch.equal(out_loaded, out_mem),
+          f"the loaded UNet's forward differs from the written stack's by "
+          f"{(out_loaded.float() - out_mem.float()).abs().max().item()}")
+    check(launches == {"K1": 64, "K2": 0, "K3": 0, "K4": 0},
+          f"weights launches {launches}")
+    stats = dict(gb_read=nbytes / 1e9, dtypes=dtypes, write_s=write_s,
+                 coach_build_s=coach_s, load_s=load_s,
+                 read_gb_per_s=nbytes / 1e9 / load_s,
+                 peak_memory_gib=peak_gb, max_abs_diff=worst,
+                 unet_forward_bit_equal=True, launches=launches)
+    print(f"weights [{card}]: {json.dumps(stats)}", flush=True)
+    del coach, built, mem, out_loaded, out_mem
+    shutil.rmtree(root)
+    return launches, stats
+
+
+def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
+    """The shipped mode-2 recipe with validation on: the Coach at full
+    width (DTU preprocess 1, preset 7, fused batch 9, bf16) trains
+    VAL_TRAIN_STEPS steps, writes the step-VAL_EVERY checkpoint and runs
+    one validation round after it: the DTU sweep over the 34 eval
+    cameras at 768x576 (seeds [0, 1], 30 DPM-Solver++ steps, CFG 7.5,
+    reloading the step's mapper files), its metrics with a random-VGG
+    LPIPS on the card, the result bundle and sheets, and the object-token
+    renders at 512x512."""
+    import numpy as np
+    from view_neti_tpu_torch.inference import pipeline
+    from view_neti_tpu_torch.inference.prompt_manager import PromptManager
+    from view_neti_tpu_torch.ops.metrics import make_lpips
+    from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
+    from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+
+    class TimedValidation(ValidationHandler):
+        """The sweep's wall time and results, read from outside."""
+        def infer_dtu(self, coach, step, num_steps, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.results = super().infer_dtu(coach, step, num_steps, **kw)
+            torch.cuda.synchronize()
+            self.sweep_s = time.perf_counter() - t0
+            return self.results
+
+    cfg = mode2_config(
+        rect, run_dir,
+        log={"save_steps": VAL_EVERY},
+        eval={"validation_prompts": ["A photo of a {}"],
+              "validation_steps": VAL_EVERY, "validation_seeds": VAL_SEEDS,
+              "num_validation_images": len(VAL_SEEDS),
+              "num_denoising_steps": VAL_DENOISE},
+        optim={"max_train_steps": VAL_TRAIN_STEPS})
+    coach = Coach(cfg, calibration_dir=cal, device=dev)
+    coach.validator = TimedValidation(
+        cfg, masks_root=masks_root, calibration_dir=cal,
+        lpips_fn=make_lpips(seed=0, device=dev))
+    # the counted run: the user's entry point, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    coach.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = coach.validator.results
+    log = open(os.path.join(run_dir, "logs", "log.txt")).read()
+    check("falling back to LIVE" not in log,
+          "the sweep did not reload the step's mapper files")
+    check(len(res["cam_idxs"]) == EVAL_CAMS, f"{len(res['cam_idxs'])} cams")
+    means = {k: v for k, v in res.items() if k.endswith("_mean")}
+    check(all(math.isfinite(v) for v in means.values()),
+          f"validation metrics {means}")
+    preds = np.stack(res["imgs_pred"])
+    check(preds.shape == (len(VAL_SEEDS), EVAL_CAMS, 300, 400, 3)
+          and preds.min() != preds.max(), f"predictions {preds.shape}")
+    bundle = os.path.join(
+        run_dir, f"validation-iter_{VAL_EVERY}-denoisesteps_{VAL_DENOISE}"
+                 f"_numseeds_{len(VAL_SEEDS)}.msgpack")
+    check(os.path.exists(bundle), "no validation bundle")
+    n = VAL_TRAIN_STEPS
+    want = {"K1": 32 * (n + VAL_DENOISE * (EVAL_CAMS + 1)), "K2": 30 * n,
+            "K3": 31 * n, "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
+    check(launches == want, f"validate launches {launches}, want {want}")
+
+    # one CFG denoise step at the sweep's shapes (B = 4, 72x96 latents)
+    # under the profiler
+    unet, _ = coach.infer_frozen()
+    sched = DPMSolverSchedule()
+    pm = PromptManager(coach.tokenizer, coach.built.text,
+                       sched.set_timesteps(1),
+                       coach.built.placeholder_view_token_ids,
+                       coach.built.placeholder_object_token_ids,
+                       dtype=torch.bfloat16)
+    with torch.no_grad():
+        ctx, ctx_b = pm.embed_prompt(
+            f"{coach.placeholder_view_tokens[0]}. A photo of a "
+            f"{coach.placeholder_object_tokens[0]}")
+        uncond = pipeline.encode_uncond(coach.built.text.clip,
+                                        coach.tokenizer)
+    lat0 = pipeline.initial_latents(VAL_SEEDS, HEIGHT // 8, WIDTH // 8, dev)
+    step1 = pipeline.make_denoise_fn(unet, sched, 1, 7.5, torch.bfloat16)
+    step1(lat0, ctx, ctx_b, uncond)
+    prof = device_profile(torch, lambda: step1(lat0, ctx, ctx_b, uncond))
+    sweep_s = coach.validator.sweep_s
+    stats = dict(
+        cams=EVAL_CAMS, seeds=VAL_SEEDS, denoising_steps=VAL_DENOISE,
+        train_steps=n, coach_train_s=train_s, sweep_s=sweep_s,
+        sec_per_image=sweep_s / (EVAL_CAMS * len(VAL_SEEDS)),
+        metrics=means, peak_memory_gib=peak_gb, launches=launches,
+        denoise_step_launches=prof["kernels"] if prof else None,
+        denoise_step_idle_share=prof["idle_share"] if prof else None)
+    print(f"validate [{card}]: {json.dumps(stats)}", flush=True)
+    print(f"profile sweep denoise step [{card}]: "
+          f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
+    stats["per_view"] = res["per_view"]
+    stats["imgs_pred"] = preds
+    stats["cam_idxs"] = res["cam_idxs"]
+    stats["bundle"] = bundle
+    return launches, stats
+
+
+def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
+    """python -m view_neti_tpu_torch.inference on the validate phase's run
+    at its checkpoint step, --debug 1 (its first two cameras), the same
+    seeds and 30 steps: the predictions equal the sweep's bit for bit.
+    Then python -m view_neti_tpu_torch.summarize_dtu on the sweep's bundle
+    with LPIPS: each seed's CSV means equal the means of the sweep's
+    per-view metrics to 1e-6."""
+    import csv
+    import numpy as np
+    from view_neti_tpu_torch import summarize_dtu
+    from view_neti_tpu_torch.inference import offline
+
+    out_dir = os.path.join(run_dir, "inference")
+    argv = ["--input_dir", run_dir, "--iteration", str(VAL_EVERY),
+            "--seeds", json.dumps(VAL_SEEDS), "--num_denoising_steps",
+            str(VAL_DENOISE), "--debug", "1", "--torch_dtype", "bf16",
+            "--calibration_dir", cal, "--masks_root", masks_root,
+            "--inference_dir", out_dir]
+    # the counted run: the user's entry point, counts from 0
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res = offline.main(argv)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {"K1": 32 * VAL_DENOISE * INFER_CAMS, "K2": 0, "K3": 0,
+            "K4": 29 * INFER_CAMS}
+    check(launches == want, f"inference launches {launches}, want {want}")
+    check(res["cam_idxs"] == val["cam_idxs"][:INFER_CAMS],
+          f"cameras {res['cam_idxs']}")
+    got = np.stack(res["imgs_pred"])
+    ref = val["imgs_pred"][:, :INFER_CAMS]
+    diff = float(np.abs(got - ref).max()) * 255
+    stats = dict(seconds=infer_s, launches=launches,
+                 max_diff_levels_vs_sweep=diff)
+    print(f"inference [{card}]: {json.dumps(stats)}", flush=True)
+    check(np.array_equal(got, ref),
+          f"offline inference differs from the in-training sweep by up to "
+          f"{diff} levels")
+    check(os.path.exists(os.path.join(
+        out_dir, f"results_all_iter_{VAL_EVERY}.msgpack")), "no bundle")
+
+    csv_path = os.path.join(run_dir, "summary.csv")
+    rows = summarize_dtu.main(["--results_dirs", run_dir, "--iteration",
+                               str(VAL_EVERY), "--do_lpips", "--out",
+                               csv_path])
+    with open(csv_path) as f:
+        table = list(csv.DictReader(f))
+    check(len(rows) == len(table) == len(VAL_SEEDS)
+          and all(r["bundle"].startswith("validation-iter") for r in table),
+          f"summary rows {table}")
+    worst = 0.0
+    for row in table:
+        for k in ("mse", "psnr", "ssim", "lpips"):
+            want_v = float(val["per_view"][k][int(row["seed"])].mean())
+            worst = max(worst, abs(float(row[k]) - want_v)
+                        / max(abs(want_v), 1e-12))
+    summary = dict(rows=table, max_rel_diff_vs_sweep=worst)
+    print(f"summarize [{card}]: {json.dumps(summary)}", flush=True)
+    check(worst <= 1e-6, f"summarize_dtu differs from the sweep by {worst}")
+    stats["summary_max_rel_diff"] = worst
+    return launches, stats
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
-    shape, and the same summed over one serving run (serve_path_*) and one
-    train step (train_path_*), each shape weighted by its launches
-    there."""
+    shape, and the same summed over one run of each path that launches it
+    (<path>_path_*: a serving run, a train step, the weights phase, the
+    validate phase, the inference phase), each shape weighted by its
+    launches there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -1069,12 +1428,13 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|")):
         rows = kernels[key]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
+        paths = ("serve", "train", "weights", "validate", "inference")
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
                                      for r in rows)
-                for p in ("serve", "train")
+                for p in paths
                 if any(p in r["per_run"] for r in rows)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        for p in ("serve", "train"):
+        for p in paths:
             if f"{p}_path_ms" in path:
                 path[f"{p}_path_share_of_bound"] = (
                     path[f"{p}_path_bound_ms"] / path[f"{p}_path_ms"])
@@ -1147,9 +1507,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     coach_launches, _ = phase_coach(torch, dev, card, train_result,
                                     args.coach_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import numpy as np
+    from view_neti_tpu_torch.data import dtu, image_io
+    from view_neti_tpu_torch.training.inference_dtu import get_cam_idxs
+    cams = get_cam_idxs(6)[0]
+    check(len(cams) == EVAL_CAMS, f"{len(cams)} eval cameras")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rect, cal, masks_root, _ = write_scan(root, image_io, dtu, np,
+                                              cams=cams, masks=True)
+        print(f"eval scan: {len(cams)} images and masks in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        weights_launches, _ = phase_weights(torch, dev, card, rect, cal)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_dir = os.path.join(root, "run")
+        validate_launches, val = phase_validate(torch, dev, card, rect, cal,
+                                                masks_root, run_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        inference_launches, _ = phase_inference(torch, dev, card, cal,
+                                                masks_root, run_dir, val)
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
-                                     "coach": coach_launches}, card)
+                                     "coach": coach_launches,
+                                     "weights": weights_launches,
+                                     "validate": validate_launches,
+                                     "inference": inference_launches}, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

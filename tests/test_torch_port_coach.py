@@ -6,6 +6,7 @@ latent cache, true accumulation) and of the train CLI.
 """
 import dataclasses
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -452,6 +453,12 @@ def test_train_cli_runs_two_steps(tree, tmp_path, monkeypatch):
     """python -m view_neti_tpu_torch.train on input_configs/train.yaml with
     dot-overrides and the miniature stack, on the CPU."""
     rect, cal = tree
+    # the scan with the ground truth of the debug sweep's two cameras
+    scan = tmp_path / "scan114"
+    shutil.copytree(rect, scan)
+    for i in (0, 1):
+        image_io.write_png(scan / f"rect_{i + 1:03d}_3_r5000.png",
+                           np.full((48, 64, 3), 60 * (i + 1), np.uint8))
     monkeypatch.setenv("VIEW_NETI_TINY", "1")
     monkeypatch.setenv("DTU_CALIBRATION_DIR", str(cal))
     monkeypatch.delenv("SD_WEIGHTS_DIR", raising=False)
@@ -459,15 +466,21 @@ def test_train_cli_runs_two_steps(tree, tmp_path, monkeypatch):
     out = ttrain.main([
         "--config_path", os.path.join(root, "input_configs", "train.yaml"),
         "--log.exp_dir", str(tmp_path), "--log.report_to", "none",
-        "--data.train_data_dir", str(rect), "--data.dtu_subset", "6",
+        "--data.train_data_dir", str(scan), "--data.dtu_subset", "6",
         "--optim.max_train_steps", "2",
         "--model.pretrained_model_name_or_path",
-        "runwayml/stable-diffusion-v1-5"], device="cpu")
+        "runwayml/stable-diffusion-v1-5", "--debug", "true",
+        "--eval.validation_steps", "2", "--log.save_steps", "2"],
+        device="cpu")
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
     run = tmp_path / "train"
     assert (run / "mapper-final_view.msgpack").exists()
-    assert "validation is the port's next module" in (
-        run / "logs" / "log.txt").read_text()
+    # the CLI validates: one debug sweep (2 cameras, 2 steps) at step 2,
+    # on the step's checkpoint
+    assert (run / "validation-iter_2-denoisesteps_2_numseeds_2"
+                  ".msgpack").exists()
+    log = (run / "logs" / "log.txt").read_text()
+    assert "DTU val step 2" in log and "falling back to LIVE" not in log
     with pytest.raises(FileExistsError):
         ttrain.main(["--config_path",
                      os.path.join(root, "input_configs", "train.yaml"),

@@ -34,14 +34,17 @@ from view_neti_tpu.training import builder as jbuilder
 from view_neti_tpu.training.text_forward import (
     neti_text_conditioning as j_conditioning)
 
+from view_neti_tpu_torch import summarize_dtu
 from view_neti_tpu_torch import weight_port as twp
-from view_neti_tpu_torch.config import ModelConfig, RunConfig
+from view_neti_tpu_torch.config import ModelConfig, RunConfig, encode
+from view_neti_tpu_torch.inference import offline
 from view_neti_tpu_torch.inference import pipeline as tpipe
 from view_neti_tpu_torch.inference.prompt_manager import PromptManager
 from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.tokenizer import FallbackTokenizer
 from view_neti_tpu_torch.training import builder as tbuilder
 from view_neti_tpu_torch.training.text_forward import neti_text_conditioning
+from view_neti_tpu_torch.utils import msgpack_codec
 
 REPO = Path(__file__).resolve().parents[1]
 MODEL = dict(arch_view_net=15, arch_view_disable_tl=False,
@@ -190,7 +193,8 @@ def test_generate_on_cpu_when_asked(stacks):
     torch.testing.assert_close(a[1:], b, rtol=0, atol=0)
 
 
-def test_entry_points_refuse_to_run_without_a_card(monkeypatch, stacks):
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch, stacks,
+                                                  tmp_path):
     """device=None means the card: with none present the entry points
     raise instead of carrying on on the CPU."""
     _, _, tb, tok, _ = stacks
@@ -203,6 +207,14 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, stacks):
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.generate(tb.unet, tb.vae, DPMSolverSchedule(), ctx, ctx,
                        ctx[0, 0], 16, 16, [0], num_inference_steps=1)
+    # the offline inference and summary CLIs, on a run's checkpoint
+    (tmp_path / "mapper-steps-1_view.msgpack").write_bytes(
+        msgpack_codec.packb({"cfg": encode(cfg), "mappers": {}}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        offline.main(["--input_dir", str(tmp_path), "--iteration", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        summarize_dtu.main(["--results_dirs", str(tmp_path), "--iteration",
+                            "1", "--out", str(tmp_path / "s.csv")])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -233,7 +245,8 @@ def _imports(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "view_neti_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    banned = ("jax", "flax", "view_neti_tpu", "transformers", "yaml", "PIL")
+    banned = ("jax", "flax", "view_neti_tpu", "transformers", "yaml", "PIL",
+              "safetensors", "matplotlib", "pandas", "msgpack")
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]

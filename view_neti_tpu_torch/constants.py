@@ -17,6 +17,10 @@ NUM_UNET_LAYERS = len(UNET_LAYERS)
 # DTU dataset layout (reference constants.py:13-31).
 PATH_DTU_CALIBRATION_DIR = "data/dtu/Calibration/cal18"
 
+# RegNeRF's IDR object masks of the DTU test scans (reference
+# constants.py; view_neti_tpu/constants.py:44).
+DTU_MASKS = "data/dtu/submission_data/idrmasks"
+
 # RegNeRF camera splits. 0-indexed; DTU filenames are 1-indexed.
 DTU_TRAIN_IDX = [25, 22, 28, 40, 44, 48, 0, 8, 13]
 DTU_EXCLUDE_IDX = [3, 4, 5, 6, 7, 16, 17, 18, 19, 20, 21, 36, 37, 38, 39]

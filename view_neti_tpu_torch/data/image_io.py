@@ -9,7 +9,10 @@ unfilter in numpy, the reference the tests hold the helper to; the decode
 never falls back to it. write_png writes the same formats with any PNG row
 filter. resize_u8 is the datasets' deterministic resize: torch's
 antialiased bicubic (PIL's kernel, a = -0.5) rounded to uint8, within one
-level of PIL's BICUBIC resize. JPEG is a later module.
+level of PIL's BICUBIC resize and of the JAX package's native one.
+resize_pil is the evaluation's: PIL's BICUBIC (or BILINEAR) resampling,
+computed as Pillow computes it, bit for bit, where the JAX package calls
+PIL. JPEG is a later module.
 """
 from __future__ import annotations
 
@@ -201,6 +204,51 @@ def write_png(path: Union[str, Path], img: np.ndarray,
     Path(path).write_bytes(encode_png(img, filters))
 
 
+# PIL's resampling arithmetic (Pillow's libImaging/Resample.c): weights
+# normalised in float64, quantised to PRECISION_BITS, a 32-bit accumulator
+# rounded half up and clipped to uint8 after each of the two passes
+# (horizontal first)
+PRECISION_BITS = 22
+_SUPPORT = {"bicubic": 2.0, "bilinear": 1.0}
+
+
+def _kernel(mode: str, x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    if mode == "bilinear":
+        return np.where(x < 1.0, 1.0 - x, 0.0)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_rows(x: torch.Tensor, out_size: int, mode: str
+                   ) -> torch.Tensor:
+    """x (N, M) int32 -> (out_size, M): each output row a weighted sum of
+    the input rows under the (widened, when reducing) kernel."""
+    n = x.shape[0]
+    scale = n / out_size
+    filterscale = max(scale, 1.0)
+    support = _SUPPORT[mode] * filterscale
+    taps = np.arange(int(np.ceil(support)) * 2 + 1)
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), n) - xmin
+    w = _kernel(mode, (taps[None] + xmin[:, None] - center[:, None] + 0.5)
+                / filterscale)
+    w = np.where(taps[None] < xmax[:, None], w, 0.0)
+    total = w.sum(1, keepdims=True)
+    w = w / np.where(total != 0, total, 1.0)
+    k = np.where(w < 0, -0.5 + w * (1 << PRECISION_BITS),
+                 0.5 + w * (1 << PRECISION_BITS)).astype(np.int32)
+    idx = torch.from_numpy(np.minimum(xmin[:, None] + taps[None], n - 1))
+    k = torch.from_numpy(k)
+    acc = torch.full((out_size, x.shape[1]), 1 << (PRECISION_BITS - 1),
+                     dtype=torch.int32)
+    for t in range(len(taps)):
+        acc += x.index_select(0, idx[:, t]) * k[:, t, None]
+    return torch.clamp(acc >> PRECISION_BITS, 0, 255)
+
+
 def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """(H, W, C) uint8 -> (height, width, C) uint8 by antialiased bicubic
     interpolation on the CPU, rounded and clamped."""
@@ -209,3 +257,19 @@ def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
                       antialias=True, align_corners=False)
     y = torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
     return y[0].permute(1, 2, 0).contiguous().numpy()
+
+
+def resize_pil(img: np.ndarray, width: int, height: int,
+               mode: str = "bicubic") -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C) uint8, as PIL's
+    Image.resize((width, height), BICUBIC or BILINEAR) computes it, to the
+    bit: the same weights, fixed-point sums and per-pass rounding."""
+    H, W, C = img.shape
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(torch.int32)
+    if W != width:
+        x = _resample_rows(x.permute(1, 0, 2).reshape(W, H * C), width,
+                           mode).reshape(width, H, C).permute(1, 0, 2)
+    if H != height:
+        x = _resample_rows(x.reshape(H, width * C), height,
+                           mode).reshape(height, width, C)
+    return x.to(torch.uint8).contiguous().numpy()

@@ -1,0 +1,92 @@
+"""Offline DTU novel-view inference from a saved run (scripts/inference.py
+of the JAX package), run as a module through inference/__main__.py:
+
+    python -m view_neti_tpu_torch.inference \
+        --config_path input_configs/inference.yaml \
+        [--input_dir results/exp --iteration 1500 --seeds "[0, 1]" ...]
+
+It reads an InferenceConfig (YAML and dot-overrides), rebuilds the Coach
+from the config embedded in the step's mapper checkpoint, runs the DTU
+sweep over the 34 eval cameras (2 with --debug 1) on the card, reloading
+the step's mapper files (it raises where they are missing), and writes
+each seed's result sheet preds_iter_{it}_seed{i}.png and the bundle
+results_all_iter_{it}.msgpack under inference_dir, which summarize_dtu
+scores. As in the JAX script, the frozen SD stack is the seeded one the
+config builds: no SD_WEIGHTS_DIR is read. VIEW_NETI_TINY=1 swaps in the
+miniature stack; `main(argv, device="cpu")` runs on the CPU.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Dict, List, Optional
+
+from view_neti_tpu_torch.config import InferenceConfig, parse_cli
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> Dict:
+    infer_cfg = parse_cli(argv, cls=InferenceConfig)
+    if infer_cfg.input_dir is None or infer_cfg.iteration is None:
+        raise SystemExit("input_dir and iteration are required (set them "
+                         "in the YAML or pass --input_dir / --iteration)")
+    from view_neti_tpu_torch.checkpoint import CheckpointHandler
+    from view_neti_tpu_torch.training import builder, inference_dtu
+    from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+    from view_neti_tpu_torch.utils import msgpack_codec
+
+    # the checkpoint's own config drives the rebuild
+    input_dir = Path(infer_cfg.input_dir)
+    it = infer_cfg.iteration
+    ckpt = input_dir / f"mapper-steps-{it}_view.msgpack"
+    if not ckpt.exists():
+        ckpt = input_dir / f"mapper-steps-{it}_object.msgpack"
+    cfg, _ = CheckpointHandler.load_mapper(ckpt)
+    cfg.log.exp_dir = input_dir
+    cfg.log.overwrite_ok = True
+    cfg.eval.validation_seeds = list(infer_cfg.seeds)
+    cfg.eval.num_validation_images = len(infer_cfg.seeds)
+    cfg.eval.num_denoising_steps = infer_cfg.num_denoising_steps
+    cfg.debug = bool(infer_cfg.debug)
+    if infer_cfg.eval_placeholder_object_tokens:
+        cfg.eval.eval_placeholder_object_tokens = list(
+            infer_cfg.eval_placeholder_object_tokens)
+    if infer_cfg.torch_dtype in ("fp16", "bf16"):
+        cfg.optim.mixed_precision = "bf16"   # fp16 runs bf16: the kernels
+    elif infer_cfg.torch_dtype in ("fp32", "no"):
+        cfg.optim.mixed_precision = "no"
+    arch = None
+    if os.environ.get("VIEW_NETI_TINY"):
+        arch = builder.tiny_arch()
+        cfg.model.word_embedding_dim = arch.text.hidden_size
+
+    coach = Coach(cfg, arch=arch, calibration_dir=infer_cfg.calibration_dir,
+                  device=device)
+    lpips_fn = None
+    lpips_weights = (infer_cfg.lpips_weights
+                     or os.environ.get("LPIPS_WEIGHTS"))
+    if lpips_weights:
+        from view_neti_tpu_torch.ops.metrics import make_lpips
+        lpips_fn = make_lpips(lpips_weights, device=coach.device)
+    validator = ValidationHandler(cfg, masks_root=infer_cfg.masks_root,
+                                  calibration_dir=infer_cfg.calibration_dir,
+                                  lpips_fn=lpips_fn)
+    results = validator.infer_dtu(
+        coach, step=it, num_steps=infer_cfg.num_denoising_steps,
+        return_instead_of_save=True, on_missing_ckpt="raise")
+
+    save_dir = Path(infer_cfg.inference_dir or input_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    inference_dtu.save_figures(
+        results, [save_dir / f"preds_iter_{it}_seed{i}.png"
+                  for i in range(len(results["grids"]))],
+        coach.logger.log_message)
+    bundle = inference_dtu.result_bundle(results, infer_cfg.seeds)
+    out = save_dir / f"results_all_iter_{it}.msgpack"
+    out.write_bytes(msgpack_codec.packb(bundle))
+    print("metrics:", bundle["metrics"])
+    print("saved:", out)
+    coach.logger.close()
+    results["bundle"] = out
+    return results
+

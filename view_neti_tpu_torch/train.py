@@ -4,13 +4,15 @@
         [--section.key value ...]
 
 It reads the config (YAML and dot-overrides), seeds the host, prepares the
-experiment directory and runs the Coach on the card. DTU_CALIBRATION_DIR
-names the DTU calibration directory; SD_WEIGHTS_DIR (weights on disk) is a
-later module and raises. VIEW_NETI_TINY=1 swaps in the miniature stack
-(builder.tiny_arch(), 16-pixel resolution, the 64x48 DTU preprocess) for
-smoke runs; it does not choose the CPU: `main(argv, device="cpu")` does.
-Validation (the eval.* settings) is the port's next module; the run says
-so and trains without it.
+experiment directory and runs the Coach on the card, validating every
+eval.validation_steps. The environment names the files the repository
+does not hold: DTU_CALIBRATION_DIR the DTU calibration directory,
+SD_WEIGHTS_DIR a diffusers-layout SD directory (else the frozen stack is
+seeded random weights), DTU_MASKS_DIR the IDR object masks, LPIPS_WEIGHTS
+an .npz of LPIPS weights (else validation reports LPIPS as 0).
+VIEW_NETI_TINY=1 swaps in the miniature stack (builder.tiny_arch(),
+16-pixel resolution, the 64x48 DTU preprocess) for smoke runs; it does not
+choose the CPU: `main(argv, device="cpu")` does.
 """
 from __future__ import annotations
 
@@ -43,20 +45,25 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, float]:
     prepare_directories(cfg)
     from view_neti_tpu_torch.training import builder
     from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+    calibration_dir = os.environ.get("DTU_CALIBRATION_DIR")
     arch = None
     if os.environ.get("VIEW_NETI_TINY"):
         arch = builder.tiny_arch()
         cfg.model.word_embedding_dim = arch.text.hidden_size
         cfg.data.resolution = 16
         cfg.data.dtu_preprocess_key = -1
-    coach = Coach(cfg, arch=arch,
-                  calibration_dir=os.environ.get("DTU_CALIBRATION_DIR"),
+    coach = Coach(cfg, arch=arch, calibration_dir=calibration_dir,
                   weights_dir=os.environ.get("SD_WEIGHTS_DIR"),
                   device=device)
-    if cfg.eval.validation_prompts is not None:
-        coach.logger.log_message(
-            "eval.* settings are not run yet: validation is the port's "
-            "next module")
+    lpips_fn = None
+    if os.environ.get("LPIPS_WEIGHTS"):
+        from view_neti_tpu_torch.ops.metrics import make_lpips
+        lpips_fn = make_lpips(os.environ["LPIPS_WEIGHTS"],
+                              device=coach.device)
+    coach.validator = ValidationHandler(
+        cfg, masks_root=os.environ.get("DTU_MASKS_DIR"),
+        calibration_dir=calibration_dir, lpips_fn=lpips_fn)
     return coach.train()
 
 

@@ -115,8 +115,8 @@ def add_concept_tokens(cfg: RunConfig, tokenizer,
                        token_table: torch.Tensor
                        ) -> Tuple[List[int], List[int], List[int],
                                   List[float], Optional[float]]:
-    """Grow the vocabulary and copy each placeholder's super-category row
-    into its row of `token_table` (in place). Returns the id lists, the
+    """Grow the vocabulary and initialise the placeholders' rows of
+    `token_table` (init_concept_rows_). Returns the id lists, the
     per-object target norms and the view target norm."""
     placeholder_tokens = placeholder_view_tokens + placeholder_object_tokens
     n_added = tokenizer.add_tokens(placeholder_tokens)
@@ -130,12 +130,26 @@ def add_concept_tokens(cfg: RunConfig, tokenizer,
             f"vocab overflow: token id {max(all_ids)} >= table "
             f"{token_table.shape[0]}; raise CLIPTextConfig.vocab_headroom")
 
+    target_norm_object, target_norm_view = init_concept_rows_(
+        cfg, tokenizer, view_ids, object_ids, token_table)
+    return (all_ids, view_ids, object_ids, target_norm_object,
+            target_norm_view)
+
+
+@torch.no_grad()
+def init_concept_rows_(cfg: RunConfig, tokenizer, view_ids: List[int],
+                       object_ids: List[int], token_table: torch.Tensor
+                       ) -> Tuple[List[float], Optional[float]]:
+    """Copy each placeholder's super-category row into its row of
+    `token_table` (in place); returns the per-object target norms and the
+    view target norm. Runs at build time and again after a token table is
+    loaded from disk, whose headroom rows are zero."""
     # one super-category per object for mode 3, else a single one
     if cfg.learnable_mode == 3:
         supers_obj = cfg.data.super_category_object_tokens
     else:
         supers_obj = [cfg.data.super_category_object_token] * len(
-            placeholder_object_tokens)
+            object_ids)
 
     def super_id(token: str) -> int:
         ids = tokenizer.encode(token, add_special_tokens=False)
@@ -150,12 +164,11 @@ def add_concept_tokens(cfg: RunConfig, tokenizer,
         token_table[tok_id] = token_table[sid]
         target_norm_object.append(float(torch.linalg.norm(token_table[sid])))
     target_norm_view = None
-    if placeholder_view_tokens:
+    if view_ids:
         sid = super_id(cfg.data.super_category_view_token)
         token_table[view_ids] = token_table[sid].clone()
         target_norm_view = float(torch.linalg.norm(token_table[sid]))
-    return (all_ids, view_ids, object_ids, target_norm_object,
-            target_norm_view)
+    return target_norm_object, target_norm_view
 
 
 @torch.no_grad()

@@ -24,19 +24,25 @@ What it runs, as the JAX Coach runs it:
     waits for the step it has just launched;
   * a checkpoint every log.save_steps (pruned to
     log.checkpoints_total_limit) and a final one, in the JAX package's
-    files (checkpoint.py).
+    files (checkpoint.py);
+  * with a validator attached (training/validate.py), a validation round
+    every eval.validation_steps, after that step's checkpoint is written
+    (the DTU sweep reloads it); max_validation_failures consecutive
+    failures abort the run;
+  * the frozen SD stack from a diffusers-layout directory (weights_dir),
+    loaded strictly unless VIEW_NETI_LAX_WEIGHTS is set, and a reference
+    torch view mapper (.pt) for modes 4/5 through torch_interop.
 
 Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
 scan (make_multi_step), the device mesh, the XLA cost hook. Left for later
-modules: mode 3, validation (the JAX loop validates only with a validator
-attached; the port has none yet and never validates), resume_from,
-loading SD weights from disk, and the dataset contact sheet (utils/vis).
+modules: mode 3 and resume_from.
 """
 from __future__ import annotations
 
 import math
 import os
 import time
+import traceback
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -46,6 +52,7 @@ import torch
 from view_neti_tpu_torch import weight_port
 from view_neti_tpu_torch.checkpoint import CheckpointHandler
 from view_neti_tpu_torch.config import RunConfig
+from view_neti_tpu_torch.data import image_io
 from view_neti_tpu_torch.data.dataset import (DataLoader,
                                               TextualInversionDataset)
 from view_neti_tpu_torch.data.loader import PrefetchLoader
@@ -63,6 +70,7 @@ from view_neti_tpu_torch.training.train_step import (TrainBatch,
 from view_neti_tpu_torch.utils.device import resolve_device
 from view_neti_tpu_torch.utils.misc import fixseed
 from view_neti_tpu_torch.utils.profiling import StepTimer
+from view_neti_tpu_torch.utils.vis import downsample_image, get_image_grid
 
 _MASK64 = (1 << 64) - 1
 
@@ -94,10 +102,6 @@ class Coach:
             raise NotImplementedError(
                 "log.resume_from: the port's resume format is a later "
                 "module")
-        if weights_dir is not None:
-            raise NotImplementedError(
-                "loading SD weights from disk is a later module of the "
-                "port; the frozen stack is seeded random weights")
         self.logger.log_message(
             "TPU-only settings are ignored: parallel.*, "
             "optim.steps_per_dispatch, log.checkpoint_backend=orbax")
@@ -140,6 +144,8 @@ class Coach:
             self.placeholder_object_tokens, arch=self.arch,
             compute_dtype=self.compute_dtype,
             calibration_dir=calibration_dir, device=self.device)
+        if weights_dir is not None:
+            self._load_pretrained_weights(weights_dir)
         self._maybe_load_pretrained_mappers()
         fuse = cfg.optim.fuse_conv
         self.fuse_conv = (self.device.type == "cuda" if fuse is None
@@ -200,6 +206,7 @@ class Coach:
             placeholder_object_token_ids=(
                 self.built.placeholder_object_token_ids),
             save_root=cfg.log.exp_dir)
+        self.validator = None  # attached by the caller (ValidationHandler)
         self.global_step = 0
         seed = cfg.optim.seed if cfg.optim.seed is not None else cfg.seed
         self._base_seed = int(seed)
@@ -235,6 +242,47 @@ class Coach:
             seed=cfg.seed,
             set_name="train")
 
+    def _load_pretrained_weights(self, weights_dir: str) -> None:
+        """The frozen UNet, VAE and CLIP from a diffusers-layout directory,
+        copied into the built modules in their dtypes (the compute dtype;
+        norms and tables fp32). Strict: a key missing or left over on
+        either side raises; VIEW_NETI_LAX_WEIGHTS=1 logs each instead. The
+        placeholders' token rows and target norms are then taken from the
+        loaded super-category rows."""
+        arch = self.arch
+        strict = not os.environ.get("VIEW_NETI_LAX_WEIGHTS")
+        log = self.logger.log_message
+        sds = weight_port.load_sd_weights(
+            weights_dir, text_layers=arch.text.num_layers,
+            use_linear_projection=arch.unet.use_linear_projection,
+            vocab_headroom=arch.text.vocab_headroom, strict=strict, log=log,
+            unet_blocks=len(arch.unet.block_out_channels),
+            vae_blocks=len(arch.vae.channel_mults))
+        built = self.built
+        for name, module in (("unet", built.unet), ("vae", built.vae),
+                             ("clip", built.text.clip)):
+            result = module.load_state_dict(sds[name], strict=strict)
+            if result.missing_keys or result.unexpected_keys:
+                log(f"WARNING: {name}: {len(result.missing_keys)} "
+                    f"parameters KEPT FROM RANDOM INIT, e.g. "
+                    f"{result.missing_keys[:5]}; "
+                    f"{len(result.unexpected_keys)} file keys unused, e.g. "
+                    f"{result.unexpected_keys[:5]}")
+        del sds
+        table = built.text.clip.text_model.embeddings.token_embedding.weight
+        norms_obj, norm_view = builder.init_concept_rows_(
+            self.cfg, self.tokenizer, built.placeholder_view_token_ids,
+            built.placeholder_object_token_ids, table)
+        built.target_norm_object = norms_obj or None
+        built.target_norm_view = norm_view
+        if built.text.obj_norm_scales is not None:
+            built.text.obj_norm_scales = torch.tensor(norms_obj,
+                                                      device=self.device)
+        if built.text.view_norm_scale is not None and norm_view:
+            built.text.view_norm_scale = torch.tensor(norm_view,
+                                                      device=self.device)
+        log(f"loaded pretrained weights: {weights_dir}")
+
     def _maybe_load_pretrained_mappers(self) -> None:
         """Modes 4/5: the pretrained view mapper; modes 1/2 with an object
         mapper checkpoint: that mapper. Both from the msgpack files of
@@ -243,10 +291,11 @@ class Coach:
         text = self.built.text
         if cfg.learnable_mode in (4, 5) and cfg.model.pretrained_view_mapper:
             p = Path(cfg.model.pretrained_view_mapper)
-            if p.suffix in (".pt", ".bin", ".pth"):
-                raise NotImplementedError(
-                    f"{p}: importing a reference torch view mapper is a "
-                    "later module; pass a mapper-*_view.msgpack")
+            if p.exists() and p.suffix in (".pt", ".bin", ".pth"):
+                from view_neti_tpu_torch.torch_interop import \
+                    maybe_import_view_mapper
+                p = maybe_import_view_mapper(p)
+                self.logger.log_message(f"imported torch view mapper -> {p}")
             if p.exists():
                 _, payload = CheckpointHandler.load_mapper(p)
                 entry = payload["mappers"]["view"]
@@ -279,9 +328,7 @@ class Coach:
                               * cfg.optim.gradient_accumulation_steps),
             num_samples=len(ds))
         if cfg.log.save_dataset_images:
-            self.logger.log_message(
-                "log.save_dataset_images: the contact sheet waits for the "
-                "port of utils/vis; skipped")
+            self.save_dataset_images()
         if len(ds) < self.micro_batch_size:
             raise ValueError(
                 f"dataset yields {len(ds)} examples (num_images x repeats) "
@@ -318,6 +365,7 @@ class Coach:
         batches = stream()
         last_loss = float("nan")
         pending = None
+        self._val_failures = 0
         timer = StepTimer()
         t0 = time.time()
         while self.global_step < cfg.optim.max_train_steps:
@@ -341,6 +389,8 @@ class Coach:
                 self._save(f"learned_embeds-steps-{self.global_step}"
                            ".msgpack",
                            f"mapper-steps-{self.global_step}.msgpack")
+            if self._should_eval() and self.validator is not None:
+                self._validate()
         if pending is not None:
             last_loss = self._log_step_metrics(pending, timer)
         self.loop_end_s = time.perf_counter()
@@ -354,6 +404,56 @@ class Coach:
         self.logger.close()
         return {"steps": self.global_step, "wall_s": wall,
                 "final_loss": last_loss}
+
+    def _should_eval(self) -> bool:
+        return (self.cfg.eval.validation_prompts is not None
+                and self.global_step % self.cfg.eval.validation_steps == 0)
+
+    def _validate(self) -> None:
+        """One validation round. A failure is logged and training goes on
+        (an I/O error late in a long run must not end it), but
+        eval.max_validation_failures consecutive failures abort, so that a
+        systematic error (a wrong masks directory, a missing calibration)
+        does not reduce a run's evaluation to log lines."""
+        try:
+            self.validator.infer(coach=self, step=self.global_step)
+            self._val_failures = 0
+        except Exception as e:
+            self._val_failures += 1
+            limit = self.cfg.eval.max_validation_failures
+            self.logger.log_message(
+                f"WARNING: validation at step {self.global_step} failed "
+                f"({e!r}); {self._val_failures}/{limit} consecutive\n"
+                + traceback.format_exc())
+            if self._val_failures >= limit:
+                raise RuntimeError(
+                    f"{limit} consecutive validation failures: aborting so "
+                    "that a systematic eval error is not swallowed (raise "
+                    "eval.max_validation_failures to allow more)") from e
+
+    def infer_frozen(self):
+        """(unet, vae) for the inference paths: the VAE's decoder sections
+        through the fused conv when fuse_conv is on (the UNet stays
+        unfused, as in the JAX package)."""
+        vae = self.built.vae
+        if self.fuse_conv:
+            vae = builder.fuse_for_inference(vae)
+        return self.built.unet, vae
+
+    def save_dataset_images(self) -> None:
+        """A contact sheet of the first (at most 100) training images,
+        scaled by 0.2, at startup."""
+        fnames = self.train_dataset.image_paths_flattened
+        save_name = "dataset.png"
+        if len(fnames) > 100:
+            fnames = fnames[:100]
+            save_name = "dataset_first_100.png"
+        grid = downsample_image(
+            get_image_grid([image_io.read_rgb(f) for f in fnames]), 0.2)
+        out = Path(self.cfg.log.exp_dir) / save_name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        image_io.write_png(out, grid)
+        self.logger.log_message(f"saved dataset contact sheet {out}")
 
     def _stage(self, loss: torch.Tensor):
         """Start the loss's copy to the host without waiting for it: a

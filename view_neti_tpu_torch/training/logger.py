@@ -13,6 +13,8 @@ import sys
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
+
 from view_neti_tpu_torch import config as config_lib
 
 
@@ -72,6 +74,21 @@ class CoachLogger:
         if self._wandb is not None:
             self._wandb.log({k: float(v) for k, v in metrics.items()},
                             step=step)
+
+    def log_images(self, tag: str, images, step: Optional[int] = None
+                   ) -> None:
+        """Validation sheets, (H, W, C) float in [0, 1] or uint8, to the
+        trackers."""
+        step = step if step is not None else self.step
+        if self._writer is not None:
+            for i, img in enumerate(images):
+                self._writer.add_image(f"{tag}/{i}", np.asarray(img), step,
+                                       dataformats="HWC")
+        if self._wandb is not None:
+            import wandb
+            self._wandb.log(
+                {tag: [wandb.Image(np.asarray(im)) for im in images]},
+                step=step)
 
     def log_start_of_training(self, total_batch_size: int,
                               num_samples: int) -> None:

@@ -1,4 +1,5 @@
-"""Carry JAX parameter trees across to the port's state_dicts.
+"""Carry JAX parameter trees across to the port's state_dicts, and load
+the SD stack from a diffusers-layout directory on disk.
 
 The inverse of view_neti_tpu/weight_port.py:98-362, with the port's own
 copy of its key tables: each diffusers/transformers key maps to a path in
@@ -9,13 +10,24 @@ Every leaf of the tree must be consumed and every expected key found, or
 the port raises: a partial carry must never pass silently. For the
 mappers, to_jax_mapper and to_jax_trainable go the other way, so that
 checkpoints carry them in the JAX tree layout (checkpoint.py).
+
+load_sd_weights (view_neti_tpu/weight_port.py:364) reads the UNet, VAE and
+CLIP text encoder of a local diffusers-layout directory (.safetensors
+through the port's own reader, .bin through torch.load(weights_only=True)).
+The port's modules use diffusers'/transformers' own keys, so the files'
+state_dicts load as they are; the same key tables account for every key
+(PortReport), and the CLIP token table gains its vocab headroom.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+import dataclasses
+from pathlib import Path as FilePath
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from view_neti_tpu_torch.utils import safetensors_io
 
 Path = Tuple[str, ...]
 KeyTable = Dict[str, Tuple[Path, Callable]]
@@ -336,3 +348,157 @@ def to_jax_trainable(object_state_dicts: Optional[list] = None,
     if view_state_dict is not None:
         trainable["view"], view_constants = to_jax_mapper(view_state_dict)
     return trainable, obj_constants, view_constants
+
+
+# --------------------------------------------------------------------------
+# SD weights from disk (view_neti_tpu/weight_port.py:23-95, 364-405)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PortReport:
+    """The accounting of one component's load: a silent partial load must
+    be impossible, so every key the table expects and every key the file
+    holds is counted.
+
+    missing_optional: expected keys absent from the file that may be
+      (conv_shortcut: diffusers builds it only where a ResNet block changes
+      its channel count).
+    missing: expected keys absent from the file that should be there.
+    unconsumed: file keys that no table entry reads (a forgotten submodule,
+      or a buffer that is not a parameter, other than position_ids)."""
+    name: str
+    ported: int = 0
+    missing: List[str] = dataclasses.field(default_factory=list)
+    missing_optional: List[str] = dataclasses.field(default_factory=list)
+    unconsumed: List[str] = dataclasses.field(default_factory=list)
+
+    OPTIONAL_SUBSTRINGS = ("conv_shortcut",)
+    IGNORABLE_SUBSTRINGS = ("position_ids",)
+
+    def summary(self) -> str:
+        s = (f"{self.name}: ported {self.ported} tensors"
+             f" ({len(self.missing_optional)} optional absent)")
+        if self.missing:
+            s += (f"; MISSING {len(self.missing)} expected keys, "
+                  f"e.g. {self.missing[:3]}")
+        if self.unconsumed:
+            s += (f"; {len(self.unconsumed)} checkpoint keys unconsumed, "
+                  f"e.g. {self.unconsumed[:3]}")
+        return s
+
+    @property
+    def clean(self) -> bool:
+        return not self.missing and not self.unconsumed
+
+
+def load_state_dict(path: Union[str, FilePath]) -> Dict[str, torch.Tensor]:
+    """A .safetensors file (the port's reader) or a torch .bin pickle of
+    tensors, as CPU tensors."""
+    path = FilePath(path)
+    if path.suffix == ".safetensors":
+        return safetensors_io.load_file(path)
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def _find_weights_file(subdir: FilePath) -> FilePath:
+    for name in ("diffusion_pytorch_model.safetensors",
+                 "diffusion_pytorch_model.bin",
+                 "model.safetensors", "pytorch_model.bin"):
+        p = subdir / name
+        if p.exists():
+            return p
+    raise FileNotFoundError(f"no weights file in {subdir}")
+
+
+def _account(sd: Dict[str, torch.Tensor], table: KeyTable,
+             report: PortReport) -> Dict[str, torch.Tensor]:
+    """Fill the report of a file's state_dict against a key table; returns
+    the entries the table reads."""
+    for key in table:
+        if key in sd:
+            report.ported += 1
+        elif any(s in key for s in report.OPTIONAL_SUBSTRINGS):
+            report.missing_optional.append(key)
+        else:
+            report.missing.append(key)
+    report.unconsumed = [
+        k for k in sd if k not in table
+        and not any(s in k for s in report.IGNORABLE_SUBSTRINGS)]
+    return {k: v for k, v in sd.items() if k in table}
+
+
+def load_sd_weights(model_dir: Union[str, FilePath], text_layers: int = 12,
+                    use_linear_projection: bool = False,
+                    vocab_headroom: int = 128, strict: bool = True,
+                    log=None, unet_blocks: int = 4, vae_blocks: int = 4
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"unet", "vae", "clip"}: the state_dicts of a local diffusers-layout
+    SD directory (unet/, vae/, text_encoder/), in the files' dtypes, ready
+    for load_state_dict into the port's modules. The CLIP token table gains
+    vocab_headroom zero rows (the placeholder rows are filled from their
+    super-categories by builder.init_concept_rows_).
+
+    strict (the default) raises unless every component is clean: an
+    expected key absent or a file key unread. strict=False (the CLI's
+    VIEW_NETI_LAX_WEIGHTS=1) logs each skip and goes on."""
+    log = log or (lambda m: print(f"[weight_port] {m}"))
+    model_dir = FilePath(model_dir)
+    parts = (("unet", "unet", unet_mapping(
+                  num_blocks=unet_blocks,
+                  use_linear_projection=use_linear_projection)),
+             ("vae", "vae", vae_mapping(num_blocks=vae_blocks)),
+             ("clip", "text_encoder", clip_text_mapping(text_layers)))
+    out, reports = {}, []
+    for name, sub, table in parts:
+        report = PortReport(name)
+        out[name] = _account(
+            load_state_dict(_find_weights_file(model_dir / sub)), table,
+            report)
+        reports.append(report)
+        log(report.summary())
+    bad = [r for r in reports if not r.clean]
+    if strict and bad:
+        raise KeyError(
+            "weight port is not clean: "
+            + "; ".join(r.summary() for r in bad)
+            + " - fix the checkpoint or pass strict=False "
+              "(VIEW_NETI_LAX_WEIGHTS=1 from the CLI)")
+    key = "text_model.embeddings.token_embedding.weight"
+    if key in out["clip"]:
+        tab = out["clip"][key]
+        out["clip"][key] = torch.cat(
+            [tab, tab.new_zeros((vocab_headroom, tab.shape[1]))])
+    return out
+
+
+# --------------------------------------------------------------------------
+# LPIPS weights (view_neti_tpu/weight_port.py:458)
+# --------------------------------------------------------------------------
+
+def from_jax_lpips(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS params ({"vgg": {"convN": {kernel HWIO, bias}}, "linN":
+    (1, 1, 1, C)}) -> the port's LPIPS state_dict (vgg.convN OIHW, linN
+    (C,))."""
+    tree = _leaves(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in tree.items():
+        arr = np.asarray(value, np.float32)
+        if path[0] == "vgg":
+            kernel = path[2] == "kernel"
+            name = f"vgg.{path[1]}.{'weight' if kernel else 'bias'}"
+            arr = _conv_w(arr) if kernel else arr
+        else:
+            name = path[0]
+            arr = arr.reshape(-1)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def load_lpips_npz(path: Union[str, FilePath]) -> Dict[str, torch.Tensor]:
+    """The port's LPIPS state_dict of an .npz with keys vgg/convN/kernel
+    (HWIO), vgg/convN/bias and linN, the JAX package's export format."""
+    tree: Dict = {}
+    with np.load(str(path)) as data:
+        for key in data.files:
+            _set_path(tree, tuple(key.split("/")), data[key])
+    return from_jax_lpips(tree)
