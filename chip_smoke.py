@@ -7,15 +7,16 @@ Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
   2. build   -- nvcc builds the four kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
-                kernel's registers and spills; the instantiations the two
-                paths run (K1, K2 and K3 at head dims 40, 80, 160, and
-                every K4 instantiation) must not spill;
+                kernel's registers and spills; the instantiations the
+                paths run (K1, K2 and K3 at the head-dim buckets 48, 64,
+                80 and 160, and every K4 instantiation) must not spill;
   3. kernels -- the flash-attention forward (K1), its backward (K2 dq, K3
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
-                object renders) give them (plus one SD-2.1 d=64 K1
-                shape), bf16 inputs from a seed, held against their plain
+                object renders) give them, in SD-1.5 (head dims 40, 80,
+                160) and in SD-2.1 (head dim 64, the mode3 phase), bf16
+                inputs from a seed, held against their plain
                 versions in fp32 with TF32 off, each limit with a control
                 it must catch (K4 two: a lost input-channel chunk and the halo
                 padded before the SiLU), and timed with CUDA events
@@ -80,7 +81,31 @@ Phases; any failure ends the run with a non-zero exit:
                 view_neti_tpu_torch.summarize_dtu on the sweep's bundle:
                 its per-seed means equal the sweep's per-view means to
                 1e-6;
- 10. report  -- one JSON line of per-kernel results, then the result line.
+ 10. mode3  -- mode-3 multi-scene pretraining on its shipped recipe
+                (input_configs/train_m3.yaml): SD-2.1 at full width
+                (v-prediction, the 23-layer 1024-wide GELU CLIP, linear
+                projections, head dim 64) with seeded weights, four
+                synthetic 1600x1200 DTU scans of the recipe's 34 cameras
+                under build/ (deleted afterwards), one object mapper per
+                scan and one view mapper, preset 5 on the card, fused
+                B = 9 in 3 groups of 3, bf16: a Coach stopped after 2
+                steps (its checkpoint writes the step-2 train state); a
+                straight Coach of 2 warm-up and 8 timed steps;
+                a Coach resumed from "latest" (a copy of the stopped run's
+                state) must replay the straight one's losses and final
+                mappers bit for bit, then runs the mode-3 validation round
+                (a DTU
+                sweep per eval token against its own scan, 30 steps, CFG
+                7.5, seeds [0, 1], cut to the first 4 eval cameras, and the
+                object renders); offline inference on that run (--debug 1)
+                equals its sweeps, summarize_dtu reads one bundle per
+                token; grouped conditioning equals per-group calls exactly;
+                the step's v-prediction target equals the CPU's; prints
+                imgs/sec beside the SD-1.5 Coach's, peak memory, K1-K4
+                launches per step, each token's sweep, and the launches and
+                idle share of one grouped step and of one CFG denoise step
+                at SD-2.1;
+ 11. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -113,6 +138,13 @@ VAL_TRAIN_STEPS = 3      # the validate phase's Coach steps ...
 VAL_EVERY = 2            # ... with a checkpoint and a validation at step 2
 EVAL_CAMS = 34           # the DTU eval cameras of inference_dtu.get_cam_idxs
 INFER_CAMS = 2           # offline inference with --debug 1
+# the mode3 phase: input_configs/train_m3.yaml, its four scans and three
+# eval tokens; cut for time: the sweeps to the first 4 eval cameras
+M3_CONFIG = os.path.join("input_configs", "train_m3.yaml")
+M3_WARM = 2              # warm-up steps, then a checkpoint and train state
+M3_STEPS = 8             # timed steps of the straight run after the warm-up
+M3_TOKENS = 3            # eval.eval_placeholder_object_tokens of the recipe
+M3_SWEEP_CAMS = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -211,9 +243,12 @@ def ptxas_usage(logs):
     return {key: (regs, spills.get(key[1])) for key, regs in usage.items()}
 
 
+PATH_BUCKETS = (48, 64, 80, 160)   # SD-1.5's head dims 40/80/160, SD-2.1's 64
+
+
 def check_path_spills(usage):
     """The instantiations of K1, K2 and K3 at the paths' head-dim buckets
-    (48, 80, 160) and every K4 instantiation must spill nothing; prints
+    (PATH_BUCKETS) and every K4 instantiation must spill nothing; prints
     every instantiation of the four kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
@@ -226,7 +261,7 @@ def check_path_spills(usage):
         print(f"build {lib}: {m.group(1)}<{', '.join(map(str, args))}>: "
               f"{regs} registers, {spill} bytes spill", flush=True)
         # K1-K3's first template argument is the head-dim bucket
-        if m.group(1) == "fused_conv_kernel" or args[0] in (48, 80, 160):
+        if m.group(1) == "fused_conv_kernel" or args[0] in PATH_BUCKETS:
             seen += 1
             check(spill == 0, f"{fn} (on the path) spills {spill} bytes")
     return seen
@@ -315,18 +350,33 @@ def attention_shapes(serve_steps: int):
     phase's Coach steps): B = 9 at 48x64 latents; the first
     self-attention's inputs need no gradient (no backward) and the first
     cross-attention's q needs none (K3 only), so a step runs K2 30 times
-    and K3 31 times. The last row is SD-2.1's level 0 (head dim 64), off
-    the paths."""
+    and K3 31 times. SD-2.1 (the mode3 phase) has the same blocks with a
+    head dim of 64: 5, 10, 20 and 20 heads on the four levels; its path
+    runs 2 (M3_WARM + M3_STEPS) train steps (the stopped, the straight
+    and the resumed Coach), a sweep per eval token over M3_SWEEP_CAMS
+    cameras and over the offline inference's INFER_CAMS, and the renders
+    of the eval tokens."""
     shapes = []
-    for kind, B, lengths in (
-            ("serve", BATCH, (6912, 1728, 432, 108)),
-            ("sweep", SWEEP_BATCH, (6912, 1728, 432, 108)),
-            ("render", SWEEP_BATCH, (4096, 1024, 256, 64)),
-            ("train", TRAIN_BATCH, (3072, 768, 192, 48))):
-        for level, (L, d, n) in enumerate(zip(lengths, (40, 80, 160, 160),
-                                              (5, 5, 5, 1))):
+    m3_steps = 2 * (M3_WARM + M3_STEPS)
+    for kind, B, lengths, dims, heads in (
+            ("serve", BATCH, (6912, 1728, 432, 108), (40, 80, 160, 160),
+             (8,) * 4),
+            ("sweep", SWEEP_BATCH, (6912, 1728, 432, 108),
+             (40, 80, 160, 160), (8,) * 4),
+            ("render", SWEEP_BATCH, (4096, 1024, 256, 64),
+             (40, 80, 160, 160), (8,) * 4),
+            ("train", TRAIN_BATCH, (3072, 768, 192, 48), (40, 80, 160, 160),
+             (8,) * 4),
+            ("m3 train", TRAIN_BATCH, (3072, 768, 192, 48), (64,) * 4,
+             (5, 10, 20, 20)),
+            ("m3 sweep", SWEEP_BATCH, (6912, 1728, 432, 108), (64,) * 4,
+             (5, 10, 20, 20)),
+            ("m3 render", SWEEP_BATCH, (4096, 1024, 256, 64), (64,) * 4,
+             (5, 10, 20, 20))):
+        for level, (L, d, H, n) in enumerate(zip(lengths, dims, heads,
+                                                 (5, 5, 5, 1))):
             for Lk in (L, 77):
-                first = kind == "train" and level == 0
+                first = kind.endswith("train") and level == 0
                 if kind == "serve":
                     per_run = {"K1": {"serve": n * serve_steps}}
                 elif kind == "sweep":
@@ -336,15 +386,20 @@ def attention_shapes(serve_steps: int):
                         "weights": 2 * n}}
                 elif kind == "render":
                     per_run = {"K1": {"validate": n * VAL_DENOISE}}
+                elif kind == "m3 sweep":
+                    per_run = {"K1": {"mode3": n * VAL_DENOISE * M3_TOKENS
+                                      * (M3_SWEEP_CAMS + INFER_CAMS)}}
+                elif kind == "m3 render":
+                    per_run = {"K1": {"mode3": n * VAL_DENOISE * M3_TOKENS}}
                 else:
+                    paths = ({"mode3": m3_steps} if kind == "m3 train" else
+                             {"train": 1, "validate": VAL_TRAIN_STEPS})
                     per_run = {
-                        key: {"train": m, "validate": m * VAL_TRAIN_STEPS}
+                        key: {p: m * k for p, k in paths.items()}
                         for key, m in (("K1", n), ("K2", n - first),
                                        ("K3", n - (first and Lk == L)))}
-                shapes.append(dict(B=B, Lq=L, Lk=Lk, H=8, d=d,
+                shapes.append(dict(B=B, Lq=L, Lk=Lk, H=H, d=d,
                                    per_run=per_run))
-    shapes.append(dict(B=BATCH, Lq=6912, Lk=6912, H=5, d=64,
-                       per_run={"K1": {}}))
     return shapes
 
 
@@ -483,7 +538,9 @@ def k4_shapes():
     conv2 adds it. Decodes: serving B = 3 from 72x96 latents; the DTU sweep
     B = 2 (one camera's seeds) from 72x96, once a camera; the object
     renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
-    step and in the validate phase's Coach steps."""
+    step and in the validate phase's Coach steps. SD-2.1's VAE is SD-1.5's,
+    so the mode3 phase runs the same shapes: its train steps, a decode per
+    camera of its sweeps and one per token's render."""
     def decoder(D, h, w, per):
         return [(D, h * s, w * s, ci, co, res, per(n)) for s, ci, co, res, n
                 in ((1, 512, 512, False, 5), (1, 512, 512, True, 5),
@@ -494,14 +551,18 @@ def k4_shapes():
                     (8, 128, 3, False, 1))]
 
     E = TRAIN_BATCH
+    m3_steps = 2 * (M3_WARM + M3_STEPS)
 
     def train(n):
-        return {"train": n, "validate": n * VAL_TRAIN_STEPS}
+        return {"train": n, "validate": n * VAL_TRAIN_STEPS,
+                "mode3": n * m3_steps}
 
     return (decoder(BATCH // 2, 72, 96, lambda n: {"serve": n})
             + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
-                "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS})
-            + decoder(len(VAL_SEEDS), 64, 64, lambda n: {"validate": n})
+                "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
+                "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
+            + decoder(len(VAL_SEEDS), 64, 64, lambda n: {
+                "validate": n, "mode3": n * M3_TOKENS})
             + [(E, 384, 512, 128, 128, False, train(2)),
                (E, 384, 512, 128, 128, True, train(2)),
                (E, 192, 256, 128, 256, False, train(1)),
@@ -620,7 +681,10 @@ def phase_kernels(torch, dev, card, serve_steps):
     check(sum(s[-1].get("serve", 0) for s in shapes) == 29
           and sum(s[-1].get("train", 0) for s in shapes) == 21
           and sum(s[-1].get("validate", 0) for s in shapes)
-          == 29 * (EVAL_CAMS + 1) + 21 * VAL_TRAIN_STEPS,
+          == 29 * (EVAL_CAMS + 1) + 21 * VAL_TRAIN_STEPS
+          and sum(s[-1].get("mode3", 0) for s in shapes)
+          == 21 * 2 * (M3_WARM + M3_STEPS)
+          + 29 * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1),
           "K4 shape table")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
@@ -1402,13 +1466,451 @@ def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     return launches, stats
 
 
+def write_mode3_scans(root, image_io, dtu, np, scans):
+    """The recipe's scans (dtu_subset 0: 34 cameras, lighting "3") at
+    1600x1200 from RandomState(0) and 64 random cal18 matrices, written by
+    the port's PNG writer in 8 threads. Returns (Rectified, calibration)."""
+    from concurrent.futures import ThreadPoolExecutor
+    rect = os.path.join(root, "dtu", "Rectified")
+    cal = os.path.join(root, "dtu", "Calibration", "cal18")
+    os.makedirs(cal)
+    rng = np.random.RandomState(0)
+    for i in range(1, 65):
+        m = rng.randn(3, 4) * 100
+        with open(os.path.join(cal, f"pos_{i:03d}.txt"), "w") as f:
+            f.write("\n".join(" ".join(f"{x:.4f}" for x in r) for r in m))
+    jobs = []
+    for scan in scans:
+        os.makedirs(os.path.join(rect, scan))
+        for i in dtu.dtu_get_train_idxs(0):
+            jobs.append((os.path.join(rect, scan,
+                                      f"rect_{i + 1:03d}_3_r5000.png"),
+                         rng.randint(0, 255, (1200, 1600, 3), np.uint8)))
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(image_io.write_png, path, img)
+                  for path, img in jobs]:
+            f.result()
+    return rect, cal, len(jobs)
+
+
+def mode3_config(rect, exp_dir, steps, save_steps, **log):
+    """input_configs/train_m3.yaml as the train CLI reads it, with this
+    run's data and experiment directories, a checkpoint and a train state
+    every save_steps, and no reports."""
+    from view_neti_tpu_torch.config import parse_cli
+    args = ["--config_path", M3_CONFIG, "--data.train_data_dir", rect,
+            "--log.exp_dir", exp_dir, "--log.save_steps", str(save_steps),
+            "--log.checkpoint_backend", "orbax", "--log.report_to", "none",
+            "--log.save_dataset_images", "false",
+            "--optim.max_train_steps", str(steps)]
+    for key, value in log.items():
+        args += [f"--log.{key}", str(value)]
+    return parse_cli(args)
+
+
+def mapper_state(coach):
+    """Every mapper's parameters, copied to the host."""
+    text = coach.built.text
+    return {f"{name}.{k}": v.detach().cpu().clone()
+            for name, m in ([(f"object{i}", m) for i, m in
+                             enumerate(text.obj_mappers)]
+                            + [("view", text.view_mapper)])
+            for k, v in m.state_dict().items()}
+
+
+def phase_mode3(torch, dev, card, coach_stats):
+    """Mode 3 on its shipped recipe at full SD-2.1 width: a run stopped
+    after M3_WARM steps (its final checkpoint writes the train state), a
+    straight run of M3_WARM + M3_STEPS steps with no checkpoint before its
+    end (timed), a run resumed from the stopped one's state that must
+    replay the straight one bit for bit and then validates, offline
+    inference and the summary of that run."""
+    import gc
+    import shutil
+    import numpy as np
+    from view_neti_tpu_torch import summarize_dtu
+    from view_neti_tpu_torch.data import dtu, image_io
+    from view_neti_tpu_torch.data.dataset import DataLoader
+    from view_neti_tpu_torch.inference import offline, pipeline
+    from view_neti_tpu_torch.inference.prompt_manager import PromptManager
+    from view_neti_tpu_torch.ops import device_augment as da
+    from view_neti_tpu_torch.ops.metrics import make_lpips
+    from view_neti_tpu_torch.constants import NUM_UNET_LAYERS
+    from view_neti_tpu_torch.schedulers.ddpm import DDPMSchedule
+    from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
+    from view_neti_tpu_torch.training import inference_dtu
+    from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.training.text_forward import (
+        _object_pass, neti_text_conditioning)
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+
+    B, n = TRAIN_BATCH, M3_WARM + M3_STEPS
+    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_mode3")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        probe = mode3_config("x", "x", 1, 1)
+        rect, cal, n_images = write_mode3_scans(
+            root, image_io, dtu, np, [str(x) for x in
+                                      probe.data.train_data_subsets])
+        write_s = time.perf_counter() - t0
+
+        # ---- the stopped run: M3_WARM steps; its final checkpoint writes
+        # the step-M3_WARM train state
+        run_p = os.path.join(root, "stopped")
+        coach = Coach(mode3_config(rect, run_p, M3_WARM, M3_WARM),
+                      calibration_dir=cal, device=dev)
+        launch_counts(reset=True)
+        coach.train()
+        launches_p = launch_counts()
+        check(os.path.exists(os.path.join(run_p, "train_state",
+                                          f"state-{M3_WARM}.msgpack")),
+              f"no train state at step {M3_WARM}")
+        del coach
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the straight run: M3_WARM warm-up and M3_STEPS timed steps,
+        # no checkpoint before the final one
+        run_a = os.path.join(root, "straight")
+        cfg = mode3_config(rect, run_a, n, 10 ** 9)
+        check(cfg.learnable_mode == 3 and cfg.data.augmentation_key == 5
+              and "stable-diffusion-2-1"
+              in cfg.model.pretrained_model_name_or_path
+              and len(cfg.eval.eval_placeholder_object_tokens) == M3_TOKENS,
+              "the mode-3 recipe changed")
+        t0 = time.perf_counter()
+        coach = Coach(cfg, calibration_dir=cal, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        arch = coach.arch
+        check(coach.mode3_group_size == 3 and coach.micro_batch_size == B
+              and coach.use_pixel_cache and not coach.cache_latents
+              and coach.augment_spec == da.from_augmentation_key(5)
+              and coach.compute_dtype == torch.bfloat16
+              and coach.built.schedule.prediction_type == "v_prediction"
+              and arch.text.num_layers == 23 and arch.text.hidden_size == 1024
+              and arch.unet.use_linear_projection
+              and arch.unet.attention_head_dim == 64
+              and len(coach.built.text.obj_mappers) == 4,
+              "the Coach did not take SD-2.1's fused, grouped, preset-5 "
+              "mode-3 path")
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        coach.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches_a = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(coach.global_step == n, f"the mode-3 Coach ran "
+                                      f"{coach.global_step} steps")
+        check(launches_a == {k: v * n for k, v in per_step.items()},
+              f"mode-3 launches {launches_a} over {n} steps, want "
+              f"{per_step} a step (the SD-1.5 step's)")
+        losses_a = coach.losses
+        check(len(losses_a) == n and all(math.isfinite(x)
+                                         for x in losses_a),
+              f"mode-3 losses {losses_a}")
+        marks = coach.step_marks
+        rates = [B / (b - a) for a, b in zip(marks[:-1], marks[1:])]
+        tail = rates[len(rates) // 2:]
+        ms_step = (coach.loop_end_s - marks[M3_WARM - 1]) * 1e3 / M3_STEPS
+        final_a = mapper_state(coach)
+
+        # grouped conditioning against one call per group on its own
+        # prompts, on a batch whose groups hold two scenes or more: the
+        # object mapper's rows (gathered, mapped, scattered back) exactly,
+        # and the whole conditioning (its CLIP pass then runs on B / G of
+        # the rows); checked at the phase's end
+        ds = coach.train_dataset
+        loader = iter(DataLoader(ds, B, seed=cfg.seed, group_size=3))
+        batch = None
+        for _ in range(50):
+            cand = coach._build_batch(next(loader))
+            if len(set(cand.object_idx.tolist())) > 1:
+                batch = cand
+                break
+        check(batch is not None, "no batch with two scenes in 50")
+        g = torch.Generator(dev).manual_seed(3)
+        ts = torch.randint(0, 1000, (B,), generator=g, device=dev)
+        text = coach.built.text
+        K = NUM_UNET_LAYERS
+        t_k = ts.float().repeat(K)
+        l_k = torch.arange(K, dtype=torch.float32,
+                           device=dev).repeat_interleave(B)
+        with torch.no_grad():
+            ctx, ctx_b = neti_text_conditioning(
+                text, batch.input_ids, batch.input_ids_placeholder_object,
+                batch.input_ids_placeholder_view, ts,
+                object_idx=batch.object_idx)
+            _, rows_g, bypass_g = _object_pass(text, batch.object_idx, t_k,
+                                               l_k, K, B, None, None)
+            group_diff = mapper_rows_diff = 0.0
+            for gi, idx in enumerate(batch.object_idx.tolist()):
+                rows = slice(3 * gi, 3 * gi + 3)
+                want, want_b = neti_text_conditioning(
+                    text, batch.input_ids[rows],
+                    batch.input_ids_placeholder_object[rows],
+                    batch.input_ids_placeholder_view[rows], ts[rows],
+                    object_idx=idx)
+                group_diff = max(
+                    group_diff,
+                    (ctx[:, rows] - want).abs().max().item(),
+                    (ctx_b[:, rows] - want_b).abs().max().item())
+
+                def take(x):
+                    return x.reshape(K, 3, 3)[:, gi].reshape(-1)
+
+                _, w1, b1 = _object_pass(text, idx, take(t_k), take(l_k), K,
+                                         3, None, None)
+                mapper_rows_diff = max(
+                    mapper_rows_diff,
+                    (rows_g.reshape(K, B, -1)[:, rows] - w1.reshape(K, 3, -1)
+                     ).abs().max().item(),
+                    (bypass_g.reshape(K, B, -1)[:, rows]
+                     - b1.reshape(K, 3, -1)).abs().max().item())
+        grouped = dict(object_idx=batch.object_idx.tolist(),
+                       mapper_rows_max_abs_diff=mapper_rows_diff,
+                       conditioning_max_abs_diff=group_diff)
+        print(f"mode3 grouped conditioning [{card}]: {json.dumps(grouped)}",
+              flush=True)
+
+        # one more grouped step under the profiler (after the straight
+        # run's mappers were copied), the augmentation's kernels in a group
+        # of their own
+        def one_step():
+            coach.train_step(coach.built, batch,
+                             coach._step_draws(10 ** 6, batch))
+
+        step_prof = device_profile(torch, one_step,
+                                   ranges=("device_augment",))
+
+        # the step's v-prediction target on the card against the CPU's
+        sched = coach.built.schedule
+        lat = torch.randn(B, 48, 64, 4, generator=g, device=dev)
+        eps = torch.randn(B, 48, 64, 4, generator=g, device=dev)
+        target = sched.target(lat, eps, ts)
+        cpu = DDPMSchedule(prediction_type="v_prediction").target(
+            lat.cpu(), eps.cpu(), ts.cpu())
+        v_err = (target.cpu() - cpu).abs().max().item()
+        check(v_err <= 1e-5 and not torch.allclose(target, eps),
+              f"the v-prediction target differs from the CPU's by {v_err}")
+        del (coach, text, ds, loader, cand, batch, ctx, ctx_b, want, want_b,
+             rows_g, bypass_g, w1, b1)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the resumed run: "latest" in a fresh directory holding the
+        # stopped run's state, to n steps, then the validation round on
+        # the step-n checkpoint
+        run_b = os.path.join(root, "resumed")
+        os.makedirs(os.path.join(run_b, "train_state"))
+        shutil.copy(os.path.join(run_p, "train_state",
+                                 f"state-{M3_WARM}.msgpack"),
+                    os.path.join(run_b, "train_state"))
+        cfg_b = mode3_config(rect, run_b, n, n, resume_from="latest")
+        cfg_b.eval.validation_steps = n
+        coach = Coach(cfg_b, calibration_dir=cal, device=dev)
+        check(coach.global_step == M3_WARM,
+              f"resumed at step {coach.global_step}")
+
+        class TimedValidation(ValidationHandler):
+            """Each token's sweep time and results, read from outside."""
+            sweeps = {}
+
+            def infer_dtu(self, coach, step, num_steps, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = super().infer_dtu(coach, step, num_steps, **kw)
+                torch.cuda.synchronize()
+                self.sweeps[kw["eval_placeholder_object_token"]] = (
+                    time.perf_counter() - t0, res)
+                return res
+
+        coach.validator = TimedValidation(
+            cfg_b, calibration_dir=cal,
+            masks_root=os.path.join(root, "no_masks"),
+            lpips_fn=make_lpips(seed=0, device=dev))
+        cams_all = inference_dtu.get_cam_idxs
+        # the cut: the sweeps cover the first M3_SWEEP_CAMS eval cameras
+        inference_dtu.get_cam_idxs = lambda subset: (
+            cams_all(subset)[0][:M3_SWEEP_CAMS],) + cams_all(subset)[1:]
+        try:
+            launch_counts(reset=True)
+            t0 = time.perf_counter()
+            coach.train()
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+            launches_b = launch_counts()
+        finally:
+            inference_dtu.get_cam_idxs = cams_all
+        losses_b = coach.losses
+        final_b = mapper_state(coach)
+        mapper_diff = max((final_a[k] - final_b[k]).abs().max().item()
+                          for k in final_a)
+        resume = dict(losses_straight=losses_a[M3_WARM:],
+                      losses_resumed=losses_b,
+                      losses_equal=losses_b == losses_a[M3_WARM:],
+                      mappers_max_abs_diff=mapper_diff,
+                      mappers_equal=final_a.keys() == final_b.keys() and all(
+                          torch.equal(final_a[k], final_b[k])
+                          for k in final_a))
+        print(f"mode3 resume [{card}]: {json.dumps(resume)}", flush=True)
+        check(resume["losses_equal"] and resume["mappers_equal"],
+              f"the resumed run does not replay the straight one: {resume}")
+        sweeps = coach.validator.sweeps
+        tokens = list(cfg_b.eval.eval_placeholder_object_tokens)
+        check(sorted(sweeps) == sorted(tokens), f"swept {sorted(sweeps)}")
+        per_token = {}
+        for tok in tokens:
+            secs, res = sweeps[tok]
+            preds = np.stack(res["imgs_pred"])
+            # dtu_subset 0 trains on every eval camera: no test split
+            check(preds.shape == (len(VAL_SEEDS), M3_SWEEP_CAMS, 300, 400, 3)
+                  and preds.min() != preds.max()
+                  and all(math.isfinite(v) for k, v in res.items()
+                          if k.endswith("_train_mean")),
+                  f"{tok}: predictions {preds.shape}")
+            bundle = os.path.join(
+                run_b, f"validation-iter_{n}-denoisesteps_{VAL_DENOISE}"
+                       f"_numseeds_{len(VAL_SEEDS)}-{tok}.msgpack")
+            check(os.path.exists(bundle), f"no bundle for {tok}")
+            per_token[tok] = dict(
+                sweep_s=secs,
+                sec_per_image=secs / (M3_SWEEP_CAMS * len(VAL_SEEDS)),
+                psnr_train_mean=res["psnr_train_mean"])
+        check(os.path.exists(os.path.join(
+            run_b, f"val-disentangled-step{n}.png")), "no object renders")
+        want_b = {k: v * M3_STEPS for k, v in per_step.items()}
+        renders = VAL_DENOISE * M3_TOKENS * (M3_SWEEP_CAMS + 1)
+        want_b["K1"] += 32 * renders
+        want_b["K4"] += 29 * M3_TOKENS * (M3_SWEEP_CAMS + 1)
+        check(launches_b == want_b, f"resumed run launches {launches_b}, "
+                                    f"want {want_b}")
+
+        # one CFG denoise step at the sweep's shapes (B = 4 at 72x96) under
+        # the profiler, and a whole denoise of one camera: finite latents
+        unet, vae = coach.infer_frozen()
+        with torch.no_grad():
+            uncond = pipeline.encode_uncond(coach.built.text.clip,
+                                            coach.tokenizer)
+
+        def denoiser(steps):
+            dpm = DPMSolverSchedule(prediction_type="v_prediction")
+            pm = PromptManager(coach.tokenizer, coach.built.text,
+                               dpm.set_timesteps(steps),
+                               coach.built.placeholder_view_token_ids,
+                               coach.built.placeholder_object_token_ids,
+                               dtype=torch.bfloat16)
+            with torch.no_grad():
+                ctx, ctx_b = pm.embed_prompt(
+                    f"{coach.placeholder_view_tokens[0]}. A photo of a "
+                    f"{tokens[0]}")
+            return (pipeline.make_denoise_fn(unet, dpm, steps, 7.5,
+                                             torch.bfloat16), ctx, ctx_b)
+
+        lat0 = pipeline.initial_latents(VAL_SEEDS, HEIGHT // 8, WIDTH // 8,
+                                        dev)
+        full, ctx, ctx_b = denoiser(VAL_DENOISE)
+        lat = full(lat0, ctx, ctx_b, uncond)
+        imgs = pipeline.decode_to_uint8(vae, lat.to(torch.bfloat16))
+        check(bool(torch.isfinite(lat).all()) and imgs.min() != imgs.max(),
+              "the v-prediction denoise is not finite or its decode is "
+              "constant")
+        step1, ctx1, ctx1_b = denoiser(1)
+        step1(lat0, ctx1, ctx1_b, uncond)
+        prof = device_profile(torch, lambda: step1(lat0, ctx1, ctx1_b,
+                                                   uncond))
+        del coach, unet, vae, ctx, ctx_b, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- offline inference on the resumed run: its sweeps' first
+        # INFER_CAMS cameras, bit for bit; the summary of its bundles
+        out_dir = os.path.join(run_b, "inference")
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        offline_res = offline.main([
+            "--input_dir", run_b, "--iteration", str(n), "--seeds",
+            json.dumps(VAL_SEEDS), "--num_denoising_steps",
+            str(VAL_DENOISE), "--debug", "1", "--torch_dtype", "bf16",
+            "--calibration_dir", cal, "--masks_root",
+            os.path.join(root, "no_masks"), "--inference_dir", out_dir])
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        launches_c = launch_counts()
+        want_c = {"K1": 32 * VAL_DENOISE * INFER_CAMS * M3_TOKENS, "K2": 0,
+                  "K3": 0, "K4": 29 * INFER_CAMS * M3_TOKENS}
+        check(launches_c == want_c, f"mode-3 inference launches "
+                                    f"{launches_c}, want {want_c}")
+        check(sorted(offline_res) == sorted(tokens),
+              f"offline results keyed {sorted(offline_res)}")
+        infer_diff = 0.0
+        for tok in tokens:
+            got = np.stack(offline_res[tok]["imgs_pred"])
+            ref = np.stack(sweeps[tok][1]["imgs_pred"])[:, :INFER_CAMS]
+            infer_diff = max(infer_diff, float(np.abs(got - ref).max()) * 255)
+            check(os.path.exists(os.path.join(
+                out_dir, f"results_all_iter_{n}-{tok}.msgpack")),
+                f"no offline bundle for {tok}")
+        check(infer_diff == 0, f"mode-3 offline inference differs from the "
+                               f"sweeps by up to {infer_diff} levels")
+        rows = summarize_dtu.main(["--results_dirs", run_b, "--iteration",
+                                   str(n), "--out",
+                                   os.path.join(root, "summary.csv")])
+        check(len(rows) == M3_TOKENS * len(VAL_SEEDS)
+              and all(any(r["bundle"].endswith(f"-{t}") for t in tokens)
+                      for r in rows), f"mode-3 summary rows {rows}")
+        check(mapper_rows_diff == 0 and group_diff == 0,
+              f"grouped conditioning differs from the per-group calls: "
+              f"{grouped}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: launches_p[k] + launches_a[k] + launches_b[k]
+                + launches_c[k] for k in launches_a}
+    stats = dict(
+        model="SD-2.1 (stabilityai/stable-diffusion-2-1, seeded weights)",
+        scans=n_images // 34, images=n_images, batch=B, groups=3,
+        height=TRAIN_HEIGHT, width=TRAIN_WIDTH, warmup_steps=M3_WARM,
+        timed_steps=M3_STEPS, imgs_per_sec=float(np.median(tail)),
+        imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
+        sd15_coach_imgs_per_sec=coach_stats["imgs_per_sec"],
+        sd15_coach_ms_per_step=coach_stats["ms_per_step"],
+        sd15_raw_step_ms_per_step=coach_stats["raw_step_ms_per_step"],
+        rates_tail=tail, peak_memory_gib=peak_gb, write_scans_s=write_s,
+        build_s=build_s, train_s=train_s, resumed_run_s=resumed_s,
+        offline_s=infer_s,
+        launches_per_step={k: v / n for k, v in launches_a.items()},
+        losses=losses_a, resume_exact=True,
+        grouped_conditioning=grouped,
+        v_target_max_abs_err_card_vs_cpu=v_err,
+        sweep_cams=M3_SWEEP_CAMS, per_token=per_token,
+        offline_max_diff_levels=infer_diff,
+        step_launches=step_prof["kernels"] if step_prof else None,
+        step_idle_share=step_prof["idle_share"] if step_prof else None,
+        denoise_step_launches=prof["kernels"] if prof else None,
+        denoise_step_idle_share=prof["idle_share"] if prof else None,
+        launches=launches)
+    print(f"mode3 [{card}]: {json.dumps(stats)}", flush=True)
+    print(f"profile mode3 step [{card}]: "
+          f"{json.dumps(step_prof) if step_prof else 'not measured'}",
+          flush=True)
+    print(f"profile mode3 denoise step [{card}]: "
+          f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
+    return launches, stats
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
     shape, and the same summed over one run of each path that launches it
     (<path>_path_*: a serving run, a train step, the weights phase, the
-    validate phase, the inference phase), each shape weighted by its
-    launches there."""
+    validate phase, the inference phase, the mode3 phase), each shape
+    weighted by its launches there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -1428,7 +1930,8 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|")):
         rows = kernels[key]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
-        paths = ("serve", "train", "weights", "validate", "inference")
+        paths = ("serve", "train", "weights", "validate", "inference",
+                 "mode3")
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
                                      for r in rows)
                 for p in paths
@@ -1489,11 +1992,12 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
-    # run reads the three path buckets of K1 (in two key-tile widths, 64
+    # run reads the four path buckets of K1 (in two key-tile widths, 64
     # and 80), of K2 and of K3, and K4's two output-channel tiles
     n = check_path_spills(ptxas_usage(logs))
-    check(n == 14, f"found {n} path instantiations of K1-K4 in the build "
-                   f"logs, want 14")
+    want = 4 * len(PATH_BUCKETS) + 2
+    check(n == want, f"found {n} path instantiations of K1-K4 in the build "
+                     f"logs, want {want}")
 
     kernels = phase_kernels(torch, dev, card, args.steps)
     serve_launches, _, built, tok = phase_slice(torch, dev, card,
@@ -1505,8 +2009,8 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    coach_launches, _ = phase_coach(torch, dev, card, train_result,
-                                    args.coach_steps)
+    coach_launches, coach_stats = phase_coach(torch, dev, card,
+                                              train_result, args.coach_steps)
     gc.collect()
     torch.cuda.empty_cache()
     import numpy as np
@@ -1530,12 +2034,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         inference_launches, _ = phase_inference(torch, dev, card, cal,
                                                 masks_root, run_dir, val)
+    del val
+    gc.collect()
+    torch.cuda.empty_cache()
+    mode3_launches, _ = phase_mode3(torch, dev, card, coach_stats)
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
                                      "weights": weights_launches,
                                      "validate": validate_launches,
-                                     "inference": inference_launches}, card)
+                                     "inference": inference_launches,
+                                     "mode3": mode3_launches}, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,8 @@ own msgpack codec (utils/msgpack_codec.py), so each side reads the other's:
                                     and "view_table" (the camera bounds)
 
 and the -final variants. The trees are numpy; weight_port.to_jax_trainable
-and from_jax_mapper convert to and from the port's mappers. The JAX
-package's orbax train state (for resume) has no counterpart yet.
+and from_jax_mapper convert to and from the port's mappers. The resumable
+train state (the JAX package's orbax state) is train_state.py's.
 """
 from __future__ import annotations
 

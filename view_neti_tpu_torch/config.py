@@ -8,10 +8,11 @@ and writer, since the machine with the card has no PyYAML.
 
 A few fields steer machinery that only the TPU build has; the port accepts
 them, so every config of the JAX package decodes, and the Coach says in one
-log line that it ignores them: `parallel.*` (the port runs on one card),
-`optim.steps_per_dispatch` (a TPU dispatch window) and
-`log.checkpoint_backend: orbax`. `optim.fuse_conv: null` means: fuse the
-frozen VAE encode when the run is on the card.
+log line that it ignores them: `parallel.*` (the port runs on one card) and
+`optim.steps_per_dispatch` (a TPU dispatch window). `log.checkpoint_backend:
+orbax` asks for a resumable train state, which the port writes in its own
+format (train_state.py). `optim.fuse_conv: null` means: fuse the frozen VAE
+encode when the run is on the card.
 """
 from __future__ import annotations
 
@@ -265,8 +266,8 @@ class RunConfig:
 @dataclass
 class InferenceConfig:
     """Offline inference (view_neti_tpu/config.py InferenceConfig); read
-    from input_configs/inference.yaml. The inference CLI is a later module
-    of the port."""
+    from input_configs/inference.yaml by the inference CLI
+    (inference/offline.py)."""
     iteration: Optional[int] = None
     input_dir: Optional[Path] = None
     inference_dir: Optional[Path] = None

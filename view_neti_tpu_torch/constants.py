@@ -37,6 +37,13 @@ VALIDATION_PROMPTS = [
     "A painting of {} in the style of Monet",
 ]
 
+# Free-text objects of mode 3's view-generalisation sheet (reference
+# validate.py:268-314; view_neti_tpu/constants.py:74).
+T2I_GENERALIZATION_PROMPTS = [
+    "a koala", "a brown teddy bear", "a small red car",
+    "a small townhouse", "3 cans of soup", "a black dog",
+]
+
 # Textual-inversion caption templates (reference training/dataset.py,
 # from the diffusers textual_inversion example).
 IMAGENET_TEMPLATES_SMALL = [

@@ -5,24 +5,26 @@ Captions by mode:
   0: "a photo of a <object>" (a random IMAGENET template), on a folder
   1: "<view_x>. A photo of a {fixed_object}" (caption_strategy 1 and 2 too)
   2/4/5: "<view_x>. A photo of a <object>"
-Modes 1-5 read DTU scans (camera_representation "dtu-12d"). Mode 3's
-per-scene sampling and the spherical cameras of other datasets are later
-modules of the port and raise.
+  3: "<view_x>. A photo of a <object_y>", one DTU scan per object token
+     (train_data_subsets), the scan resampled per batch or per group
+Modes 1-5 read DTU scans (camera_representation "dtu-12d"); the
+spherical cameras of other datasets are a later module of the port and
+raise.
 
 Every stochastic choice of an example is keyed by (seed, epoch, index)
-through numpy's default_rng, and the epoch order by (seed, epoch), so the
-port's stream of captions, ids and image indices is the JAX package's,
-bit for bit. The image path reads PNGs only (JPEG is a later module);
-the deterministic preprocess is decode + resize, cached per file as uint8,
-and the stochastic suffix runs on the card (ops/device_augment.py). The
-host augmentation pipeline of the JAX package (data.device_augment false)
-is a later module and raises.
+through numpy's default_rng, the epoch order by (seed, epoch) and mode 3's
+scene by (seed, batch or group counter), so the port's stream of captions,
+ids and image indices is the JAX package's, bit for bit. The image path
+reads PNGs only (JPEG is a later module); the deterministic preprocess is
+decode + resize, cached per file as uint8, and the stochastic suffix runs
+on the card (ops/device_augment.py). The host augmentation pipeline of the
+JAX package (data.device_augment false) is a later module and raises.
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -42,6 +44,8 @@ class TextualInversionDataset:
                  tokenizer,
                  camera_representation: str,
                  learnable_mode: int,
+                 train_data_subsets: Optional[Sequence[Path]] = None,
+                 placeholder_object_tokens: Optional[List[str]] = None,
                  fixed_object_token_or_path: Optional[str] = None,
                  size: int = 768,
                  repeats: int = 100,
@@ -56,9 +60,6 @@ class TextualInversionDataset:
                  center_crop: bool = False,
                  calibration_dir: Optional[str] = None,
                  seed: int = 0):
-        if learnable_mode == 3:
-            raise NotImplementedError(
-                "mode 3 (per-scene sampling) is a later module of the port")
         if learnable_mode != 0 and camera_representation != "dtu-12d":
             raise NotImplementedError(
                 f"camera_representation {camera_representation!r}: the "
@@ -70,6 +71,8 @@ class TextualInversionDataset:
         self.placeholder_object_token = placeholder_object_token
         self.center_crop = center_crop
         self.flip_p = flip_p if learnable_mode == 0 else 0.0
+        self.train_data_subsets = ([str(x) for x in train_data_subsets]
+                                   if train_data_subsets else None)
         self.camera_representation = camera_representation
         self.dtu_lighting = str(dtu_lighting)
         self.dtu_subset = dtu_subset
@@ -83,15 +86,26 @@ class TextualInversionDataset:
             assert learnable_mode == 1, \
                 "alt caption_strategy only implemented for mode 1"
 
-        paths = filter_paths_imgs(sorted(self.data_root.glob("*")))
-        if learnable_mode != 0:
-            paths = dtu_mod.dtu_filter_fnames_lighting(paths,
-                                                       self.dtu_lighting)
-            paths = dtu_mod.dtu_filter_image_paths_from_idx(
-                paths, dtu_mod.dtu_get_train_idxs(dtu_subset))
-        self.image_paths = paths
-        self.image_paths_flattened = paths
-        self.num_images = len(paths)
+        if learnable_mode != 3:
+            paths = self._scan_paths(self.data_root)
+            self.image_paths = paths
+            self.image_paths_flattened = paths
+        else:
+            # one scan per subset; image_idx is global over the flattened
+            # list (each subset's offset added), so that a cache built over
+            # image_paths_flattened can be indexed by it
+            self.image_paths = {}
+            self._subset_offsets = {}
+            flat = []
+            for sub in self.train_data_subsets:
+                paths = self._scan_paths(self.data_root / sub)
+                assert paths, f"no images in subset {sub}"
+                self.image_paths[sub] = paths
+                self._subset_offsets[sub] = len(flat)
+                flat += paths
+            self.image_paths_flattened = flat
+            self.reset_sampled_object(0)
+        self.num_images = len(self.image_paths_flattened)
         assert self.num_images > 0, \
             "no images found; check data.train_data_dir"
         self._length = self.num_images * (repeats if set_name == "train"
@@ -108,7 +122,7 @@ class TextualInversionDataset:
             self.placeholder_object_tokens = [placeholder_object_token]
             self.placeholder_view_tokens: List[str] = []
             self.fixed_object_token = None
-        elif learnable_mode in (1, 2, 4, 5):
+        elif learnable_mode in (1, 2, 3, 4, 5):
             self.placeholder_view_tokens = self._generate_view_tokens()
             if (fixed_object_token_or_path is not None
                     and str(fixed_object_token_or_path).endswith(
@@ -120,6 +134,13 @@ class TextualInversionDataset:
             elif learnable_mode == 1:
                 self.fixed_object_token = fixed_object_token_or_path
                 self.placeholder_object_tokens = []
+            elif learnable_mode == 3:
+                self.fixed_object_token = None
+                self.placeholder_object_tokens = list(
+                    placeholder_object_tokens)
+                self.lookup_object_to_placeholder_object_token = dict(
+                    zip(self.train_data_subsets,
+                        self.placeholder_object_tokens))
             else:
                 self.fixed_object_token = None
                 self.placeholder_object_tokens = [placeholder_object_token]
@@ -128,6 +149,17 @@ class TextualInversionDataset:
         self.placeholder_tokens = (self.placeholder_view_tokens
                                    + self.placeholder_object_tokens)
         self.augmentation_key = augmentation_key
+
+    def _scan_paths(self, root: Path) -> List[Path]:
+        """The scan's images; DTU runs keep the lighting and the cameras of
+        dtu_subset."""
+        paths = filter_paths_imgs(sorted(Path(root).glob("*")))
+        if self.learnable_mode != 0:
+            paths = dtu_mod.dtu_filter_fnames_lighting(paths,
+                                                       self.dtu_lighting)
+            paths = dtu_mod.dtu_filter_image_paths_from_idx(
+                paths, dtu_mod.dtu_get_train_idxs(self.dtu_subset))
+        return paths
 
     # ---- view tokens (reference dataset.py:411-582) ----------------------
     def _generate_view_tokens(self) -> List[str]:
@@ -139,8 +171,17 @@ class TextualInversionDataset:
          self.lookup_camidx_to_cam_params
          ) = dtu_mod.dtu_generate_dset_cam_tokens_params(**kwargs)
         cam_idxs = sorted(set(dtu_mod.dtu_cam_info_from_fname(f)[0]
-                              for f in self.image_paths))
+                              for f in self.image_paths_flattened))
         return [self.lookup_camidx_to_view_token[k] for k in cam_idxs]
+
+    def reset_sampled_object(self, counter: int) -> None:
+        """Mode 3: draw the scene of the next examples. counter is the
+        draw's index (the DataLoader passes its global batch or group
+        counter), so the scene sequence depends on the position alone."""
+        assert self.learnable_mode == 3
+        rng = np.random.default_rng((self.seed, 0x5CE4E, int(counter)))
+        self.current_object_idx = int(
+            rng.integers(len(self.train_data_subsets)))
 
     def set_epoch(self, epoch: int) -> None:
         """The epoch mixed into each example's generator (set by the
@@ -174,12 +215,21 @@ class TextualInversionDataset:
 
     # ---- examples (reference dataset.py:605-739) -------------------------
     def __getitem__(self, i: int) -> Dict[str, Any]:
-        placeholder_object_token = (self.placeholder_object_tokens[0]
-                                    if self.placeholder_object_tokens
-                                    else None)
-        idx = i % self.num_images
-        image_path = Path(self.image_paths[idx])
-        example: Dict[str, Any] = {"image_idx": idx}
+        if self.learnable_mode == 3:
+            scene = self.train_data_subsets[self.current_object_idx]
+            paths = self.image_paths[scene]
+            placeholder_object_token = \
+                self.lookup_object_to_placeholder_object_token[scene]
+            idx = i % len(paths)
+            image_path = Path(paths[idx])
+            global_idx = self._subset_offsets[scene] + idx
+        else:
+            placeholder_object_token = (self.placeholder_object_tokens[0]
+                                        if self.placeholder_object_tokens
+                                        else None)
+            idx = global_idx = i % self.num_images
+            image_path = Path(self.image_paths[idx])
+        example: Dict[str, Any] = {"image_idx": global_idx}
         ex_rng = np.random.default_rng((self.seed, self._epoch, int(i)))
         template = self.templates[int(ex_rng.integers(len(self.templates)))]
 
@@ -225,7 +275,8 @@ class TextualInversionDataset:
             ids.setflags(write=False)
             self._tok_cache[example["text"]] = ids
         example["input_ids"] = ids
-        example["object_idx"] = np.int32(0)
+        example["object_idx"] = np.int32(self.current_object_idx
+                                         if self.learnable_mode == 3 else 0)
 
         if not self.skip_pixels:
             if self.emit_base_pixels:
@@ -285,14 +336,26 @@ class TextualInversionDataset:
 class DataLoader:
     """Shuffling batcher with numpy collation (view_neti_tpu/data/
     dataset.py DataLoader, with shuffle and drop_last on). The epoch order
-    is a function of (seed, epoch) and each example's draws of (seed,
-    epoch, index), so the stream is a function of the batch position;
-    start_batch fast-forwards to it."""
+    is a function of (seed, epoch), each example's draws of (seed, epoch,
+    index) and mode 3's scene of the global batch counter, so the stream
+    is a function of the batch position; start_batch fast-forwards to it.
+
+    group_size (mode 3 with fused accumulation): each batch is
+    batch_size / group_size contiguous groups, and the scene is drawn
+    again before each group with the counter next_batch * groups + g, so a
+    fused batch carries the per-micro-batch scenes of the reference; the
+    collated object_idx is then (G,). Without it, mode 3 draws the scene
+    once per batch."""
 
     def __init__(self, dataset: TextualInversionDataset, batch_size: int,
-                 seed: int = 0, start_batch: int = 0):
+                 seed: int = 0, start_batch: int = 0,
+                 group_size: Optional[int] = None):
+        if group_size and batch_size % group_size:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                             f"group_size {group_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.group_size = group_size
         self.seed = seed
         self._next_batch = int(start_batch)
 
@@ -309,15 +372,25 @@ class DataLoader:
         first = self._next_batch % max(bpe, 1)
         order = np.random.default_rng((self.seed, epoch)).permutation(n)
         self.dataset.set_epoch(epoch)
+        gs = self.group_size or self.batch_size
+        groups = self.batch_size // gs
+        mode3 = self.dataset.learnable_mode == 3
         for b in range(first, bpe):
-            start = b * self.batch_size
-            examples = [self.dataset[int(i)]
-                        for i in order[start:start + self.batch_size]]
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            examples = []
+            for g in range(groups):
+                if mode3:
+                    self.dataset.reset_sampled_object(
+                        counter=(self._next_batch * groups + g
+                                 if self.group_size else self._next_batch))
+                examples += [self.dataset[int(i)]
+                             for i in idxs[g * gs:(g + 1) * gs]]
             self._next_batch += 1
-            yield self._collate(examples)
+            yield self._collate(examples, self.group_size)
 
     @staticmethod
-    def _collate(examples: List[Dict[str, Any]]) -> Dict[str, Any]:
+    def _collate(examples: List[Dict[str, Any]],
+                 group_size: Optional[int] = None) -> Dict[str, Any]:
         batch = {}
         keys = ("input_ids", "input_ids_placeholder_object",
                 "input_ids_placeholder_view")
@@ -325,7 +398,11 @@ class DataLoader:
             keys = ("pixel_values",) + keys
         for k in keys:
             batch[k] = np.stack([e[k] for e in examples])
-        batch["object_idx"] = np.asarray(examples[0]["object_idx"])
+        if group_size:
+            batch["object_idx"] = np.asarray(
+                [e["object_idx"] for e in examples[::group_size]], np.int32)
+        else:
+            batch["object_idx"] = np.asarray(examples[0]["object_idx"])
         batch["image_idxs"] = np.asarray([e["image_idx"] for e in examples],
                                          np.int32)
         batch["texts"] = [e["text"] for e in examples]

@@ -151,20 +151,36 @@ def read_rgb(path: Union[str, Path]) -> np.ndarray:
 def filter_rows(img: np.ndarray, kinds: np.ndarray) -> np.ndarray:
     """The filtered rows (H, 1 + W * C) of img (H, W, C) uint8, row y with
     filter kinds[y] (0-4). Filtering reads only the raw image, so each
-    filter runs on the whole image at once."""
+    filter runs at once on all the rows that use it (in int16, wide
+    enough for every predictor)."""
     H, W, C = img.shape
-    x = img.reshape(H, W * C).astype(np.int64)
-    a = np.zeros_like(x)
-    a[:, C:] = x[:, :-C]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, C:] = x[:-1, :-C]
-    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1,
-                      _paeth(a, b, c)])
+    x = img.reshape(H, W * C).astype(np.int16)
     kinds = np.asarray(kinds, np.int64)
-    filt = (x - preds[kinds, np.arange(H)]) & 0xFF
-    return np.concatenate([kinds[:, None], filt], axis=1).astype(np.uint8)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    out = np.empty((H, 1 + W * C), np.uint8)
+    out[:, 0] = kinds
+    for kind in range(len(FILTERS)):
+        rows = np.flatnonzero(kinds == kind)
+        if not rows.size:
+            continue
+        cur, b = x[rows], up[rows]
+        a = np.zeros_like(cur)
+        a[:, C:] = cur[:, :-C]
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = a
+        elif kind == 2:
+            pred = b
+        elif kind == 3:
+            pred = (a + b) >> 1
+        else:
+            c = np.zeros_like(cur)
+            c[:, C:] = b[:, :-C]
+            pred = _paeth(a, b, c)
+        out[rows, 1:] = (cur - pred) & 0xFF
+    return out
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,11 +1,12 @@
 """A prefetching loader: a background thread keeps a small queue of ready
 host batches while the card runs the step (view_neti_tpu/data/loader.py).
 
-The producer just runs DataLoader's iterator, so the batch stream and the
-start_batch fast-forward are those of the DataLoader; the consumer moves
-each batch to the card. `prepare` (a callable) post-processes each batch
-inside the thread: the Coach packs and pins its host tensors there, so
-that their copy to the card does not hold up the loop.
+The producer just runs DataLoader's iterator, so the batch stream, mode 3's
+scene draws (group_size) and the start_batch fast-forward are those of the
+DataLoader; the consumer moves each batch to the card. `prepare` (a
+callable) post-processes each batch inside the thread: the Coach packs and
+pins its host tensors there, so that their copy to the card does not hold
+up the loop.
 """
 from __future__ import annotations
 
@@ -24,9 +25,11 @@ class PrefetchLoader:
 
     def __init__(self, dataset: TextualInversionDataset, batch_size: int,
                  seed: int = 0, start_batch: int = 0,
-                 prepare: Optional[Callable] = None):
+                 prepare: Optional[Callable] = None,
+                 group_size: Optional[int] = None):
         self.inner = DataLoader(dataset, batch_size, seed=seed,
-                                start_batch=start_batch)
+                                start_batch=start_batch,
+                                group_size=group_size)
         self.dataset = dataset
         self.prepare = prepare
         self._q: Optional[queue.Queue] = None

@@ -8,12 +8,16 @@ of the JAX package), run as a module through inference/__main__.py:
 It reads an InferenceConfig (YAML and dot-overrides), rebuilds the Coach
 from the config embedded in the step's mapper checkpoint, runs the DTU
 sweep over the 34 eval cameras (2 with --debug 1) on the card, reloading
-the step's mapper files (it raises where they are missing), and writes
-each seed's result sheet preds_iter_{it}_seed{i}.png and the bundle
+the step's mapper files (it raises where they are missing), and writes each
+seed's result sheet preds_iter_{it}_seed{i}.png and the bundle
 results_all_iter_{it}.msgpack under inference_dir, which summarize_dtu
-scores. As in the JAX script, the frozen SD stack is the seeded one the
-config builds: no SD_WEIGHTS_DIR is read. VIEW_NETI_TINY=1 swaps in the
-miniature stack; `main(argv, device="cpu")` runs on the CPU.
+scores. A mode-3 run sweeps each token of eval_placeholder_object_tokens
+(else the run's own list, else its first object token) against that token's
+scan, and writes preds_iter_{it}-{token}_seed{i}.png and
+results_all_iter_{it}-{token}.msgpack; its results are keyed by token. As
+in the JAX script, the frozen SD stack is the seeded one the config builds:
+no SD_WEIGHTS_DIR is read. VIEW_NETI_TINY=1 swaps in the miniature stack;
+`main(argv, device="cpu")` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -30,10 +34,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
         raise SystemExit("input_dir and iteration are required (set them "
                          "in the YAML or pass --input_dir / --iteration)")
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
-    from view_neti_tpu_torch.training import builder, inference_dtu
+    from view_neti_tpu_torch.training import builder
     from view_neti_tpu_torch.training.coach import Coach
     from view_neti_tpu_torch.training.validate import ValidationHandler
-    from view_neti_tpu_torch.utils import msgpack_codec
 
     # the checkpoint's own config drives the rebuild
     input_dir = Path(infer_cfg.input_dir)
@@ -44,6 +47,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
     cfg, _ = CheckpointHandler.load_mapper(ckpt)
     cfg.log.exp_dir = input_dir
     cfg.log.overwrite_ok = True
+    cfg.log.resume_from = None   # the sweep reloads the step's mappers
     cfg.eval.validation_seeds = list(infer_cfg.seeds)
     cfg.eval.num_validation_images = len(infer_cfg.seeds)
     cfg.eval.num_denoising_steps = infer_cfg.num_denoising_steps
@@ -71,22 +75,39 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
     validator = ValidationHandler(cfg, masks_root=infer_cfg.masks_root,
                                   calibration_dir=infer_cfg.calibration_dir,
                                   lpips_fn=lpips_fn)
-    results = validator.infer_dtu(
-        coach, step=it, num_steps=infer_cfg.num_denoising_steps,
-        return_instead_of_save=True, on_missing_ckpt="raise")
-
     save_dir = Path(infer_cfg.inference_dir or input_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
+    if cfg.learnable_mode == 3:
+        tokens = (cfg.eval.eval_placeholder_object_tokens
+                  or coach.placeholder_object_tokens[:1])
+        results = {tok: _sweep(validator, coach, infer_cfg, save_dir,
+                               tag=f"-{tok}", token=tok) for tok in tokens}
+    else:
+        results = _sweep(validator, coach, infer_cfg, save_dir)
+    coach.logger.close()
+    return results
+
+
+def _sweep(validator, coach, infer_cfg, save_dir: Path, tag: str = "",
+           token: Optional[str] = None) -> Dict:
+    """One sweep of the step's mappers (of `token`'s object in mode 3),
+    its sheets and its bundle (names suffixed by `tag`)."""
+    from view_neti_tpu_torch.training import inference_dtu
+    from view_neti_tpu_torch.utils import msgpack_codec
+    it = infer_cfg.iteration
+    results = validator.infer_dtu(
+        coach, step=it, num_steps=infer_cfg.num_denoising_steps,
+        eval_placeholder_object_token=token, return_instead_of_save=True,
+        on_missing_ckpt="raise")
     inference_dtu.save_figures(
-        results, [save_dir / f"preds_iter_{it}_seed{i}.png"
+        results, [save_dir / f"preds_iter_{it}{tag}_seed{i}.png"
                   for i in range(len(results["grids"]))],
         coach.logger.log_message)
     bundle = inference_dtu.result_bundle(results, infer_cfg.seeds)
-    out = save_dir / f"results_all_iter_{it}.msgpack"
+    out = save_dir / f"results_all_iter_{it}{tag}.msgpack"
     out.write_bytes(msgpack_codec.packb(bundle))
-    print("metrics:", bundle["metrics"])
+    print(f"metrics{tag}:", bundle["metrics"])
     print("saved:", out)
-    coach.logger.close()
     results["bundle"] = out
     return results
 

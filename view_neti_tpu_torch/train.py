@@ -4,15 +4,18 @@
         [--section.key value ...]
 
 It reads the config (YAML and dot-overrides), seeds the host, prepares the
-experiment directory and runs the Coach on the card, validating every
-eval.validation_steps. The environment names the files the repository
-does not hold: DTU_CALIBRATION_DIR the DTU calibration directory,
-SD_WEIGHTS_DIR a diffusers-layout SD directory (else the frozen stack is
-seeded random weights), DTU_MASKS_DIR the IDR object masks, LPIPS_WEIGHTS
-an .npz of LPIPS weights (else validation reports LPIPS as 0).
-VIEW_NETI_TINY=1 swaps in the miniature stack (builder.tiny_arch(),
-16-pixel resolution, the 64x48 DTU preprocess) for smoke runs; it does not
-choose the CPU: `main(argv, device="cpu")` does.
+experiment directory (a non-empty one only with log.overwrite_ok or
+log.resume_from) and runs the Coach on the card, validating every
+eval.validation_steps. input_configs/train_m3.yaml runs mode 3; add
+--log.checkpoint_backend orbax for resumable train states and
+--log.resume_from latest to go on from the newest. The environment names
+the files the repository does not hold: DTU_CALIBRATION_DIR the DTU
+calibration directory, SD_WEIGHTS_DIR a diffusers-layout SD directory (else
+the frozen stack is seeded random weights), DTU_MASKS_DIR the IDR object
+masks, LPIPS_WEIGHTS an .npz of LPIPS weights (else validation reports
+LPIPS as 0). VIEW_NETI_TINY=1 swaps in the miniature stack
+(builder.tiny_arch(), 16-pixel resolution, the 64x48 DTU preprocess) for
+smoke runs; it does not choose the CPU: `main(argv, device="cpu")` does.
 """
 from __future__ import annotations
 

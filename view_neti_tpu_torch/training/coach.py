@@ -10,6 +10,11 @@ What it runs, as the JAX Coach runs it:
     gradient_accumulation_steps samples as one batch per optimizer step;
     off, it accumulates the gradients of k micro-batches and steps once
     (optax.MultiSteps in the JAX package);
+  * mode 3 (one view mapper over several scans, one object mapper per
+    scan): fused, the batch is k groups of train_batch_size samples, each
+    group from its own scene draw and conditioned on that scene's object
+    mapper (TrainBatch.object_idx (G,)); unfused, each micro-batch draws
+    one scene. Mode 3 keeps no latent cache;
   * augmentation 0 without a flip: every image's VAE posterior moments are
     encoded once into a latent cache on the card, and the step samples from
     them;
@@ -24,7 +29,11 @@ What it runs, as the JAX Coach runs it:
     waits for the step it has just launched;
   * a checkpoint every log.save_steps (pruned to
     log.checkpoints_total_limit) and a final one, in the JAX package's
-    files (checkpoint.py);
+    files (checkpoint.py); with log.checkpoint_backend "orbax" (the
+    config's request for a resumable state) a train state beside each
+    (train_state.py), and log.resume_from (a state file, or "latest")
+    restores one and fast-forwards the stream to its step, so that the
+    resumed run replays the uninterrupted one;
   * with a validator attached (training/validate.py), a validation round
     every eval.validation_steps, after that step's checkpoint is written
     (the DTU sweep reloads it); max_validation_failures consecutive
@@ -34,8 +43,8 @@ What it runs, as the JAX Coach runs it:
     torch view mapper (.pt) for modes 4/5 through torch_interop.
 
 Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
-scan (make_multi_step), the device mesh, the XLA cost hook. Left for later
-modules: mode 3 and resume_from.
+scan (make_multi_step), the device mesh, the XLA cost hook, the orbax
+format (train_state.py writes the port's own).
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from view_neti_tpu_torch import weight_port
+from view_neti_tpu_torch import train_state, weight_port
 from view_neti_tpu_torch.checkpoint import CheckpointHandler
 from view_neti_tpu_torch.config import RunConfig
 from view_neti_tpu_torch.data import image_io
@@ -95,16 +104,9 @@ class Coach:
         self.logger = CoachLogger(cfg)
         if cfg.optim.seed is not None:
             fixseed(cfg.optim.seed)
-        if cfg.learnable_mode == 3:
-            raise NotImplementedError(
-                "mode 3 is a later module of the port")
-        if cfg.log.resume_from:
-            raise NotImplementedError(
-                "log.resume_from: the port's resume format is a later "
-                "module")
         self.logger.log_message(
             "TPU-only settings are ignored: parallel.*, "
-            "optim.steps_per_dispatch, log.checkpoint_backend=orbax")
+            "optim.steps_per_dispatch")
         mp = cfg.optim.mixed_precision
         if mp is False:  # YAML 1.1 reads a bare `no` as False
             mp = "no"
@@ -169,7 +171,13 @@ class Coach:
             builder.trainable_groups(self.built), self.lr_schedule,
             o.adam_beta1, o.adam_beta2, o.adam_epsilon, o.adam_weight_decay,
             frozen_keys=trainable_mask_keys(cfg.learnable_mode)[1])
-        if o.fuse_accumulation and o.gradient_accumulation_steps > 1:
+        fused = o.fuse_accumulation and o.gradient_accumulation_steps > 1
+        # mode 3 fused: the batch is k groups of train_batch_size, each
+        # with its own scene (the reference's per-micro-batch scenes)
+        self.mode3_group_size = (o.train_batch_size
+                                 if fused and cfg.learnable_mode == 3
+                                 else None)
+        if fused:
             self.micro_batch_size = (o.train_batch_size
                                      * o.gradient_accumulation_steps)
             self.accum_k = 1
@@ -180,7 +188,8 @@ class Coach:
         # ---- caches on the card and the augmentation ---------------------
         ds = self.train_dataset
         self.cache_latents = (cfg.data.augmentation_key == 0
-                              and ds.flip_p == 0.0)
+                              and ds.flip_p == 0.0
+                              and cfg.learnable_mode != 3)
         self.augment_spec = None
         if (not self.cache_latents and cfg.data.device_augment
                 and ds.uniform_base_shape):
@@ -218,12 +227,15 @@ class Coach:
         self.loop_end_s = None
         self.losses = []
         self.cache_fill_s = None
+        self._maybe_resume()
 
     # ------------------------------------------------------------------
     def _init_dataset(self, calibration_dir) -> TextualInversionDataset:
         cfg = self.cfg
         return TextualInversionDataset(
             learnable_mode=cfg.learnable_mode,
+            train_data_subsets=cfg.data.train_data_subsets,
+            placeholder_object_tokens=cfg.data.placeholder_object_tokens,
             fixed_object_token_or_path=cfg.data.fixed_object_token_or_path,
             data_root=cfg.data.train_data_dir,
             tokenizer=self.tokenizer,
@@ -349,12 +361,14 @@ class Coach:
         micro_step = self.global_step * k
         if os.environ.get("VIEW_NETI_NO_PREFETCH"):
             loader = DataLoader(ds, batch_size=self.micro_batch_size,
-                                seed=cfg.seed, start_batch=micro_step)
+                                seed=cfg.seed, start_batch=micro_step,
+                                group_size=self.mode3_group_size)
             prepare = self._pack
         else:
             loader = PrefetchLoader(ds, batch_size=self.micro_batch_size,
                                     seed=cfg.seed, start_batch=micro_step,
-                                    prepare=self._pack)
+                                    prepare=self._pack,
+                                    group_size=self.mode3_group_size)
             prepare = None
 
         def stream():
@@ -494,16 +508,19 @@ class Coach:
         """A collated host batch as torch tensors: the token ids, the two
         placeholder ids and the image indices in one int64 array (one copy
         to the card), and the pixels where there is no cache; pinned when
-        the run is on the card."""
+        the run is on the card. A grouped batch's (G,) object indices stay
+        on the host: they choose the mapper of each group."""
         ids = np.asarray(batch_np["input_ids"], np.int64)
         ints = np.concatenate(
             [ids] + [np.asarray(batch_np[k], np.int64)[:, None]
                      for k in ("input_ids_placeholder_object",
                                "input_ids_placeholder_view", "image_idxs")],
             axis=1)
+        obj = np.asarray(batch_np["object_idx"])
         host = {"ints": torch.from_numpy(ints), "pixels": None,
                 "length": ids.shape[1],
-                "object_idx": int(batch_np["object_idx"])}
+                "object_idx": (int(obj) if obj.ndim == 0 else
+                               torch.from_numpy(obj.astype(np.int64)))}
         if not self.use_pixel_cache:
             host["pixels"] = torch.from_numpy(
                 np.ascontiguousarray(batch_np["pixel_values"]))
@@ -591,14 +608,31 @@ class Coach:
             view_table=self.built.view_table,
             token_table=table.weight.detach().float().cpu().numpy(),
             embeds_save_name=embeds_name, mapper_save_name=mapper_name)
+        if self.cfg.log.checkpoint_backend == "orbax":
+            out = train_state.save(train_state.state_path(
+                self.cfg.log.exp_dir, self.global_step), self)
+            self.logger.log_message(f"saved train state {out}")
         self.logger.log_message(f"saved checkpoint at step "
                                 f"{self.global_step}")
         if "steps" in embeds_name:
             self._prune_old_checkpoints()
 
+    def _maybe_resume(self) -> None:
+        """log.resume_from: the mappers, the optimizer's moments and
+        counts, and the global step from a train state (train_state.py): a
+        path, or "latest" for the newest under <exp_dir>/train_state.
+        train() then fast-forwards the stream to the step."""
+        path = train_state.resolve(self.cfg.log.exp_dir,
+                                   self.cfg.log.resume_from)
+        if path is None:
+            return
+        self.global_step = train_state.restore(self, train_state.load(path))
+        self.logger.log_message(
+            f"resumed from {path} at global step {self.global_step}")
+
     def _prune_old_checkpoints(self) -> None:
-        """Keep the newest log.checkpoints_total_limit step checkpoints;
-        final checkpoints are never pruned."""
+        """Keep the newest log.checkpoints_total_limit step checkpoints and
+        their train states; final checkpoints are never pruned."""
         limit = self.cfg.log.checkpoints_total_limit
         if not limit:
             return
@@ -611,3 +645,4 @@ class Coach:
                             f"*-steps-{step}_*.msgpack"):
                 for p in root.glob(pattern):
                     p.unlink()
+            train_state.state_path(root, step).unlink(missing_ok=True)

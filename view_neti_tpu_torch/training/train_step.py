@@ -26,7 +26,7 @@ that the tests fill with JAX's own draws.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -38,12 +38,13 @@ from view_neti_tpu_torch.ops.device_augment import (AugmentDraws,
                                                     augment_batch,
                                                     sample_augment_draws)
 from view_neti_tpu_torch.training.optim import SlicedAdamW
-from view_neti_tpu_torch.training.text_forward import neti_text_conditioning
+from view_neti_tpu_torch.training.text_forward import (neti_text_conditioning,
+                                                       object_groups)
 
 
 @dataclass
 class TrainBatch:
-    """One fused batch (mode 0-2: one object mapper for the whole batch).
+    """One fused batch.
 
     pixel_values: images (B, H, W, 3) in [-1, 1]; for a step built with
       augment, uint8 base images (B, H, W, 3); with from_moments, VAE
@@ -51,13 +52,15 @@ class TrainBatch:
       models.pixel_cache;
     input_ids: (B, L); input_ids_placeholder_object / _view: (B,) the
       placeholder id of each prompt, -1 where absent;
-    object_idx: which object mapper conditions the batch.
+    object_idx: which object mapper conditions the batch: an int, or for
+      mode 3's fused batch a (G,) int64 tensor on the host, one index per
+      group of B / G contiguous samples (text_forward.py).
     """
     pixel_values: torch.Tensor
     input_ids: torch.Tensor
     input_ids_placeholder_object: torch.Tensor
     input_ids_placeholder_view: torch.Tensor
-    object_idx: int = 0
+    object_idx: Union[int, torch.Tensor] = 0
 
 
 @dataclass
@@ -68,7 +71,8 @@ class StepDraws:
     noise: (B, h, w, 4) standard normal fp32, the diffusion noise;
     timesteps: (B,) integers in [0, num_train_timesteps);
     dropout: nested-dropout draws per mapper key ("object", "view") for its
-      16 * B rows, or None for no dropout;
+      16 * B rows (for a grouped batch, the object rows group by group:
+      text_forward.neti_text_conditioning), or None for no dropout;
     augment: the augmentation's draws, for a step built with augment.
     """
     vae_eps: torch.Tensor
@@ -112,8 +116,10 @@ def sample_step_draws(generator: torch.Generator, models, batch: TrainBatch,
     timesteps = torch.randint(0, models.schedule.num_train_timesteps, (B,),
                               generator=generator, device=device)
     text = models.text
-    mappers = {"object": (text.obj_mappers[batch.object_idx]
-                          if text.obj_mappers else None),
+    groups = object_groups(batch.object_idx)
+    first = groups[0] if groups else int(batch.object_idx)
+    mappers = {"object": text.obj_mappers[first] if text.obj_mappers
+               else None,
                "view": text.view_mapper}
     dropout = {key: sample_nested_dropout(generator, NUM_UNET_LAYERS * B,
                                           m.hidden_dim, m.nested_dropout_prob,
@@ -168,7 +174,7 @@ def diffusion_loss(models, batch: TrainBatch, draws: StepDraws,
     ctx, ctx_b = neti_text_conditioning(
         models.text, batch.input_ids, batch.input_ids_placeholder_object,
         batch.input_ids_placeholder_view, draws.timesteps,
-        object_idx=int(batch.object_idx), train=True, draws=draws.dropout)
+        object_idx=batch.object_idx, train=True, draws=draws.dropout)
     pred = models.unet(noisy.to(compute_dtype), draws.timesteps,
                        ctx.to(compute_dtype), ctx_b.to(compute_dtype))
     return torch.mean((pred.float() - target.float()) ** 2)

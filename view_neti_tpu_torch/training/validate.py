@@ -4,24 +4,27 @@
   * DTU runs (modes 2/4/5 on a DTU view vocabulary): the 34-view sweep,
     its masked metrics, result sheets and a result bundle (infer_dtu), and
     renders of the object tokens alone (infer_disentangled_objects_dtu);
+  * mode 3: one sweep per evaluated object token against its own scan
+    (infer_mode3), the renders of those tokens, and, with
+    eval.do_t2i_generalization, free-text objects rendered from every eval
+    camera (infer_t2i_generalization);
   * mode 0: the validation prompt bank (infer_mode0);
   * other runs of modes 1/2/4/5: a view-token prompt sheet
     (infer_prompt_sheet).
 
-Mode 3's per-scene sweeps (infer_mode3) and the text-to-image view
-generalisation sheet (infer_t2i_generalization) wait for the port of mode
-3 (ROADMAP.md section 3, item 4) and raise. Sheets are PNGs written by
-data/image_io; the DTU sweep reloads the step's mapper files, the other
-renders use the live mappers.
+Sheets are PNGs written by data/image_io, their captions in the log; the
+DTU sweeps reload the step's mapper files, the other renders use the live
+mappers.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from view_neti_tpu_torch.constants import T2I_GENERALIZATION_PROMPTS
 from view_neti_tpu_torch.data import image_io
 from view_neti_tpu_torch.inference.pipeline import (encode_uncond, generate,
                                                     make_denoise_fn)
@@ -29,11 +32,9 @@ from view_neti_tpu_torch.inference.prompt_manager import PromptManager
 from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.training import inference_dtu
 from view_neti_tpu_torch.utils import msgpack_codec
+from view_neti_tpu_torch.utils.vis import make_grid_np, to_uint8
 
 MAX_SHEET_ROWS = 14  # the reference's max_rows
-
-_MODE3 = ("mode 3 is not ported yet (ROADMAP.md section 3, item 4: the "
-          "mode-3 grouped path)")
 
 
 def select_validation_view_tokens(placeholder_view_tokens,
@@ -139,6 +140,10 @@ class ValidationHandler:
             calibration_dir=self.calibration_dir,
             on_missing_ckpt=on_missing_ckpt)
         data_dir = Path(str(cfg.data.train_data_dir))
+        if eval_placeholder_object_token and cfg.learnable_mode == 3:
+            scans = {t: s for s, t in coach.train_dataset.
+                     lookup_object_to_placeholder_object_token.items()}
+            data_dir = data_dir / scans[eval_placeholder_object_token]
         gts = inference_dtu.dtu_get_gt_images(
             cam_idxs, data_dir, cfg.data.dtu_lighting,
             cfg.data.dtu_preprocess_key)
@@ -184,12 +189,67 @@ class ValidationHandler:
         return int(digits) if digits else 0
 
     # ------------------------------------------------------------------
-    def infer_mode3(self, coach, step: int, num_steps: int, **kwargs):
-        raise NotImplementedError(_MODE3)
+    def infer_mode3(self, coach, step: int,
+                    num_steps: int) -> Dict[str, Dict]:
+        """Mode 3's round: a DTU sweep per token of
+        eval.eval_placeholder_object_tokens (else the first object token),
+        each against its own scan; the renders of those tokens alone; and
+        with eval.do_t2i_generalization (off by default) the free-text
+        sheet. Returns {token: its sweep's results}."""
+        cfg = self.cfg
+        tokens = (cfg.eval.eval_placeholder_object_tokens
+                  or coach.placeholder_object_tokens[:1])
+        results = {tok: self.infer_dtu(coach, step, num_steps,
+                                       eval_placeholder_object_token=tok)
+                   for tok in tokens}
+        self.infer_disentangled_objects_dtu(coach, step, num_steps, tokens)
+        if cfg.eval.do_t2i_generalization:
+            self.infer_t2i_generalization(coach, step, num_steps)
+        return results
 
-    def infer_t2i_generalization(self, coach, step: int, num_steps: int,
-                                 prompts: Optional[Sequence[str]] = None):
-        raise NotImplementedError(_MODE3)
+    def infer_t2i_generalization(self, coach, step: int,
+                                 num_steps: int) -> List[Path]:
+        """View control on objects the run never saw: each free-text prompt
+        ("a koala", ...) rendered from every eval camera with seed 0, the
+        predictions over a strip of the first scan's ground truth at half
+        resolution, one PNG sheet per prompt (the prompt in the log)."""
+        cfg = self.cfg
+        prompts = list(T2I_GENERALIZATION_PROMPTS)
+        cam_idxs, _, _ = inference_dtu.get_cam_idxs(cfg.data.dtu_subset)
+        if cfg.debug:
+            cam_idxs = cam_idxs[:2]
+            prompts = prompts[:1]
+        data_dir = Path(str(cfg.data.train_data_dir))
+        if cfg.data.train_data_subsets:
+            data_dir = data_dir / str(cfg.data.train_data_subsets[0])
+        gts = inference_dtu.dtu_get_gt_images(
+            cam_idxs, data_dir, cfg.data.dtu_lighting,
+            cfg.data.dtu_preprocess_key)
+        gt_arr = np.stack([gts[i].astype(np.float32) / 255.0
+                           for i in cam_idxs])
+        nrow = len(cam_idxs)
+        written = []
+        for i, prompt in enumerate(prompts):
+            preds = inference_dtu.dtu_generate_camidxs_to_preds(
+                coach, cam_idxs, step, num_denoising_steps=num_steps,
+                seeds=[0], eval_placeholder_object_token=prompt,
+                calibration_dir=self.calibration_dir)
+            pred_arr = np.concatenate([preds[c].astype(np.float32) / 255.0
+                                       for c in cam_idxs])
+            grid = np.concatenate([make_grid_np(pred_arr, nrow),
+                                   make_grid_np(gt_arr, nrow)],
+                                  axis=0)[::2, ::2]
+            out = Path(cfg.log.exp_dir) / (
+                f"validation-iter_{step}-denoisesteps_"
+                f"{cfg.eval.num_denoising_steps}_upsample_"
+                f"{cfg.eval.dtu_upsample_key}_imgs_t2i_{i}.png")
+            image_io.write_png(out, to_uint8(grid))
+            coach.logger.log_message(
+                f"saved t2i-generalization sheet {out}: {prompt}")
+            coach.logger.log_images(f"val_t2i_{i}", [np.clip(grid, 0, 1)],
+                                    step)
+            written.append(out)
+        return written
 
     def infer_disentangled_objects_dtu(self, coach, step: int,
                                        num_steps: int,
