@@ -14,8 +14,11 @@ Phases; any failure ends the run with a non-zero exit:
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
-                object renders) give them, in SD-1.5 (head dims 40, 80,
-                160) and in SD-2.1 (head dim 64, the mode3 phase), bf16
+                object renders) give them, the folders phase's 512x512
+                B=9 train step (K1-K3 at 4096 x 4096 and 4096 x 77, K4's
+                encoder at 512x512 down to 64x64), in SD-1.5 (head dims
+                40, 80, 160) and in SD-2.1 (head dim 64, the mode3 phase),
+                bf16
                 inputs from a seed, held against their plain
                 versions in fp32 with TF32 off, each limit with a control
                 it must catch (K4 two: a lost input-channel chunk and the halo
@@ -105,7 +108,27 @@ Phases; any failure ends the run with a non-zero exit:
                 launches per step, each token's sweep, and the launches and
                 idle share of one grouped step and of one CFG denoise step
                 at SD-2.1;
- 11. report  -- one JSON line of per-kernel results, then the result line.
+ 11. folders -- training on other datasets' folders at 512x512, SD-1.5 at
+                full width with seeded bf16 weights and fp32 mappers: the
+                mode-0 recipe (input_configs/train_mode0.yaml: fused B = 9,
+                the flip on the card, arch 15, nested dropout, bypass 0.2)
+                on a copy of the committed JPEGs (tests/data/jpeg/teapot,
+                decoded by the port's JPEG decoder); then spherical mode 2
+                on an llff folder of 12 PNG views (6 at 1008x756, 6 at
+                756x1008; deg_freedom "phi") with data.device_augment
+                false, preset 7 cropping to 512x512 on the host; each run 2
+                warm-up and FOLDERS_STEPS timed steps, one validation round
+                after the warm-up (mode 0: the first 2 validation prompts;
+                mode 2: a prompt sheet of 3 view tokens; 2 seeds, 30 steps)
+                and a final checkpoint, exported through python -m
+                view_neti_tpu_torch.export_torch and imported back through
+                torch_interop.import_torch_artifacts bit for bit; checks
+                K1-K4's launches per step and per render; prints imgs/sec,
+                ms/step, peak memory, the idle share and launches of one
+                profiled step per run, the JPEG and PNG decode ms per
+                megapixel, the host augmentation's ms per example and its
+                share of a step, and the export and import seconds;
+ 12. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -145,6 +168,19 @@ M3_WARM = 2              # warm-up steps, then a checkpoint and train state
 M3_STEPS = 8             # timed steps of the straight run after the warm-up
 M3_TOKENS = 3            # eval.eval_placeholder_object_tokens of the recipe
 M3_SWEEP_CAMS = 4
+# the folders phase: input_configs/train_mode0.yaml on a copy of the
+# committed JPEG fixtures, then a spherical mode-2 run with host
+# augmentation on an llff folder of two image sizes; both at 512x512, fused
+# B = 9, a validation round at step FOLDERS_WARM and a final checkpoint
+FOLDERS_CONFIG = os.path.join("input_configs", "train_mode0.yaml")
+FOLDERS_JPEGS = os.path.join("tests", "data", "jpeg", "teapot")
+FOLDERS_WARM = 2         # warm-up steps, then the validation round
+FOLDERS_STEPS = 6        # timed steps of each run after the warm-up
+FOLDERS_SIZE = 512
+FOLDERS_PROMPTS = 2      # eval.validation_prompts cut to the first 2
+FOLDERS_SHEET_TOKENS = 3  # the prompt sheet's view tokens (and one without)
+FOLDERS_VIEWS = 12       # the llff folder: 6 at 1008x756, 6 at 756x1008
+FOLDERS_RENDERS = FOLDERS_PROMPTS + 1 + FOLDERS_SHEET_TOKENS
 
 
 def check(cond: bool, msg: str) -> None:
@@ -355,9 +391,12 @@ def attention_shapes(serve_steps: int):
     runs 2 (M3_WARM + M3_STEPS) train steps (the stopped, the straight
     and the resumed Coach), a sweep per eval token over M3_SWEEP_CAMS
     cameras and over the offline inference's INFER_CAMS, and the renders
-    of the eval tokens."""
+    of the eval tokens. The folders phase trains at 512x512 (64x64
+    latents, B = 9): 2 (FOLDERS_WARM + FOLDERS_STEPS) steps of its two
+    Coaches, and FOLDERS_RENDERS renders at the render shapes."""
     shapes = []
     m3_steps = 2 * (M3_WARM + M3_STEPS)
+    folders_steps = 2 * (FOLDERS_WARM + FOLDERS_STEPS)
     for kind, B, lengths, dims, heads in (
             ("serve", BATCH, (6912, 1728, 432, 108), (40, 80, 160, 160),
              (8,) * 4),
@@ -372,7 +411,9 @@ def attention_shapes(serve_steps: int):
             ("m3 sweep", SWEEP_BATCH, (6912, 1728, 432, 108), (64,) * 4,
              (5, 10, 20, 20)),
             ("m3 render", SWEEP_BATCH, (4096, 1024, 256, 64), (64,) * 4,
-             (5, 10, 20, 20))):
+             (5, 10, 20, 20)),
+            ("folders train", TRAIN_BATCH, (4096, 1024, 256, 64),
+             (40, 80, 160, 160), (8,) * 4)):
         for level, (L, d, H, n) in enumerate(zip(lengths, dims, heads,
                                                  (5, 5, 5, 1))):
             for Lk in (L, 77):
@@ -385,7 +426,9 @@ def attention_shapes(serve_steps: int):
                         "inference": n * VAL_DENOISE * INFER_CAMS,
                         "weights": 2 * n}}
                 elif kind == "render":
-                    per_run = {"K1": {"validate": n * VAL_DENOISE}}
+                    per_run = {"K1": {
+                        "validate": n * VAL_DENOISE,
+                        "folders": n * VAL_DENOISE * FOLDERS_RENDERS}}
                 elif kind == "m3 sweep":
                     per_run = {"K1": {"mode3": n * VAL_DENOISE * M3_TOKENS
                                       * (M3_SWEEP_CAMS + INFER_CAMS)}}
@@ -393,6 +436,8 @@ def attention_shapes(serve_steps: int):
                     per_run = {"K1": {"mode3": n * VAL_DENOISE * M3_TOKENS}}
                 else:
                     paths = ({"mode3": m3_steps} if kind == "m3 train" else
+                             {"folders": folders_steps}
+                             if kind == "folders train" else
                              {"train": 1, "validate": VAL_TRAIN_STEPS})
                     per_run = {
                         key: {p: m * k for p, k in paths.items()}
@@ -540,7 +585,9 @@ def k4_shapes():
     renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
     step and in the validate phase's Coach steps. SD-2.1's VAE is SD-1.5's,
     so the mode3 phase runs the same shapes: its train steps, a decode per
-    camera of its sweeps and one per token's render."""
+    camera of its sweeps and one per token's render. The folders phase
+    encodes B = 9 at 512x512 every step and decodes its renders at the
+    render shapes."""
     def decoder(D, h, w, per):
         return [(D, h * s, w * s, ci, co, res, per(n)) for s, ci, co, res, n
                 in ((1, 512, 512, False, 5), (1, 512, 512, True, 5),
@@ -552,17 +599,22 @@ def k4_shapes():
 
     E = TRAIN_BATCH
     m3_steps = 2 * (M3_WARM + M3_STEPS)
+    folders_steps = 2 * (FOLDERS_WARM + FOLDERS_STEPS)
 
     def train(n):
         return {"train": n, "validate": n * VAL_TRAIN_STEPS,
                 "mode3": n * m3_steps}
+
+    def folders(n):
+        return {"folders": n * folders_steps}
 
     return (decoder(BATCH // 2, 72, 96, lambda n: {"serve": n})
             + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
                 "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
                 "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
             + decoder(len(VAL_SEEDS), 64, 64, lambda n: {
-                "validate": n, "mode3": n * M3_TOKENS})
+                "validate": n, "mode3": n * M3_TOKENS,
+                "folders": n * FOLDERS_RENDERS})
             + [(E, 384, 512, 128, 128, False, train(2)),
                (E, 384, 512, 128, 128, True, train(2)),
                (E, 192, 256, 128, 256, False, train(1)),
@@ -573,7 +625,18 @@ def k4_shapes():
                (E, 96, 128, 512, 512, True, train(2)),
                (E, 48, 64, 512, 512, False, train(4)),
                (E, 48, 64, 512, 512, True, train(4)),
-               (E, 48, 64, 512, 8, False, train(1))])
+               (E, 48, 64, 512, 8, False, train(1))]
+            + [(E, 512, 512, 128, 128, False, folders(2)),
+               (E, 512, 512, 128, 128, True, folders(2)),
+               (E, 256, 256, 128, 256, False, folders(1)),
+               (E, 256, 256, 256, 256, False, folders(1)),
+               (E, 256, 256, 256, 256, True, folders(2)),
+               (E, 128, 128, 256, 512, False, folders(1)),
+               (E, 128, 128, 512, 512, False, folders(1)),
+               (E, 128, 128, 512, 512, True, folders(2)),
+               (E, 64, 64, 512, 512, False, folders(4)),
+               (E, 64, 64, 512, 512, True, folders(4)),
+               (E, 64, 64, 512, 8, False, folders(1))])
 
 
 def k4_row(torch, F, fc, shape, g, dev):
@@ -684,7 +747,9 @@ def phase_kernels(torch, dev, card, serve_steps):
           == 29 * (EVAL_CAMS + 1) + 21 * VAL_TRAIN_STEPS
           and sum(s[-1].get("mode3", 0) for s in shapes)
           == 21 * 2 * (M3_WARM + M3_STEPS)
-          + 29 * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1),
+          + 29 * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1)
+          and sum(s[-1].get("folders", 0) for s in shapes)
+          == 21 * 2 * (FOLDERS_WARM + FOLDERS_STEPS) + 29 * FOLDERS_RENDERS,
           "K4 shape table")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
@@ -1904,13 +1969,343 @@ def phase_mode3(torch, dev, card, coach_stats):
     return launches, stats
 
 
+def write_llff_views(root, image_io, np):
+    """FOLDERS_VIEWS views obj___0_{phi}_1.png of a smooth synthetic
+    object (phi 0, 30, ..., 330: deg_freedom "phi"), alternately 1008x756
+    and 756x1008 (width x height), written by the port's PNG writer in 8
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    os.makedirs(root)
+    rng = np.random.RandomState(0)
+    jobs = []
+    for i in range(FOLDERS_VIEWS):
+        h, w = (756, 1008) if i % 2 == 0 else (1008, 756)
+        y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = np.stack([60 + 120 * x / w, 80 + 100 * y / h,
+                        200 - 80 * (x + y) / (w + h)], -1)
+        cx, cy = w * (0.3 + 0.03 * i), h * 0.55
+        disk = ((x - cx) ** 2 + (y - cy) ** 2) < (0.2 * min(h, w)) ** 2
+        img[disk] = [220, 90, 40]
+        img += rng.randn(h, w, 3).astype(np.float32) * 6
+        jobs.append((os.path.join(root, f"obj___0_{30 * i}_1.png"),
+                     np.clip(img, 0, 255).astype(np.uint8)))
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(image_io.write_png, path, img)
+                  for path, img in jobs]:
+            f.result()
+    return [path for path, _ in jobs]
+
+
+def folders_mode0_config(folder, exp_dir):
+    """input_configs/train_mode0.yaml as the train CLI reads it, on this
+    folder, FOLDERS_WARM + FOLDERS_STEPS steps, a validation round every
+    FOLDERS_WARM steps on two seeds (the phase's validator runs one), the
+    first FOLDERS_PROMPTS validation prompts, no reports."""
+    from view_neti_tpu_torch.config import parse_cli
+    cfg = parse_cli([
+        "--config_path", FOLDERS_CONFIG, "--data.train_data_dir", folder,
+        "--log.exp_dir", exp_dir, "--log.save_steps", str(10 ** 9),
+        "--log.report_to", "none", "--log.save_dataset_images", "false",
+        "--optim.max_train_steps", str(FOLDERS_WARM + FOLDERS_STEPS),
+        "--eval.validation_steps", str(FOLDERS_WARM),
+        "--eval.num_validation_images", str(len(VAL_SEEDS)),
+        "--eval.validation_seeds", json.dumps(VAL_SEEDS),
+        "--eval.num_denoising_steps", str(VAL_DENOISE)])
+    cfg.eval.validation_prompts = cfg.eval.validation_prompts[
+        :FOLDERS_PROMPTS]
+    return cfg
+
+
+def phase_folders(torch, dev, card):
+    """Training on other datasets' folders and the export of its mappers:
+    the mode-0 recipe on a copy of the committed JPEGs (the flip on the
+    card), then a spherical mode-2 run on an llff folder of two image sizes
+    with preset 7 on the host (data.device_augment false), each with a
+    validation round after its warm-up and a final checkpoint; both runs'
+    checkpoints exported through python -m view_neti_tpu_torch.export_torch
+    and imported back through torch_interop.import_torch_artifacts."""
+    import gc
+    import shutil
+    import numpy as np
+    from view_neti_tpu_torch import export_torch, torch_interop, weight_port
+    from view_neti_tpu_torch.checkpoint import CheckpointHandler
+    from view_neti_tpu_torch.data import image_io
+    from view_neti_tpu_torch.data.dataset import DataLoader
+    from view_neti_tpu_torch.ops import device_augment as da
+    from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+
+    B, n = TRAIN_BATCH, FOLDERS_WARM + FOLDERS_STEPS
+    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_folders")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    class OnceValidation(ValidationHandler):
+        """The round at step FOLDERS_WARM, timed; no later one."""
+        rounds = []
+
+        def infer(self, coach, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super().infer(coach, step)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            self.rounds.append(dict(step=step, s=end - t0, end=end, res=res))
+            self.cfg.eval.validation_steps = 10 ** 9
+            return res
+
+    def run(cfg, name, expect):
+        """Build, train (counted) and profile one Coach; its stats."""
+        t0 = time.perf_counter()
+        coach = Coach(cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(coach.micro_batch_size == B and expect(coach),
+              f"the {name} Coach did not take its path")
+        coach.validator = OnceValidation(cfg)
+        OnceValidation.rounds = []
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        coach.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(coach.global_step == n, f"the {name} Coach ran "
+                                      f"{coach.global_step} steps")
+        rounds = OnceValidation.rounds
+        check(len(rounds) == 1 and rounds[0]["step"] == FOLDERS_WARM,
+              f"{name}: validation rounds {[r['step'] for r in rounds]}")
+        renders = FOLDERS_PROMPTS if name == "mode0" else (
+            1 + FOLDERS_SHEET_TOKENS)
+        want = {k: v * n for k, v in per_step.items()}
+        want["K1"] += 32 * VAL_DENOISE * renders
+        want["K4"] += 29 * renders
+        check(launches == want, f"{name} launches {launches}, want {want}")
+        # the mappers as the final checkpoint saved them (the profiled
+        # step below moves them)
+        text = coach.built.text
+        live = {tok: {k: v.detach().cpu().clone()
+                      for k, v in m.state_dict().items()}
+                for tok, m in zip(coach.placeholder_object_tokens,
+                                  text.obj_mappers)}
+        if text.view_mapper is not None:
+            live["view"] = {k: v.detach().cpu().clone()
+                            for k, v in text.view_mapper.state_dict().items()}
+        losses = coach.losses
+        check(len(losses) == n and all(math.isfinite(x) for x in losses),
+              f"{name} losses {losses}")
+        # the timed steps start after the validation round
+        marks = coach.step_marks
+        rates = [B / (b - a) for a, b in zip(marks[FOLDERS_WARM:-1],
+                                             marks[FOLDERS_WARM + 1:])]
+        tail = rates[len(rates) // 2:]
+        ms_step = ((coach.loop_end_s - rounds[0]["end"]) * 1e3
+                   / FOLDERS_STEPS)
+        batch = coach._build_batch(next(iter(DataLoader(
+            coach.train_dataset, B))))
+
+        def one_step():
+            coach.train_step(coach.built, batch,
+                             coach._step_draws(10 ** 6, batch))
+
+        prof = device_profile(torch, one_step, ranges=("device_augment",))
+        # the step's device time by CUDA events beside the profile's busy
+        # time (the batch is on the card: no loader in it)
+        step_ms = time_ms(torch, one_step, 1500.0)
+        stats = dict(
+            imgs_per_sec=float(np.median(tail)),
+            imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
+            rates_tail=tail, peak_memory_gib=peak_gb, build_s=build_s,
+            train_s=train_s, validation_s=rounds[0]["s"], renders=renders,
+            losses=losses,
+            launches_per_step={
+                k: (launches[k] - want[k] + per_step[k] * n) / n
+                for k in per_step},
+            step_ms=step_ms,
+            step_busy_ms=prof["busy_ms"] if prof else None,
+            step_launches=prof["kernels"] if prof else None,
+            step_idle_share=prof["idle_share"] if prof else None)
+        return coach, live, launches, stats, prof
+
+    def export_and_reimport(coach, live, name, keys):
+        """The final checkpoint through the export CLI and back through
+        import_torch_artifacts: every mapper tree and the embeddings bit
+        for bit, and each mapper equal to the live module."""
+        run_dir = str(coach.cfg.log.exp_dir)
+        src = {k: os.path.join(run_dir, f"mapper-final_{k}.msgpack")
+               for k in keys}
+        embeds = os.path.join(run_dir, "learned_embeds-final.msgpack")
+        out = os.path.join(root, f"{name}_torch")
+        args = ["--out", out, "--embeds", embeds, "--iteration", str(n)]
+        for k in keys:
+            args += [f"--{k}", src[k]]
+        t0 = time.perf_counter()
+        written = export_torch.main(args)
+        export_s = time.perf_counter() - t0
+        back_dir = os.path.join(root, f"{name}_back")
+        t0 = time.perf_counter()
+        back = torch_interop.import_torch_artifacts(
+            back_dir, iteration=n, embeds_path=written[-1],
+            **{f"{k}_path": os.path.join(out, f"mapper-steps-{n}_{k}.pt")
+               for k in keys})
+        import_s = time.perf_counter() - t0
+        check(len(written) == len(keys) + 1 and len(back) == len(keys) + 1,
+              f"{name}: exported {written}, imported {back}")
+
+        def same_tree(a, b):
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(same_tree(a[k], b[k])
+                                                    for k in a)
+            return np.array_equal(np.asarray(a), np.asarray(b))
+
+        for k in keys:
+            orig = CheckpointHandler.load_raw(src[k])["mappers"]
+            again = CheckpointHandler.load_raw(os.path.join(
+                back_dir, f"mapper-steps-{n}_{k}.msgpack"))["mappers"]
+            check(orig.keys() == again.keys(), f"{name} {k}: mappers "
+                                               f"{list(again)}")
+            for tok, entry in orig.items():
+                check(same_tree(entry["params"], again[tok]["params"])
+                      and same_tree(entry["constants"] or {},
+                                    again[tok]["constants"] or {}),
+                      f"{name} {k} {tok!r}: the re-imported mapper differs")
+                saved = weight_port.from_jax_mapper(again[tok]["params"],
+                                                    again[tok]["constants"])
+                check(saved.keys() == live[tok].keys() and all(
+                    torch.equal(saved[x], live[tok][x]) for x in saved),
+                    f"{name} {k} {tok!r}: differs from the trained mapper")
+        rows = CheckpointHandler.load_learned_embeds(embeds)
+        rows_back = CheckpointHandler.load_learned_embeds(os.path.join(
+            back_dir, f"learned_embeds-steps-{n}.msgpack"))
+        check(rows.keys() == rows_back.keys() and all(
+            np.array_equal(rows[t], rows_back[t]) for t in rows),
+            f"{name}: the re-imported embeddings differ")
+        return dict(export_s=export_s, import_s=import_s,
+                    files=[os.path.basename(p) for p in written],
+                    bit_equal=True)
+
+    try:
+        # ---- (a) the mode-0 recipe on the committed JPEGs ----------------
+        folder = os.path.join(root, "teapot")
+        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), FOLDERS_JPEGS), folder)
+        jpegs = sorted(os.path.join(folder, f) for f in os.listdir(folder))
+        cfg = folders_mode0_config(folder, os.path.join(root, "mode0"))
+        m = cfg.model
+        check(cfg.learnable_mode == 0 and cfg.data.resolution == FOLDERS_SIZE
+              and cfg.data.flip_p == 0.5 and cfg.data.augmentation_key == 0
+              and m.arch_view_net == 15 and m.use_nested_dropout
+              and m.output_bypass_object
+              and m.output_bypass_alpha_object == 0.2
+              and "stable-diffusion-v1-5" in m.pretrained_model_name_or_path
+              and cfg.optim.train_batch_size == 3
+              and cfg.optim.gradient_accumulation_steps == 3,
+              "the mode-0 recipe changed")
+        coach, live, launches_a, stats_a, prof_a = run(
+            cfg, "mode0", lambda c: (
+                c.augment_spec == da.from_augmentation_key(0, 0.5)
+                and c.use_pixel_cache and not c.cache_latents
+                and c.compute_dtype == torch.bfloat16
+                and c.train_dataset.num_images == len(jpegs) == 5))
+        check(os.path.exists(os.path.join(
+            root, "mode0", f"val-images-{FOLDERS_WARM}.png")),
+            "no mode-0 validation sheet")
+        stats_a["export"] = export_and_reimport(coach, live, "mode0",
+                                                ["object"])
+        del coach
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) a spherical llff folder with preset 7 on the host -------
+        t0 = time.perf_counter()
+        pngs = write_llff_views(os.path.join(root, "llff", "obj"), image_io,
+                                np)
+        write_s = time.perf_counter() - t0
+        tokens = [f"<view_0_{30 * i}_1>" for i in range(FOLDERS_VIEWS)]
+        cfg_b = mode2_config(
+            os.path.join(root, "llff", "obj"), os.path.join(root, "llff_run"),
+            data={"camera_representation": "spherical",
+                  "device_augment": False, "dtu_preprocess_key": 0,
+                  "augmentation_key": 7},
+            eval={"validation_prompts": ["A photo of a {}"],
+                  "validation_steps": FOLDERS_WARM,
+                  "validation_view_tokens": tokens[:FOLDERS_SHEET_TOKENS],
+                  "validation_seeds": VAL_SEEDS,
+                  "num_validation_images": len(VAL_SEEDS),
+                  "num_denoising_steps": VAL_DENOISE},
+            optim={"max_train_steps": n})
+        coach, live, launches_b, stats_b, prof_b = run(
+            cfg_b, "llff", lambda c: (
+                c.augment_spec is None and not c.use_pixel_cache
+                and not c.cache_latents
+                and not c.train_dataset.uniform_base_shape
+                and c.train_dataset.augmentations is not None
+                and c.built.view_table.deg_freedom == "phi"
+                and c.placeholder_view_tokens == tokens))
+        check(os.path.exists(os.path.join(
+            root, "llff_run", f"val-image-{FOLDERS_WARM}.png")),
+            "no prompt sheet")
+        # the host augmentation per example on cached bases, and the
+        # pixels it gives
+        ds = coach.train_dataset
+        for p in pngs:
+            ds._load_base(p)
+        t0 = time.perf_counter()
+        pix = [ds._load_pixels(pngs[i % len(pngs)],
+                               np.random.default_rng((7, i)))
+               for i in range(B)]
+        aug_ms = (time.perf_counter() - t0) * 1e3 / B
+        check(all(x.shape == (FOLDERS_SIZE, FOLDERS_SIZE, 3)
+                  and x.min() >= -1 and x.max() <= 1 for x in pix),
+              "host-augmented pixels")
+        stats_b.update(host_augment_ms_per_example=aug_ms,
+                       host_augment_share_of_step=(
+                           aug_ms * B / stats_b["ms_per_step"]),
+                       write_views_s=write_s)
+        stats_b["export"] = export_and_reimport(coach, live, "llff",
+                                                ["view", "object"])
+        del coach, ds, pix
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- decode speed: the JPEG fixtures beside the llff PNGs ---------
+        def ms_per_mp(paths, reps):
+            mp = sum(np.prod(image_io.image_size(p)) for p in paths) / 1e6
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for p in paths:
+                    image_io.read_rgb(p)
+            return (time.perf_counter() - t0) * 1e3 / (reps * mp)
+
+        decode = dict(jpeg_ms_per_mp=ms_per_mp(jpegs, 4),
+                      png_ms_per_mp=ms_per_mp(pngs, 1))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    stats = dict(model="SD-1.5 (runwayml/stable-diffusion-v1-5, seeded "
+                       "weights)", batch=B, height=FOLDERS_SIZE,
+                 width=FOLDERS_SIZE, warmup_steps=FOLDERS_WARM,
+                 timed_steps=FOLDERS_STEPS, mode0=stats_a, llff=stats_b,
+                 decode=decode, launches=launches)
+    print(f"folders [{card}]: {json.dumps(stats)}", flush=True)
+    print(f"profile folders mode0 step [{card}]: "
+          f"{json.dumps(prof_a) if prof_a else 'not measured'}", flush=True)
+    print(f"profile folders llff step [{card}]: "
+          f"{json.dumps(prof_b) if prof_b else 'not measured'}", flush=True)
+    return launches, stats
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
     shape, and the same summed over one run of each path that launches it
     (<path>_path_*: a serving run, a train step, the weights phase, the
-    validate phase, the inference phase, the mode3 phase), each shape
-    weighted by its launches there."""
+    validate phase, the inference phase, the mode3 phase, the folders
+    phase), each shape weighted by its launches there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -1931,7 +2326,7 @@ def kernel_report(kernels, launches, card):
         rows = kernels[key]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
         paths = ("serve", "train", "weights", "validate", "inference",
-                 "mode3")
+                 "mode3", "folders")
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
                                      for r in rows)
                 for p in paths
@@ -2038,13 +2433,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mode3_launches, _ = phase_mode3(torch, dev, card, coach_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    folders_launches, _ = phase_folders(torch, dev, card)
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
                                      "weights": weights_launches,
                                      "validate": validate_launches,
                                      "inference": inference_launches,
-                                     "mode3": mode3_launches}, card)
+                                     "mode3": mode3_launches,
+                                     "folders": folders_launches}, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,7 @@ def test_png_writer_decodes_identically_in_pil(tmp_path, filters, channels):
 
 def test_png_reader_rejects_what_it_does_not_decode(tmp_path):
     p = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(p)
+    Image.fromarray(np.zeros((4, 4), np.uint16)).save(p)    # 16-bit gray
     with pytest.raises(image_io.PNGError):
         image_io.read_png(p)
     bad = bytearray(image_io.encode_png(np.zeros((4, 4, 3), np.uint8)))

@@ -144,6 +144,17 @@ def test_flash_attention_bwd_matches_plain(dev, B, Lq, Lk, H, d):
                     _randn((B, Lq, H, d), 3, dev).bfloat16())
 
 
+# the folder path's 512x512 training (64x64 latents) at B = 9, 8 heads,
+# head dim 40: self-attention at 4096 x 4096 (B.H = 72) and the
+# cross-attention's 4096 x 77, forward and backward
+@pytest.mark.parametrize("Lk", [4096, 77])
+def test_flash_attention_at_the_folder_paths_shapes(dev, Lk):
+    q, k, v, do = (_randn((9, L, 8, 40), i, dev).bfloat16()
+                   for i, L in enumerate((4096, Lk, Lk, 4096)))
+    _check_attention(q, k, v)
+    _check_backward(q, k, v, do)
+
+
 # one head dim in each of K3's buckets (16, 32, ..., 160, 192)
 @pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160, 192])
 def test_flash_attention_bwd_head_dim_buckets(dev, d):
@@ -342,6 +353,13 @@ def test_fused_conv_matches_plain(dev, Ci, Co, use_bias, use_add, res, out):
     (2, 4, 32, 512, 8, False, None, "bfloat16")])
 def test_fused_conv_tile_edges(dev, B, H, W, Ci, Co, use_add, res, out):
     _check_conv(dev, B, H, W, Ci, Co, True, use_add, res, out)
+
+
+# the folder path's VAE encoder at its widest: B = 9 at 512 x 512, 128
+# channels, without and with the residual
+@pytest.mark.parametrize("res", [None, "bfloat16"])
+def test_fused_conv_at_the_folder_paths_encoder_shape(dev, res):
+    _check_conv(dev, 9, 512, 512, 128, 128, True, False, res, "bfloat16")
 
 
 # each output-channel tile of K4 (16 and 128) at the narrow Couts of the

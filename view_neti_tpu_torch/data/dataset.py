@@ -7,18 +7,22 @@ Captions by mode:
   2/4/5: "<view_x>. A photo of a <object>"
   3: "<view_x>. A photo of a <object_y>", one DTU scan per object token
      (train_data_subsets), the scan resampled per batch or per group
-Modes 1-5 read DTU scans (camera_representation "dtu-12d"); the
-spherical cameras of other datasets are a later module of the port and
-raise.
+View tokens: DTU scans (camera_representation "dtu-12d") take one token
+per camera from the calibration; other datasets ("spherical", modes 1
+and 2) take <view_{theta}_{phi}_{r}> from each file's stem after its last
+"___", sorted, and ordered by phi when only phi varies. Modes 3-5 are
+DTU-only, as in the JAX package.
 
 Every stochastic choice of an example is keyed by (seed, epoch, index)
 through numpy's default_rng, the epoch order by (seed, epoch) and mode 3's
 scene by (seed, batch or group counter), so the port's stream of captions,
-ids and image indices is the JAX package's, bit for bit. The image path
-reads PNGs only (JPEG is a later module); the deterministic preprocess is
-decode + resize, cached per file as uint8, and the stochastic suffix runs
-on the card (ops/device_augment.py). The host augmentation pipeline of the
-JAX package (data.device_augment false) is a later module and raises.
+ids and image indices is the JAX package's, bit for bit. Images are PNGs
+or JPEGs (image_io.read_rgb); the deterministic preprocess is decode +
+resize (or, for a data root whose path holds "llff", the decoded image as
+it is), cached per file as uint8. The stochastic suffix runs on the card
+(ops/device_augment.py) or, when the Coach has no augmentation there, here:
+the mode-0 flip and the preset's host pipeline (data/augment.py), drawn
+from the example's generator in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ import numpy as np
 from view_neti_tpu_torch.constants import IMAGENET_TEMPLATES_SMALL
 from view_neti_tpu_torch.data import dtu as dtu_mod
 from view_neti_tpu_torch.data import image_io
+from view_neti_tpu_torch.data.augment import (AUGMENTATION_PRESETS,
+                                              apply_augmentations,
+                                              build_augmentations)
+from view_neti_tpu_torch.utils.codec import string_to_num
 from view_neti_tpu_torch.utils.misc import filter_paths_imgs
 
 # DTU preprocess keys: (width, height) of the resize; key 0 pads the
@@ -60,10 +68,9 @@ class TextualInversionDataset:
                  center_crop: bool = False,
                  calibration_dir: Optional[str] = None,
                  seed: int = 0):
-        if learnable_mode != 0 and camera_representation != "dtu-12d":
-            raise NotImplementedError(
-                f"camera_representation {camera_representation!r}: the "
-                "port reads DTU cameras (dtu-12d)")
+        if learnable_mode in (3, 4, 5) and camera_representation != "dtu-12d":
+            raise ValueError(f"mode {learnable_mode} runs on DTU scans "
+                             "only (camera_representation dtu-12d)")
         self.learnable_mode = learnable_mode
         self.data_root = Path(data_root)
         self.tokenizer = tokenizer
@@ -123,7 +130,8 @@ class TextualInversionDataset:
             self.placeholder_view_tokens: List[str] = []
             self.fixed_object_token = None
         elif learnable_mode in (1, 2, 3, 4, 5):
-            self.placeholder_view_tokens = self._generate_view_tokens()
+            self.placeholder_view_tokens = self._order_view_tokens(
+                self._generate_view_tokens())
             if (fixed_object_token_or_path is not None
                     and str(fixed_object_token_or_path).endswith(
                         (".pt", ".msgpack"))):
@@ -149,12 +157,26 @@ class TextualInversionDataset:
         self.placeholder_tokens = (self.placeholder_view_tokens
                                    + self.placeholder_object_tokens)
         self.augmentation_key = augmentation_key
+        # the host pipeline, for the Coach without augmentation on the card;
+        # its crop's (h, w) as the JAX package sizes it: mode 0 the
+        # resolution, DTU keys 0 and 1 their own size, any other 576x768
+        self.augmentations = None
+        if augmentation_key > 0:
+            if learnable_mode == 0:
+                aug_size = (size, size)
+            else:
+                w, h = DTU_SIZES[dtu_preprocess_key if dtu_preprocess_key
+                                 in (0, 1) else 2]
+                aug_size = (h, w)
+            self.augmentations = build_augmentations(augmentation_key,
+                                                     aug_size)
 
     def _scan_paths(self, root: Path) -> List[Path]:
-        """The scan's images; DTU runs keep the lighting and the cameras of
-        dtu_subset."""
+        """The folder's images; DTU runs keep the lighting and the cameras
+        of dtu_subset."""
         paths = filter_paths_imgs(sorted(Path(root).glob("*")))
-        if self.learnable_mode != 0:
+        if (self.camera_representation == "dtu-12d"
+                and self.learnable_mode != 0):
             paths = dtu_mod.dtu_filter_fnames_lighting(paths,
                                                        self.dtu_lighting)
             paths = dtu_mod.dtu_filter_image_paths_from_idx(
@@ -163,7 +185,20 @@ class TextualInversionDataset:
 
     # ---- view tokens (reference dataset.py:411-582) ----------------------
     def _generate_view_tokens(self) -> List[str]:
-        """One token per camera of the scan, ordered by camera index."""
+        """DTU: one token per camera of the scan, ordered by camera index.
+        Spherical: <view_{stem after its last "___"}>, sorted."""
+        if self.camera_representation == "spherical":
+            prefixes = [Path(f).stem.split("___")[-1]
+                        for f in self.image_paths_flattened]
+            bad = [p for p in prefixes if len(p.split("_")) != 3]
+            if bad:
+                raise ValueError(
+                    f"spherical image names end in ___<theta>_<phi>_<r>; "
+                    f"got {bad[:3]}")
+            return sorted(set(f"<view_{p}>" for p in prefixes))
+        if self.camera_representation != "dtu-12d":
+            raise ValueError(f"camera_representation "
+                             f"{self.camera_representation!r}")
         kwargs = {}
         if self.calibration_dir is not None:
             kwargs["calibration_dir"] = self.calibration_dir
@@ -173,6 +208,19 @@ class TextualInversionDataset:
         cam_idxs = sorted(set(dtu_mod.dtu_cam_info_from_fname(f)[0]
                               for f in self.image_paths_flattened))
         return [self.lookup_camidx_to_view_token[k] for k in cam_idxs]
+
+    def _order_view_tokens(self, tokens: List[str]) -> List[str]:
+        """The validation sweeps' order (reference dataset.py:524-582):
+        DTU tokens are already in camera order; spherical ones are sorted
+        by phi when only phi varies, else kept."""
+        if self.camera_representation == "dtu-12d":
+            return tokens
+        params = np.asarray([[string_to_num(n) for n in t[6:-1].split("_")]
+                             for t in tokens])
+        n_uniques = [len(np.unique(params[:, i])) for i in range(3)]
+        if n_uniques[0] == 1 and n_uniques[1] > 1 and n_uniques[2] == 1:
+            return [tokens[i] for i in np.argsort(params[:, 1])]
+        return tokens
 
     def reset_sampled_object(self, counter: int) -> None:
         """Mode 3: draw the scene of the next examples. counter is the
@@ -207,6 +255,29 @@ class TextualInversionDataset:
             return "llff"
         return "square"
 
+    def check_host_batches(self) -> None:
+        """Raise unless the host pipeline's images can be stacked: the
+        llff passthrough keeps each file's size, so a folder of several
+        sizes needs a preset that crops to one."""
+        if self.uniform_base_shape or (
+                self.augmentations is not None and "crop_scale"
+                in AUGMENTATION_PRESETS[self.augmentation_key]):
+            return
+        sizes = set()
+        for p in self.image_paths_flattened:
+            h, w = image_io.image_size(p)
+            sizes.add((min(h, w),) * 2 if self.center_crop else (h, w))
+        if len(sizes) > 1:
+            raise ValueError(
+                f"{self.data_root}: the llff passthrough keeps each image's "
+                f"size and the folder holds {len(sizes)} sizes "
+                f"{sorted(sizes)[:4]}; its batches cannot be stacked. Use "
+                "an augmentation_key whose preset crops ("
+                + ", ".join(str(k) for k, p in AUGMENTATION_PRESETS.items()
+                            if "crop_scale" in p)
+                + "), data.center_crop on images of one short side, or "
+                "images of one size")
+
     @property
     def uniform_base_shape(self) -> bool:
         """True when every base image has one shape (the llff passthrough
@@ -240,8 +311,11 @@ class TextualInversionDataset:
                 self.tokenizer.convert_tokens_to_ids(
                     placeholder_object_token))
         else:
-            cam_key, _ = dtu_mod.dtu_cam_info_from_fname(image_path)
-            view_token = self.lookup_camidx_to_view_token[cam_key]
+            if self.camera_representation == "spherical":
+                view_token = f"<view_{image_path.stem.split('___')[-1]}>"
+            else:
+                cam_key, _ = dtu_mod.dtu_cam_info_from_fname(image_path)
+                view_token = self.lookup_camidx_to_view_token[cam_key]
             if self.learnable_mode == 1:
                 obj = self.fixed_object_token
                 if self.caption_strategy == 0:
@@ -301,15 +375,17 @@ class TextualInversionDataset:
 
     def _load_pixels(self, image_path: Path,
                      rng: np.random.Generator) -> np.ndarray:
-        """The base with the stochastic suffix on the host: the mode-0 flip
-        and [-1, 1] scaling (NHWC float32)."""
-        if self.augmentation_key > 0:
-            raise NotImplementedError(
-                "host augmentation (data.device_augment false) is a later "
-                "module of the port; the augmentation runs on the card")
+        """The base with the stochastic suffix on the host: the mode-0
+        flip, the preset's pipeline and [-1, 1] scaling (HWC float32).
+        The crop may change the size (the llff passthrough's bases keep
+        their files' sizes; the JAX package asserts here that it does not,
+        which its own llff runs with a crop fail)."""
         img = self._load_base(image_path)
         if self.learnable_mode == 0 and rng.uniform() < self.flip_p:
             img = img[:, ::-1]
+        if self.augmentations is not None:
+            img = apply_augmentations(np.ascontiguousarray(img),
+                                      self.augmentations, rng)
         return (np.asarray(img, np.uint8) / 127.5 - 1.0).astype(np.float32)
 
     def _base_image(self, img: np.ndarray) -> np.ndarray:

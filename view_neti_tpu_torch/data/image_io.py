@@ -1,18 +1,28 @@
-"""PNG reading and writing and the deterministic resize, without PIL (the
-machine with the card has none).
+"""Image reading and writing and the deterministic resizes, without PIL
+(the machine with the card has none).
 
-read_png decodes 8-bit grayscale, gray+alpha, RGB and RGBA PNGs without
-interlacing: the chunks are parsed here, the IDAT stream inflated with zlib
-and the rows unfiltered by a compiled host helper (csrc/png_unfilter.cpp,
-built with the host compiler at first use). `unfilter_plain` is the same
-unfilter in numpy, the reference the tests hold the helper to; the decode
-never falls back to it. write_png writes the same formats with any PNG row
-filter. resize_u8 is the datasets' deterministic resize: torch's
-antialiased bicubic (PIL's kernel, a = -0.5) rounded to uint8, within one
-level of PIL's BICUBIC resize and of the JAX package's native one.
-resize_pil is the evaluation's: PIL's BICUBIC (or BILINEAR) resampling,
-computed as Pillow computes it, bit for bit, where the JAX package calls
-PIL. JPEG is a later module.
+read_rgb reads a PNG or a JPEG, told apart by their first bytes, as PIL's
+Image.open(p).convert("RGB") gives it, bit for bit:
+  * PNG: 8-bit grayscale, gray+alpha, RGB and RGBA, and palette images of
+    1, 2, 4 or 8 bits (tRNS ignored, as convert("RGB") ignores it), without
+    interlacing. The chunks are parsed here, the IDAT stream inflated with
+    zlib and the rows unfiltered by a compiled host helper
+    (csrc/png_unfilter.cpp). `unfilter_plain` is the same unfilter in
+    numpy, the reference the tests hold the helper to; the decode never
+    falls back to it.
+  * JPEG: baseline and extended-sequential Huffman files with 8-bit
+    samples, gray or YCbCr at any integral sampling, decoded by a compiled
+    host helper (csrc/jpeg_decode.cpp) with libjpeg-turbo's arithmetic.
+    Progressive, arithmetic-coded, 12-bit and CMYK files raise.
+Both helpers are built with the host compiler at first use. Every reading
+error is an ImageError that names the file.
+
+write_png writes the direct-colour formats with any PNG row filter.
+resize_u8 is the datasets' deterministic resize: torch's antialiased
+bicubic (PIL's kernel, a = -0.5) rounded to uint8, within one level of
+PIL's BICUBIC resize and of the JAX package's native one. resize_pil is
+the evaluation's: PIL's BICUBIC (or BILINEAR) resampling, computed as
+Pillow computes it, bit for bit, where the JAX package calls PIL.
 """
 from __future__ import annotations
 
@@ -32,7 +42,16 @@ COLOR_TYPE = {c: t for t, c in CHANNELS.items()}
 FILTERS = ("none", "sub", "up", "average", "paeth")
 
 
-class PNGError(ValueError):
+class ImageError(ValueError):
+    """A file the readers cannot decode; the message names the file and
+    the reason."""
+
+
+class PNGError(ImageError):
+    pass
+
+
+class JPEGError(ImageError):
     pass
 
 
@@ -53,47 +72,78 @@ def _chunks(data: bytes):
     raise PNGError("no IEND chunk")
 
 
-def parse_png(data: bytes) -> Tuple[int, int, int, bytes]:
-    """(height, width, channels, inflated filtered rows) of an 8-bit,
-    non-interlaced PNG."""
-    header, idat = None, []
+def _png_parts(data: bytes):
+    """(IHDR fields, inflated IDAT bytes, PLTE entries (N, 3) or None)."""
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
     if header is None:
         raise PNGError("no IHDR chunk")
-    width, height, depth, color, _, _, interlace = header
+    if header[6]:
+        raise PNGError("interlaced PNGs are not supported")
+    return header, zlib.decompress(b"".join(idat)), palette
+
+
+def parse_png(data: bytes) -> Tuple[int, int, int, bytes]:
+    """(height, width, channels, inflated filtered rows) of an 8-bit,
+    non-interlaced direct-colour PNG."""
+    (width, height, depth, color, _, _, _), raw, _ = _png_parts(data)
     if depth != 8 or color not in CHANNELS:
         raise PNGError(f"unsupported PNG: bit depth {depth}, color type "
-                       f"{color} (8-bit gray, gray+alpha, RGB, RGBA only)")
-    if interlace:
-        raise PNGError("interlaced PNGs are not supported")
-    raw = zlib.decompress(b"".join(idat))
+                       f"{color} (8-bit gray, gray+alpha, RGB, RGBA and "
+                       "palette images only)")
     channels = CHANNELS[color]
     if len(raw) != height * (1 + width * channels):
         raise PNGError("IDAT size does not match the header")
     return height, width, channels, raw
 
 
-def unfilter_compiled(raw: bytes, height: int, width: int,
-                      channels: int) -> np.ndarray:
-    """(height, width, channels) uint8 by the compiled helper."""
+def _unfilter(raw: bytes, height: int, rowbytes: int,
+              bpp: int) -> np.ndarray:
+    """(height, rowbytes) uint8 by the compiled helper."""
     from view_neti_tpu_torch.ops import build
-    if len(raw) != height * (1 + width * channels):
+    if len(raw) != height * (1 + rowbytes):
         raise PNGError("filtered rows do not match the image size")
     fn = build.host_library("png_unfilter").png_unfilter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64]
     fn.restype = ctypes.c_int
-    out = np.empty((height, width, channels), np.uint8)
+    out = np.empty((height, rowbytes), np.uint8)
     src = np.frombuffer(raw, np.uint8)
-    err = fn(src.ctypes.data, out.ctypes.data, height, width * channels,
-             channels)
+    err = fn(src.ctypes.data, out.ctypes.data, height, rowbytes, bpp)
     if err:
         raise PNGError(f"unknown filter type in row {err - 1}")
     return out
+
+
+def _read_palette_png(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a palette PNG (color type 3, 1-8 bits): the
+    unfiltered rows unpacked to indices and looked up in PLTE."""
+    (width, height, depth, _, _, _, _), raw, palette = _png_parts(data)
+    if depth not in (1, 2, 4, 8):
+        raise PNGError(f"unsupported palette PNG bit depth {depth}")
+    if palette is None:
+        raise PNGError("palette PNG without a PLTE chunk")
+    rows = _unfilter(raw, height, (width * depth + 7) // 8, 1)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1)
+        bits = bits[:, :width * depth].reshape(height, width, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        rows = (bits * weights).sum(-1).astype(np.uint8)
+    idx = rows[:, :width]
+    if idx.size and int(idx.max()) >= len(palette):
+        raise PNGError("palette index out of range")
+    return palette[idx]
+def unfilter_compiled(raw: bytes, height: int, width: int,
+                      channels: int) -> np.ndarray:
+    """(height, width, channels) uint8 by the compiled helper."""
+    return _unfilter(raw, height, width * channels,
+                     channels).reshape(height, width, channels)
 
 
 def _paeth(a, b, c):
@@ -128,9 +178,44 @@ def unfilter_plain(raw: bytes, height: int, width: int,
 
 
 def read_png(path: Union[str, Path]) -> np.ndarray:
-    """(H, W, C) uint8, C the file's channels (1, 2, 3 or 4)."""
-    height, width, channels, raw = parse_png(Path(path).read_bytes())
+    """(H, W, C) uint8, C the file's channels (1, 2, 3 or 4), or 3 for a
+    palette image (its colours)."""
+    return _read_png_bytes(Path(path).read_bytes())
+
+
+def _read_png_bytes(data: bytes) -> np.ndarray:
+    if data[:8] == SIGNATURE and data[25:26] == b"\x03":   # IHDR color type
+        return _read_palette_png(data)
+    height, width, channels, raw = parse_png(data)
     return unfilter_compiled(raw, height, width, channels)
+
+
+def _jpeg_call(fn_name: str, data: bytes, out: np.ndarray) -> None:
+    """Call the compiled JPEG helper's jpeg_header (out: int32 dims) or
+    jpeg_decode (out: the image); raise JPEGError with its message."""
+    from view_neti_tpu_torch.ops import build
+    fn = getattr(build.host_library("jpeg_decode"), fn_name)
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_char_p, ctypes.c_int64]
+    fn.restype = ctypes.c_int
+    err = ctypes.create_string_buffer(256)
+    if fn(data, len(data), out.ctypes.data, err, len(err)):
+        raise JPEGError(err.value.decode())
+
+
+def _jpeg_dims(data: bytes) -> Tuple[int, int, int]:
+    """(height, width, channels) from the JPEG's headers."""
+    dims = np.zeros(3, np.int32)
+    _jpeg_call("jpeg_header", data, dims)
+    return int(dims[0]), int(dims[1]), int(dims[2])
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8 of a JPEG, C 1 (gray) or 3 (RGB), by the compiled
+    helper."""
+    out = np.empty(_jpeg_dims(data), np.uint8)
+    _jpeg_call("jpeg_decode", data, out)
+    return out
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:
@@ -145,7 +230,33 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
 
 
 def read_rgb(path: Union[str, Path]) -> np.ndarray:
-    return to_rgb(read_png(path))
+    """(H, W, 3) uint8 of a PNG or a JPEG, chosen by the file's first
+    bytes, not its suffix."""
+    data = Path(path).read_bytes()
+    try:
+        if data[:8] == SIGNATURE:
+            return to_rgb(_read_png_bytes(data))
+        if data[:2] == b"\xff\xd8":
+            return to_rgb(decode_jpeg(data))
+        raise ImageError("neither a PNG nor a JPEG file")
+    except ImageError as e:
+        raise type(e)(f"{path}: {e}") from None
+    except zlib.error as e:
+        raise PNGError(f"{path}: corrupt PNG data ({e})") from None
+
+
+def image_size(path: Union[str, Path]) -> Tuple[int, int]:
+    """(height, width) of a PNG or a JPEG from its header alone."""
+    data = Path(path).read_bytes()
+    if data[:8] == SIGNATURE:
+        width, height = struct.unpack(">II", data[16:24])
+        return height, width
+    if data[:2] == b"\xff\xd8":
+        try:
+            return _jpeg_dims(data)[:2]
+        except JPEGError as e:
+            raise JPEGError(f"{path}: {e}") from None
+    raise ImageError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def filter_rows(img: np.ndarray, kinds: np.ndarray) -> np.ndarray:

@@ -9,8 +9,9 @@ build. `build()` starts one nvcc process per missing library, all at once,
 and waits for them together.
 
 `host_library` builds a host C++ helper of the same directory (the PNG
-unfilter of data/image_io.py) with the host compiler, the same way. Host
-helpers are not CUDA kernels and stay out of KERNEL_SOURCES.
+unfilter and the JPEG decoder of data/image_io.py) with the host compiler,
+the same way. Host helpers are not CUDA kernels and stay out of
+KERNEL_SOURCES.
 """
 from __future__ import annotations
 

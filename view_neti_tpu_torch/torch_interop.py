@@ -20,8 +20,15 @@ pickled encoder module where a CUDA-saved checkpoint dropped it.
 Unpickling the encoder needs the reference's module path
 (models.positional_encoding); _install_unpickle_shims registers bare
 stand-in classes (pickle restores instance state without calling
-__init__), so no reference code is imported or run. Exporting the port's
-checkpoints to the reference's formats is not ported yet.
+__init__), so no reference code is imported or run.
+
+The export side (view_neti_tpu/torch_interop.py:339-527) writes the
+port's msgpack checkpoints back in those formats, so that mappers trained
+by the port run in the published ViewNeTI tooling: the config cut to the
+reference's fields, the reference's state_dict keys (no encoder.w, which
+the reference does not register), and the pickled encoder as an instance
+of the shim class, so that the pickle names the reference's class path.
+`python -m view_neti_tpu_torch.export_torch` is its command line.
 """
 from __future__ import annotations
 
@@ -30,11 +37,12 @@ import types
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from view_neti_tpu_torch import config as config_lib
 from view_neti_tpu_torch import weight_port
-from view_neti_tpu_torch.checkpoint import clean_config_dict
+from view_neti_tpu_torch.checkpoint import CheckpointHandler, clean_config_dict
 from view_neti_tpu_torch.utils import msgpack_codec
 
 # the reference's Sequential index -> the port's submodule (Linear,
@@ -181,6 +189,17 @@ def convert_learned_embeds(path: Path) -> Dict[str, Any]:
     return {str(tok): _f32(row).numpy() for tok, row in ckpt.items()}
 
 
+def _iteration_of(p: Path, iteration: Optional[int]) -> str:
+    """The step for an output name: `iteration`, else the first number in
+    the file's name, else 0."""
+    if iteration is not None:
+        return str(iteration)
+    for part in Path(p).stem.replace("_", "-").split("-"):
+        if part.isdigit():
+            return part
+    return "0"
+
+
 def import_torch_artifacts(out_dir: Path,
                            view_path: Optional[Path] = None,
                            object_path: Optional[Path] = None,
@@ -191,31 +210,231 @@ def import_torch_artifacts(out_dir: Path,
     (mapper-steps-N_*.msgpack) find them."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    written: List[Path] = []
-
-    def iter_of(p: Path) -> str:
-        if iteration is not None:
-            return str(iteration)
-        for part in Path(p).stem.replace("_", "-").split("-"):
-            if part.isdigit():
-                return part
-        return "0"
-
     jobs = []
     if view_path is not None:
-        jobs.append((f"mapper-steps-{iter_of(view_path)}_view.msgpack",
+        jobs.append((view_path, "mapper-steps-{}_view.msgpack",
                      lambda: convert_mapper_checkpoint(Path(view_path),
                                                        "view")))
     if object_path is not None:
-        jobs.append((f"mapper-steps-{iter_of(object_path)}_object.msgpack",
+        jobs.append((object_path, "mapper-steps-{}_object.msgpack",
                      lambda: convert_mapper_checkpoint(Path(object_path),
                                                        "object")))
     if embeds_path is not None:
-        jobs.append((f"learned_embeds-steps-{iter_of(embeds_path)}.msgpack",
+        jobs.append((embeds_path, "learned_embeds-steps-{}.msgpack",
                      lambda: convert_learned_embeds(Path(embeds_path))))
-    for name, convert in jobs:
-        out = out_dir / name
+    written: List[Path] = []
+    for src, name, convert in jobs:
+        out = out_dir / name.format(_iteration_of(src, iteration))
         out.write_bytes(msgpack_codec.packb(convert()))
+        written.append(out)
+    return written
+
+
+# ---- export ---------------------------------------------------------------
+
+# The reference RunConfig's fields (reference training/config.py:11-293).
+# The reference decodes a checkpoint's config strictly
+# (checkpoint_handler.py:142), so the port's own fields (parallel,
+# log.{checkpoint_backend,resume_from}, data.{tokenizer_path,device_augment,
+# placeholder_view_tokens}, eval.{validation_view_tokens,
+# do_t2i_generalization,max_validation_failures},
+# optim.{fuse_accumulation,fuse_conv,steps_per_dispatch}) are left out.
+_REF_CFG_FIELDS: Dict[str, frozenset] = {
+    "log": frozenset({
+        "exp_name", "overwrite_ok", "exp_dir", "save_steps", "logging_dir",
+        "report_to", "checkpoints_total_limit", "save_dataset_images"}),
+    "data": frozenset({
+        "train_data_dir", "train_data_subsets", "placeholder_object_token",
+        "super_category_object_token", "super_category_view_token",
+        "placeholder_object_tokens", "super_category_object_tokens",
+        "fixed_object_token_or_path", "dataloader_num_workers", "repeats",
+        "resolution", "dtu_preprocess_key", "center_crop", "flip_p",
+        "caption_strategy", "camera_representation", "dtu_lighting",
+        "dtu_subset", "augmentation_key"}),
+    "model": frozenset({
+        "pretrained_model_name_or_path", "pretrained_view_mapper",
+        "pretrained_view_mapper_key", "word_embedding_dim",
+        "arch_mlp_hidden_dims", "use_nested_dropout", "nested_dropout_prob",
+        "normalize_object_mapper_output", "normalize_view_mapper_output",
+        "target_norm_object", "target_norm_view",
+        "use_positional_encoding_object", "use_positional_encoding_view",
+        "pe_sigmas", "pe_sigma_exp_key", "pe_t_exp_key", "pe_l_exp_key",
+        "pe_sigmas_view", "num_pe_time_anchors", "output_bypass_object",
+        "output_bypass_view", "revision", "mapper_checkpoint_path",
+        "arch_view_net", "arch_view_mix_streams", "arch_view_disable_tl",
+        "original_ti", "bypass_unconstrained_object",
+        "bypass_unconstrained_view", "output_bypass_alpha_view",
+        "output_bypass_alpha_object"}),
+    "eval": frozenset({
+        "validation_prompts", "num_validation_images", "validation_seeds",
+        "validation_steps", "num_denoising_steps", "dtu_upsample_key",
+        "eval_placeholder_object_tokens"}),
+    "optim": frozenset({
+        "max_train_steps", "learning_rate", "scale_lr", "train_batch_size",
+        "gradient_checkpointing", "gradient_accumulation_steps", "seed",
+        "lr_scheduler", "lr_warmup_steps", "adam_beta1", "adam_beta2",
+        "adam_weight_decay", "adam_epsilon", "mixed_precision",
+        "allow_tf32"}),
+}
+_REF_CFG_TOP = frozenset({"learnable_mode", "debug", "seed",
+                          "log", "data", "model", "eval", "optim"})
+
+
+
+
+def reference_cfg_dict(cfg_enc: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's encoded RunConfig cut to the reference's fields."""
+    out: Dict[str, Any] = {}
+    for k, v in cfg_enc.items():
+        if k not in _REF_CFG_TOP:
+            continue
+        if isinstance(v, dict) and k in _REF_CFG_FIELDS:
+            out[k] = {fk: fv for fk, fv in v.items()
+                      if fk in _REF_CFG_FIELDS[k]}
+        else:
+            out[k] = v
+    return out
+
+
+def _t(a) -> torch.Tensor:
+    # a copy: msgpack arrays are read-only views
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def torch_state_from_flax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A mapper's parameter tree of a checkpoint file (the JAX layout:
+    Dense kernels (in, out), LayerNorm scales) -> the state_dict keys of
+    the reference's NeTIMapper. encoder.w is not among them: the
+    reference's nn.Parameter(...).cuda() leaves it unregistered, and its
+    strict load_state_dict would refuse the key; the frequencies travel in
+    the pickled encoder."""
+    sd: Dict[str, Any] = {}
+    if "ti_embeddings" in params:
+        sd["ti_embeddings"] = _t(params["ti_embeddings"])
+        return sd
+    if "input_layer" in params:        # the legacy PE-1 object mapper
+        sd["input_layer.weight"] = _t(params["input_layer"]["kernel"]).T
+        sd["input_layer.bias"] = _t(params["input_layer"]["bias"])
+    for ref, name in _NET_RENAME:
+        leaf = params[name]
+        if "kernel" in leaf:
+            sd[f"{ref}.weight"] = _t(leaf["kernel"]).T.contiguous()
+        else:
+            sd[f"{ref}.weight"] = _t(leaf["scale"])
+        sd[f"{ref}.bias"] = _t(leaf["bias"])
+    sd["output_layer.0.weight"] = _t(
+        params["output_layer"]["kernel"]).T.contiguous()
+    sd["output_layer.0.bias"] = _t(params["output_layer"]["bias"])
+    return sd
+
+
+def _sigmas_for(cfg, n_feats: int) -> List[float]:
+    """The reference's sigmas in construction order (neti_mapper.py:
+    486-503): [sigma_t, sigma_l] and the pose's, by the frequency matrix's
+    width."""
+    ps = cfg.model.pe_sigmas
+    base = [float(ps.sigma_t), float(ps.sigma_l)]
+    if n_feats == 2:                 # an object mapper: (t, l)
+        return base
+    if n_feats == 3:                 # a view mapper, deg_freedom "phi"
+        return base + [float(ps.sigma_phi)]
+    if n_feats == 4:                 # "theta-phi"
+        return base + [float(ps.sigma_theta), float(ps.sigma_phi)]
+    return base + [float(ps.sigma_dtu12)] * (n_feats - 2)   # "dtu-12d"
+
+
+def make_torch_encoder(constants: Dict[str, Any], cfg) -> Any:
+    """The pickled encoder the reference's save_mapper embeds
+    (checkpoint_handler.py:70-71, 85): an instance of the shim class at
+    models.positional_encoding, with the attributes of the reference's
+    constructor (positional_encoding.py:10-41, 153-171) and w a plain
+    tensor, as a CUDA-saved reference checkpoint carries it."""
+    _install_unpickle_shims()
+    pe_mod = sys.modules["models.positional_encoding"]
+    if "fourier_w" in constants:
+        w = np.array(constants["fourier_w"], np.float32)
+        enc = pe_mod.FourierPositionalEncodingNDims()
+        enc.sigmas = _sigmas_for(cfg, w.shape[1])
+        enc.dim = int(w.shape[0]) * 2
+        enc.normalize = False
+        enc.w = torch.from_numpy(w)
+        return enc
+    if "neti_w" in constants:
+        w = np.array(constants["neti_w"], np.float32)
+        enc = pe_mod.NeTIPositionalEncoding()
+        enc.sigma_t = float(cfg.model.pe_sigmas.sigma_t)
+        enc.sigma_l = float(cfg.model.pe_sigmas.sigma_l)
+        enc.num_w = int(w.shape[0])
+        enc.w = torch.from_numpy(w)
+        return enc
+    # PE 0: closed-form anchors (positional_encoding.py:57-68)
+    enc = pe_mod.BasicEncoder()
+    enc.normalized_timesteps = (torch.arange(1000) / 999.0) * 2 - 1
+    enc.normalized_unet_layers = (torch.arange(16) / 15.0) * 2 - 1
+    return enc
+
+
+def export_mapper_checkpoint(path: Path, embedding_type: str
+                             ) -> Dict[str, Any]:
+    """A mapper-steps-N_{view,object}.msgpack -> the payload of the
+    reference's save_mapper (checkpoint_handler.py:57-97). Object entries
+    are keyed by ids after CLIP's vocabulary in the order of their tokens
+    (the reference's load_mapper maps tokens to ids with its own tokenizer,
+    checkpoint_handler.py:183-186, and never reads the keys); the view
+    entry keeps the reference's "dummy_key"."""
+    if embedding_type not in ("view", "object"):
+        raise ValueError(f"embedding_type {embedding_type!r}")
+    cfg, payload = CheckpointHandler.load_mapper(Path(path))
+    out: Dict[str, Any] = {"cfg": reference_cfg_dict(payload["cfg"]),
+                           "mappers": {}}
+    first_added_id = 49408           # CLIP's vocabulary; added tokens follow
+    for i, (key, entry) in enumerate(sorted(payload["mappers"].items())):
+        sd = torch_state_from_flax(entry["params"])
+        enc = make_torch_encoder(entry.get("constants") or {}, cfg)
+        if embedding_type == "view":
+            out_key: Any = "dummy_key"
+            tok = "dummy"
+        else:
+            out_key = first_added_id + i
+            tok = str(entry.get("placeholder_object_token") or key)
+        out["mappers"][out_key] = {"state_dict": sd, "encoder": enc,
+                                   "placeholder_object_token": tok}
+    return out
+
+
+def export_learned_embeds(path: Path) -> Dict[str, Any]:
+    """learned_embeds msgpack -> the reference's .bin payload ({token:
+    float32 row}, checkpoint_handler.py:40-55)."""
+    embeds = CheckpointHandler.load_learned_embeds(Path(path))
+    return {str(t): torch.from_numpy(np.asarray(r, np.float32))
+            for t, r in embeds.items()}
+
+
+def export_torch_artifacts(out_dir: Path,
+                           view_path: Optional[Path] = None,
+                           object_path: Optional[Path] = None,
+                           embeds_path: Optional[Path] = None,
+                           iteration: Optional[int] = None) -> List[Path]:
+    """Write the reference's mapper-steps-N_{view,object}.pt and
+    learned_embeds-steps-N.bin from the port's msgpack files (the mirror
+    of import_torch_artifacts)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    if view_path is not None:
+        jobs.append((view_path, "mapper-steps-{}_view.pt",
+                     lambda: export_mapper_checkpoint(view_path, "view")))
+    if object_path is not None:
+        jobs.append((object_path, "mapper-steps-{}_object.pt",
+                     lambda: export_mapper_checkpoint(object_path,
+                                                      "object")))
+    if embeds_path is not None:
+        jobs.append((embeds_path, "learned_embeds-steps-{}.bin",
+                     lambda: export_learned_embeds(embeds_path)))
+    written: List[Path] = []
+    for src, name, payload in jobs:
+        out = out_dir / name.format(_iteration_of(src, iteration))
+        torch.save(payload(), str(out))
         written.append(out)
     return written
 

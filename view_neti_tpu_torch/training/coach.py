@@ -22,6 +22,11 @@ What it runs, as the JAX Coach runs it:
     bases are decoded once into a cache on the card (when they fit under
     VIEW_NETI_DEVICE_BASE_CACHE_MB) and the step augments them there;
     the host sends only indices;
+  * with data.device_augment false, or on an llff folder (the images keep
+    their own sizes), the dataset flips and augments on the host
+    (data/augment.py) and the step encodes the float pixel batch through
+    the VAE every step; an llff folder of several sizes needs a preset that
+    crops to one, and the Coach refuses one without it at its start;
   * the random numbers of micro-step m come from a generator on the card
     seeded with a fixed mix of (seed, m), the counterpart of JAX's
     fold_in(base, m): they depend on the position alone;
@@ -132,6 +137,9 @@ class Coach:
         self.tokenizer.model_max_length = \
             self.arch.text.max_position_embeddings
         self.train_dataset = self._init_dataset(calibration_dir)
+        if not self.train_dataset.uniform_base_shape:
+            # the llff passthrough: host augmentation, stackable batches
+            self.train_dataset.check_host_batches()
         self.placeholder_view_tokens = \
             self.train_dataset.placeholder_view_tokens
         self.placeholder_object_tokens = \
