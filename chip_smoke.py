@@ -112,8 +112,13 @@ Phases; any failure ends the run with a non-zero exit:
                 full width with seeded bf16 weights and fp32 mappers: the
                 mode-0 recipe (input_configs/train_mode0.yaml: fused B = 9,
                 the flip on the card, arch 15, nested dropout, bypass 0.2)
-                on a copy of the committed JPEGs (tests/data/jpeg/teapot,
-                decoded by the port's JPEG decoder); then spherical mode 2
+                on a folder of ten 512x512 views: the five committed
+                baseline JPEGs (tests/data/jpeg/teapot) and one per format
+                of tests/data/formats/teapot (progressive 4:2:0 and
+                progressive CMYK JPEG, YCCK JPEG, Adam7 8-bit RGB PNG,
+                16-bit RGB PNG), decoded by the port's readers; first every
+                committed image fixture decoded on the host and held to
+                its manifest's sha256 of PIL's decode; then spherical mode 2
                 on an llff folder of 12 PNG views (6 at 1008x756, 6 at
                 756x1008; deg_freedom "phi") with data.device_augment
                 false, preset 7 cropping to 512x512 on the host; each run 2
@@ -125,8 +130,9 @@ Phases; any failure ends the run with a non-zero exit:
                 torch_interop.import_torch_artifacts bit for bit; checks
                 K1-K4's launches per step and per render; prints imgs/sec,
                 ms/step, peak memory, the idle share and launches of one
-                profiled step per run, the JPEG and PNG decode ms per
-                megapixel, the host augmentation's ms per example and its
+                profiled step per run, the decode ms per megapixel of each
+                fixture and of the llff 8-bit PNGs, the host augmentation's
+                ms per example and its
                 share of a step, and the export and import seconds;
  12. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
@@ -168,12 +174,20 @@ M3_WARM = 2              # warm-up steps, then a checkpoint and train state
 M3_STEPS = 8             # timed steps of the straight run after the warm-up
 M3_TOKENS = 3            # eval.eval_placeholder_object_tokens of the recipe
 M3_SWEEP_CAMS = 4
-# the folders phase: input_configs/train_mode0.yaml on a copy of the
-# committed JPEG fixtures, then a spherical mode-2 run with host
+# the folders phase: input_configs/train_mode0.yaml on a folder of the
+# committed image fixtures, then a spherical mode-2 run with host
 # augmentation on an llff folder of two image sizes; both at 512x512, fused
 # B = 9, a validation round at step FOLDERS_WARM and a final checkpoint
 FOLDERS_CONFIG = os.path.join("input_configs", "train_mode0.yaml")
-FOLDERS_JPEGS = os.path.join("tests", "data", "jpeg", "teapot")
+# the mode-0 folder: the five baseline JPEGs and one 512x512 view per
+# format of tests/data/formats (progressive 4:2:0, progressive CMYK, YCCK,
+# Adam7 8-bit RGB PNG, 16-bit RGB PNG)
+FOLDERS_VIEW_DIRS = (os.path.join("tests", "data", "jpeg", "teapot"),
+                     os.path.join("tests", "data", "formats", "teapot"))
+# the committed image fixtures, each with a manifest of PIL's decode
+FIXTURE_DIRS = (os.path.join("tests", "data", "jpeg"),
+                os.path.join("tests", "data", "formats"))
+DECODE_REPS = 5          # decodes of each fixture for its ms per megapixel
 FOLDERS_WARM = 2         # warm-up steps, then the validation round
 FOLDERS_STEPS = 6        # timed steps of each run after the warm-up
 FOLDERS_SIZE = 512
@@ -2016,11 +2030,41 @@ def folders_mode0_config(folder, exp_dir):
     return cfg
 
 
+def decode_fixtures(image_io, np):
+    """Every committed image fixture (FIXTURE_DIRS) decoded by the port's
+    readers: its shape and the sha256 of its RGB bytes against its
+    manifest (PIL's decode when it was written), and its decode ms per
+    megapixel (the median of DECODE_REPS decodes). Fails on a mismatch."""
+    import hashlib
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for d in FIXTURE_DIRS:
+        with open(os.path.join(here, d, "manifest.json")) as f:
+            manifest = json.load(f)
+        for rel, want in sorted(manifest.items()):
+            path = os.path.join(here, d, rel)
+            times = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                rgb = image_io.read_rgb(path)
+                times.append(time.perf_counter() - t0)
+            digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+            check(list(rgb.shape) == want["shape"]
+                  and digest == want["sha256_rgb"],
+                  f"{d}/{rel}: decode {rgb.shape} {digest} differs from "
+                  f"PIL's {want}")
+            mp = rgb.shape[0] * rgb.shape[1] / 1e6
+            out[f"{d}/{rel}"] = float(np.median(times)) * 1e3 / mp
+    return out
+
+
 def phase_folders(torch, dev, card):
     """Training on other datasets' folders and the export of its mappers:
-    the mode-0 recipe on a copy of the committed JPEGs (the flip on the
-    card), then a spherical mode-2 run on an llff folder of two image sizes
-    with preset 7 on the host (data.device_augment false), each with a
+    every committed image fixture held to its manifest, the mode-0 recipe
+    on a folder of the five baseline JPEGs and one view per other format
+    (the flip on the card), then a spherical mode-2 run on an llff folder
+    of two image sizes with preset 7 on the host (data.device_augment
+    false), each with a
     validation round after its warm-up and a final checkpoint; both runs'
     checkpoints exported through python -m view_neti_tpu_torch.export_torch
     and imported back through torch_interop.import_torch_artifacts."""
@@ -2189,11 +2233,19 @@ def phase_folders(torch, dev, card):
                     bit_equal=True)
 
     try:
-        # ---- (a) the mode-0 recipe on the committed JPEGs ----------------
+        # ---- every fixture's decode against PIL's ------------------------
+        fixtures_ms_per_mp = decode_fixtures(image_io, np)
+        print(f"decode fixtures [{card}]: "
+              f"{json.dumps(fixtures_ms_per_mp)}", flush=True)
+
+        # ---- (a) the mode-0 recipe on the mixed-format folder ------------
         folder = os.path.join(root, "teapot")
-        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(
-            __file__)), FOLDERS_JPEGS), folder)
-        jpegs = sorted(os.path.join(folder, f) for f in os.listdir(folder))
+        os.makedirs(folder)
+        here = os.path.dirname(os.path.abspath(__file__))
+        for d in FOLDERS_VIEW_DIRS:
+            for f in sorted(os.listdir(os.path.join(here, d))):
+                shutil.copy(os.path.join(here, d, f), folder)
+        views = sorted(os.listdir(folder))
         cfg = folders_mode0_config(folder, os.path.join(root, "mode0"))
         m = cfg.model
         check(cfg.learnable_mode == 0 and cfg.data.resolution == FOLDERS_SIZE
@@ -2210,7 +2262,7 @@ def phase_folders(torch, dev, card):
                 c.augment_spec == da.from_augmentation_key(0, 0.5)
                 and c.use_pixel_cache and not c.cache_latents
                 and c.compute_dtype == torch.bfloat16
-                and c.train_dataset.num_images == len(jpegs) == 5))
+                and c.train_dataset.num_images == len(views) == 10))
         check(os.path.exists(os.path.join(
             root, "mode0", f"val-images-{FOLDERS_WARM}.png")),
             "no mode-0 validation sheet")
@@ -2272,17 +2324,13 @@ def phase_folders(torch, dev, card):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # ---- decode speed: the JPEG fixtures beside the llff PNGs ---------
-        def ms_per_mp(paths, reps):
-            mp = sum(np.prod(image_io.image_size(p)) for p in paths) / 1e6
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                for p in paths:
-                    image_io.read_rgb(p)
-            return (time.perf_counter() - t0) * 1e3 / (reps * mp)
-
-        decode = dict(jpeg_ms_per_mp=ms_per_mp(jpegs, 4),
-                      png_ms_per_mp=ms_per_mp(pngs, 1))
+        # ---- decode speed: the llff 8-bit PNGs beside the fixtures --------
+        mp = sum(np.prod(image_io.image_size(p)) for p in pngs) / 1e6
+        t0 = time.perf_counter()
+        for p in pngs:
+            image_io.read_rgb(p)
+        decode = dict(llff_png8_ms_per_mp=(time.perf_counter() - t0) * 1e3
+                      / mp, fixtures_equal_to_pil=len(fixtures_ms_per_mp))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {k: launches_a[k] + launches_b[k] for k in launches_a}

@@ -4,6 +4,8 @@ deterministic bases of every DTU preprocess key, the dataset's and
 loader's stream of captions, ids and image indices, and the config files.
 """
 import glob
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -84,10 +86,16 @@ def test_png_writer_decodes_identically_in_pil(tmp_path, filters, channels):
 
 
 def test_png_reader_rejects_what_it_does_not_decode(tmp_path):
-    p = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(p)    # 16-bit gray
-    with pytest.raises(image_io.PNGError):
-        image_io.read_png(p)
+    """Invalid bit depths (gray at 3 bits, RGB at 4) and a broken CRC."""
+    good = image_io.encode_png(np.zeros((4, 4, 3), np.uint8))
+    for depth, color in ((3, 0), (4, 2)):
+        ihdr = struct.pack(">IIBBBBB", 4, 4, depth, color, 0, 0, 0)
+        p = tmp_path / f"d{depth}_c{color}.png"
+        p.write_bytes(good[:8] + struct.pack(">I", 13) + b"IHDR" + ihdr
+                      + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr))
+                      + good[33:])
+        with pytest.raises(image_io.PNGError, match="bit depth"):
+            image_io.read_png(p)
     bad = bytearray(image_io.encode_png(np.zeros((4, 4, 3), np.uint8)))
     bad[-20] ^= 0xFF      # inside the IDAT chunk: its CRC no longer holds
     with pytest.raises(image_io.PNGError):

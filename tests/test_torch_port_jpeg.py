@@ -106,12 +106,22 @@ def test_committed_fixtures(rel):
 
 
 def test_refused_files_name_the_file_and_the_feature(tmp_path):
+    """Arithmetic-coded, lossless, hierarchical and 12-bit files (a
+    baseline file's SOF0 marker or its precision byte patched: nothing
+    here writes such files), a truncated file and a GIF."""
     img = smooth(40, 40, 2)
-    cases = {"progressive": save(tmp_path, img, "prog.jpg",
-                                 progressive=True),
-             "CMYK": tmp_path / "cmyk.jpg"}
-    Image.fromarray(img).convert("CMYK").save(cases["CMYK"])
     data = save(tmp_path, img, "whole.jpg", quality=90).read_bytes()
+    sof = data.index(b"\xff\xc0")
+    cases = {}
+    for feature, at, byte in (("arithmetic-coded", sof + 1, 0xC9),
+                              ("lossless", sof + 1, 0xC3),
+                              ("hierarchical", sof + 1, 0xC5),
+                              ("12-bit", sof + 4, 12)):
+        patched = bytearray(data)
+        assert patched[at] in (0xC0, 8)
+        patched[at] = byte
+        cases[feature] = tmp_path / f"{feature}.jpg"
+        cases[feature].write_bytes(bytes(patched))
     cases["truncated"] = tmp_path / "cut.jpg"
     cases["truncated"].write_bytes(data[:len(data) // 2])
     cases["neither a PNG nor a JPEG"] = tmp_path / "text.jpg"

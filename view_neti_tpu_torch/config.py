@@ -157,8 +157,9 @@ class ModelConfig:
 
 @dataclass
 class EvalConfig:
-    """Validation (view_neti_tpu/config.py EvalConfig). The port does not
-    run validation yet; the train CLI says so."""
+    """Validation (view_neti_tpu/config.py EvalConfig): the Coach's rounds
+    every validation_steps (training/validate.py) and offline inference
+    (inference/offline.py) read it."""
     validation_prompts: List[str] = field(
         default_factory=lambda: list(VALIDATION_PROMPTS))
     validation_view_tokens: Optional[List[str]] = None

@@ -1,9 +1,18 @@
-// Baseline and extended-sequential Huffman JPEG decoding (ITU-T T.81,
-// SOF0/SOF1, 8-bit samples), a host helper of data/image_io.py.
+// Huffman-coded JPEG decoding (ITU-T T.81: baseline, extended-sequential
+// and progressive, SOF0/SOF1/SOF2, 8-bit samples), a host helper of
+// data/image_io.py.
 //
 // The output is what PIL's Image.open(p).convert("RGB") gives through
 // libjpeg-turbo with its defaults, bit for bit, so the arithmetic is
 // libjpeg-turbo's:
+//   * progressive scans into a whole-image coefficient buffer (jdphuff.c):
+//     DC first and refinement scans, AC first scans with EOB runs, AC
+//     refinement with correction bits; restarts reset the DC predictors
+//     and the EOB run;
+//   * block smoothing (jdcoefct.c, libjpeg-turbo >= 2.1): when the scans
+//     leave the DC or one of the first nine AC coefficients not fully
+//     refined, each block's missing low-frequency coefficients are
+//     estimated from the DC values of its 5x5 neighbourhood;
 //   * the JDCT_ISLOW integer IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2,
 //     DESCALE rounding, the post-IDCT range-limit table indexed with
 //     RANGE_MASK);
@@ -13,12 +22,18 @@
 //     (jdmainct.c duplicates the image's first and last sample rows as
 //     context); plain replication when a component is 2 samples wide or
 //     less, or for other integral factors;
-//   * the fixed-point YCbCr->RGB tables of jdcolor.c (SCALEBITS 16).
-// Gray images come out with one channel. EXIF orientation is not applied.
+//   * the fixed-point YCbCr->RGB tables of jdcolor.c (SCALEBITS 16), and
+//     for four-component files its YCCK->CMYK conversion (Adobe transform
+//     2) or CMYK as stored; then Pillow's reading of those samples as
+//     inverted CMYK ("CMYK;I") and its CMYK->RGB conversion.
+// Gray images come out with one channel, the others with three. EXIF
+// orientation is not applied. Decoding stops at the first EOI, so a second
+// image after it (an MPO's) is not read. A file without Huffman tables
+// (a motion-JPEG frame) gets the standard ones, as libjpeg gives them.
 //
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples, four-component (CMYK/YCCK) files and truncated or corrupt
-// entropy-coded data fail with a message naming the feature.
+// Lossless, hierarchical and arithmetic-coded files, 12-bit samples and
+// truncated or corrupt entropy-coded data fail with a message naming the
+// feature.
 //
 // Built with the host C++ compiler into build/kernels/ at first use and
 // loaded with ctypes (ops/build.py: host_library).
@@ -80,6 +95,47 @@ struct Huffman {
   }
 };
 
+// The standard Huffman tables of ITU-T T.81 K.3 (counts per code length
+// 1-16, then the values): luminance and chrominance DC and AC, which
+// libjpeg installs in slots 0 and 1 when a file defines no table there
+// (motion-JPEG frames; jdhuff.c: std_huff_tables).
+const uint8_t kStdBits[4][17] = {
+    {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLuma[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChroma[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;          // Huffman tables of the current scan
@@ -87,6 +143,14 @@ struct Component {
   int ds_w = 0, ds_h = 0;      // samples across and down (downsampled_*)
   int dc_pred = 0;
   std::vector<int16_t> coef;   // bh x bw blocks of 64, natural order
+  // the quantization table, latched at the component's first scan (as
+  // libjpeg's latch_quant_tables)
+  bool latched = false;
+  uint16_t quant[64] = {};
+  // per zigzag position: -1 before any scan, then the Al of the last scan
+  // that coded it (0: exact); libjpeg's coef_bits
+  int coef_bits[64];
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 // Entropy-coded data: byte stuffing removed, zero bits supplied past a
@@ -318,6 +382,24 @@ void idct_islow(const int16_t* coef, const uint16_t* quant, uint8_t* out,
   }
 }
 
+// The smoothing estimate of one coefficient (jdcoefct.c): num / Q rounded
+// half away from zero, at most (1 << Al) - 1 in magnitude when Al > 0.
+inline int smooth_pred(int64_t num, int64_t q, int al) {
+  int pred = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) /
+                              (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return num >= 0 ? pred : -pred;
+}
+
+// Pillow's CMYK->RGB (Convert.c: cmyk2rgb) on samples it unpacked as
+// inverted CMYK ("CMYK;I"): with the stored samples c and k, nk = k and
+// each channel is nk - MULDIV255(255 - c, nk).
+inline uint8_t cmyk_channel(int c, int k) {
+  const int t = (255 - c) * k + 128;
+  const int v = k - (((t >> 8) + t) >> 8);
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
 struct Decoder {
   const uint8_t* d;
   int64_t n;
@@ -327,7 +409,8 @@ struct Decoder {
   int restart_interval = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
-  bool frame = false, scanned = false;
+  bool frame = false, progressive = false;
+  int scans = 0;
   std::vector<Component> comps;
   uint16_t quant[4][64] = {};
   bool quant_defined[4] = {};
@@ -368,6 +451,11 @@ struct Decoder {
       if (m == 0xDA) {
         if (!frame) fail("corrupt JPEG: scan before the frame header");
         pos -= 2;           // decode() reads the SOS segment
+        const uint8_t* ac_vals[2] = {kStdAcLuma, kStdAcChroma};
+        for (int t = 0; t < 2; ++t) {
+          if (!dc[t].defined) dc[t].build(kStdBits[t], kStdDcVals, 12);
+          if (!ac[t].defined) ac[t].build(kStdBits[2 + t], ac_vals[t], 162);
+        }
         return;
       }
       segment(m);
@@ -385,25 +473,25 @@ struct Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
-        sof(end);
-        break;
       case 0xC2:
-      case 0xC6:
-      case 0xCA:
-      case 0xCE:
-        fail("progressive JPEG is not supported");
+        sof(end, m == 0xC2);
+        break;
       case 0xC3:
-      case 0xC7:
-      case 0xCB:
-      case 0xCF:
-        fail("lossless JPEG is not supported");
+        fail("lossless JPEG (SOF3) is not supported");
       case 0xC5:
-      case 0xCD:
+      case 0xC6:
+      case 0xC7:
       case 0xDE:
-        fail("hierarchical JPEG is not supported");
+        fail("hierarchical JPEG (SOF5-7, DHP) is not supported");
       case 0xC9:
+      case 0xCA:
+      case 0xCB:
       case 0xCC:
-        fail("arithmetic-coded JPEG is not supported");
+      case 0xCD:
+      case 0xCE:
+      case 0xCF:
+        fail("arithmetic-coded JPEG (SOF9-11, SOF13-15, DAC) is not "
+             "supported");
       case 0xC4:
         dht(end);
         break;
@@ -431,8 +519,9 @@ struct Decoder {
     pos = end;
   }
 
-  void sof(int64_t end) {
+  void sof(int64_t end, bool prog) {
     if (frame) fail("corrupt JPEG: two frame headers");
+    progressive = prog;
     const int precision = u8();
     if (precision != 8)
       fail(std::to_string(precision) + "-bit JPEG is not supported");
@@ -441,8 +530,7 @@ struct Decoder {
     const int nc = u8();
     if (height == 0) fail("JPEG with a DNL marker is not supported");
     if (width == 0) fail("corrupt JPEG: zero width");
-    if (nc == 4) fail("CMYK/YCCK JPEG is not supported");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       fail("JPEG with " + std::to_string(nc) + " components is not "
            "supported");
     if (pos + 3 * nc > end) fail("corrupt JPEG: short frame header");
@@ -503,6 +591,7 @@ struct Decoder {
     }
   }
 
+  // A sequential scan's block: DC difference and the 63 AC coefficients.
   void decode_block(BitReader& br, Component& c, int16_t* blk) {
     const int s = decode_huffman(br, dc[c.td]);
     const int diff = s ? extend(br.bits(s), s) : 0;
@@ -522,6 +611,87 @@ struct Decoder {
     }
   }
 
+  // The progressive scan kinds (jdphuff.c). Values are scaled by 1 << al
+  // as unsigned shifts (libjpeg's LEFT_SHIFT).
+  static int16_t scaled(int v, int al) {
+    return static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    const int s = decode_huffman(br, dc[c.td]);
+    c.dc_pred += s ? extend(br.bits(s), s) : 0;
+    blk[0] = scaled(c.dc_pred, al);
+  }
+
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, const Huffman& h, int16_t* blk, int ss,
+                int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      const int rs = decode_huffman(br, h);
+      int r = rs >> 4;
+      const int sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kZigzag[k]] = scaled(extend(br.bits(sz), sz), al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + br.bits(r) - 1;
+        break;
+      }
+    }
+  }
+
+  static void refine_bit(BitReader& br, int16_t& coef, int p1) {
+    if (br.bits(1) && (coef & p1) == 0)
+      coef = static_cast<int16_t>(coef >= 0 ? coef + p1 : coef - p1);
+  }
+
+  void ac_refine(BitReader& br, const Huffman& h, int16_t* blk, int ss,
+                 int se, int al, int& eobrun) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = decode_huffman(br, h);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {
+          s = br.bits(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.bits(r);
+          break;                  // the rest of the block is an EOB run
+        }
+        // advance over the nonzero coefficients, appending their
+        // correction bits, and over r zero ones
+        do {
+          int16_t& coef = blk[kZigzag[k]];
+          if (coef != 0) {
+            refine_bit(br, coef, p1);
+          } else if (--r < 0) {
+            break;                // the zero coefficient to set
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kZigzag[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef != 0) refine_bit(br, coef, p1);
+      }
+      --eobrun;
+    }
+  }
+
   void scan(int64_t seg_end) {
     const int ns = u8();
     if (ns < 1 || ns > 4) fail("corrupt JPEG: bad scan header");
@@ -534,29 +704,60 @@ struct Decoder {
       if (!c) fail("corrupt JPEG: scan names an unknown component");
       c->td = tables >> 4;
       c->ta = tables & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined ||
-          !ac[c->ta].defined)
-        fail("corrupt JPEG: scan uses an undefined Huffman table");
+      if (c->td > 3 || c->ta > 3)
+        fail("corrupt JPEG: bad Huffman table id in a scan");
       in_scan.push_back(c);
     }
     const int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail("corrupt JPEG: not a sequential scan");
+    const int ah = ahal >> 4, al = ahal & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ahal != 0)
+        fail("corrupt JPEG: not a sequential scan");
+    } else if ((ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) ||
+               (ah != 0 && al != ah - 1) || al > 13) {
+      fail("corrupt JPEG: bad progression parameters");
+    }
+    const bool dc_scan = ss == 0, first = ah == 0;
+    for (auto* c : in_scan) {
+      const bool need_dc = !progressive || (dc_scan && first);
+      const bool need_ac = !progressive || !dc_scan;
+      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+        fail("corrupt JPEG: scan uses an undefined Huffman table");
+      if (!c->latched) {
+        if (!quant_defined[c->tq])
+          fail("corrupt JPEG: undefined quantization table");
+        std::memcpy(c->quant, quant[c->tq], sizeof(c->quant));
+        c->latched = true;
+      }
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = progressive ? al : 0;
+    }
     pos = seg_end;
     for (auto* c : in_scan) c->dc_pred = 0;
     BitReader br{d, n, pos};
-    int next_rst = 0;
+    int next_rst = 0, eobrun = 0;
     int64_t todo = 0;
     int units_x, units_y;
     if (ns == 1) {
       // a non-interleaved scan: one block per unit over the component's
-      // own blocks
+      // own blocks, not the MCU-padded grid
       units_x = (in_scan[0]->ds_w + 7) / 8;
       units_y = (in_scan[0]->ds_h + 7) / 8;
     } else {
       units_x = mcus_x;
       units_y = mcus_y;
     }
+    auto block = [&](Component& c, int16_t* blk) {
+      if (!progressive)
+        decode_block(br, c, blk);
+      else if (dc_scan && first)
+        dc_first(br, c, blk, al);
+      else if (dc_scan)
+        dc_refine(br, blk, al);
+      else if (first)
+        ac_first(br, ac[c.ta], blk, ss, se, al, eobrun);
+      else
+        ac_refine(br, ac[c.ta], blk, ss, se, al, eobrun);
+    };
     for (int uy = 0; uy < units_y; ++uy) {
       for (int ux = 0; ux < units_x; ++ux) {
         if (restart_interval && todo == restart_interval) {
@@ -566,14 +767,13 @@ struct Decoder {
           br.pos += 2;
           next_rst = (next_rst + 1) & 7;
           todo = 0;
+          eobrun = 0;
           for (auto* c : in_scan) c->dc_pred = 0;
         }
         ++todo;
         if (ns == 1) {
           Component& c = *in_scan[0];
-          decode_block(br, c,
-                       c.coef.data() +
-                           (static_cast<size_t>(uy) * c.bw + ux) * 64);
+          block(c, c.coef.data() + (static_cast<size_t>(uy) * c.bw + ux) * 64);
           continue;
         }
         for (auto* cp : in_scan) {
@@ -582,21 +782,23 @@ struct Decoder {
             for (int bx = 0; bx < c.h; ++bx) {
               const size_t row = static_cast<size_t>(uy) * c.v + by;
               const size_t col = static_cast<size_t>(ux) * c.h + bx;
-              decode_block(br, c, c.coef.data() + (row * c.bw + col) * 64);
+              block(c, c.coef.data() + (row * c.bw + col) * 64);
             }
         }
       }
     }
     br.reset();
     pos = br.pos;
-    scanned = true;
+    ++scans;
   }
 
+  // Every scan up to the first EOI (or the end of the data, as libjpeg
+  // takes a file without one).
   void decode_scans() {
     while (true) {
       const int m = next_marker();
       if (m < 0) {
-        if (scanned) return;      // data complete, no EOI: as libjpeg
+        if (scans) return;
         fail("truncated JPEG: no scan");
       }
       if (m == 0xD9) return;
@@ -608,6 +810,151 @@ struct Decoder {
         scan(start + len);
       } else {
         segment(m);
+      }
+    }
+  }
+
+  // jdcoefct.c's smoothing_ok: a progressive file whose every component
+  // has its DC at least partly known and nonzero quantizers at the DC and
+  // the first nine AC positions (zigzag 0-9), and some of those AC
+  // coefficients not exact.
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const auto& c : comps) {
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.quant[kZigzag[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // One component's samples (its MCU-padded blocks, stride bw * 8): the
+  // IDCT of every block, through jdcoefct.c's decompress_smooth_data when
+  // `smooth`: the component's own blocks (not the padding), each with the
+  // DC values of the rows above and below as it picks them per iMCU row
+  // (the MCU-padded rows and its count of the last row's blocks
+  // included), estimating only coefficients that are zero and not exact.
+  void component_plane(const Component& c, bool smooth,
+                       std::vector<uint8_t>& plane) const {
+    const int stride = c.bw * 8;
+    plane.assign(static_cast<size_t>(stride) * c.bh * 8, 0);
+    auto blk = [&](int row, int col) {
+      return c.coef.data() + (static_cast<size_t>(row) * c.bw + col) * 64;
+    };
+    auto out = [&](int row, int col) {
+      return plane.data() + static_cast<size_t>(row) * 8 * stride + col * 8;
+    };
+    if (!smooth) {
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(blk(by, bx), c.quant, out(by, bx), stride);
+      return;
+    }
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8],
+                  Q20 = c.quant[16], Q11 = c.quant[9], Q02 = c.quant[2],
+                  Q03 = c.quant[3], Q12 = c.quant[10], Q21 = c.quant[17],
+                  Q30 = c.quant[24];
+    const int hib = (c.ds_h + 7) / 8, wib = (c.ds_w + 7) / 8;
+    const int total = mcus_y, last_col = wib - 1;
+    int16_t ws[64];
+    for (int r = 0; r < total; ++r) {
+      int block_rows = c.v;
+      if (r == total - 1 && hib % c.v) block_rows = hib % c.v;
+      const int image_block_rows = block_rows * total;
+      for (int b = 0; b < block_rows; ++b) {
+        const int R = r * c.v + b, ibr = r * block_rows + b;
+        const int prev = ibr > 0 ? R - 1 : R;
+        const int pprev = ibr > 1 ? R - 2 : prev;
+        const int next = ibr < image_block_rows - 1 ? R + 1 : R;
+        const int nnext = ibr < image_block_rows - 2 ? R + 2 : next;
+        const int rows[5] = {pprev, prev, R, next, nnext};
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, blk(R, col), sizeof(ws));
+          // DC[i][j]: the 5x5 window's row i, column j (2, 2: this block);
+          // columns past the component's blocks repeat the edge's
+          int DC[5][5];
+          for (int j = 0; j < 5; ++j) {
+            const int x = std::min(std::max(col + j - 2, 0), last_col);
+            for (int i = 0; i < 5; ++i) DC[i][j] = blk(rows[i], x)[0];
+          }
+          const int DC01 = DC[0][0], DC02 = DC[0][1], DC03 = DC[0][2],
+                    DC04 = DC[0][3], DC05 = DC[0][4], DC06 = DC[1][0],
+                    DC07 = DC[1][1], DC08 = DC[1][2], DC09 = DC[1][3],
+                    DC10 = DC[1][4], DC11 = DC[2][0], DC12 = DC[2][1],
+                    DC13 = DC[2][2], DC14 = DC[2][3], DC15 = DC[2][4],
+                    DC16 = DC[3][0], DC17 = DC[3][1], DC18 = DC[3][2],
+                    DC19 = DC[3][3], DC20 = DC[3][4], DC21 = DC[4][0],
+                    DC22 = DC[4][1], DC23 = DC[4][2], DC24 = DC[4][3],
+                    DC25 = DC[4][4];
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0)
+            ws[1] = static_cast<int16_t>(smooth_pred(Q00 * (change_dc ?
+                (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                 DC21 - DC22 + DC24 + DC25) :
+                (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), Q01, al));
+          if ((al = bits[2]) != 0 && ws[8] == 0)
+            ws[8] = static_cast<int16_t>(smooth_pred(Q00 * (change_dc ?
+                (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), Q10, al));
+          if ((al = bits[3]) != 0 && ws[16] == 0)
+            ws[16] = static_cast<int16_t>(smooth_pred(Q00 * (change_dc ?
+                (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                 DC23) :
+                (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                Q20, al));
+          if ((al = bits[4]) != 0 && ws[9] == 0)
+            ws[9] = static_cast<int16_t>(smooth_pred(Q00 * (change_dc ?
+                (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                 DC21 - DC25) :
+                (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                 DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)), Q11, al));
+          if ((al = bits[5]) != 0 && ws[2] == 0)
+            ws[2] = static_cast<int16_t>(smooth_pred(Q00 * (change_dc ?
+                (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                 2 * DC19) :
+                (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                Q02, al));
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+              ws[3] = static_cast<int16_t>(smooth_pred(Q00 *
+                  (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19),
+                  Q03, al));
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+              ws[10] = static_cast<int16_t>(smooth_pred(Q00 *
+                  (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19),
+                  Q12, al));
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+              ws[17] = static_cast<int16_t>(smooth_pred(Q00 *
+                  (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19),
+                  Q21, al));
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+              ws[24] = static_cast<int16_t>(smooth_pred(Q00 *
+                  (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19),
+                  Q30, al));
+            ws[0] = static_cast<int16_t>(smooth_pred(Q00 *
+                (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+                 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                Q00, 0));
+          }
+          idct_islow(ws, c.quant, out(R, col), stride);
+        }
       }
     }
   }
@@ -670,19 +1017,14 @@ struct Decoder {
 
   void output(uint8_t* out) {
     const int nc = static_cast<int>(comps.size());
+    const bool smooth = smoothing_ok();
     std::vector<std::vector<uint8_t>> full(nc);
+    std::vector<uint8_t> plane;
     for (int ci = 0; ci < nc; ++ci) {
       Component& c = comps[ci];
-      if (!quant_defined[c.tq])
-        fail("corrupt JPEG: undefined quantization table");
+      if (!c.latched) fail("corrupt JPEG: a component in no scan");
+      component_plane(c, smooth, plane);
       const int stride = c.bw * 8;
-      std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.bh * 8);
-      for (int by = 0; by < c.bh; ++by)
-        for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64,
-                     quant[c.tq],
-                     plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8,
-                     stride);
       const int hf = hmax / c.h, vf = vmax / c.v;
       if (hf == 1 && vf == 1) {
         full[ci].resize(static_cast<size_t>(width) * height);
@@ -699,18 +1041,34 @@ struct Decoder {
       return;
     }
     // jdcolor.c: YCbCr unless the file says RGB (an Adobe transform of 0,
-    // or component ids 'R', 'G', 'B' without a JFIF or Adobe marker)
+    // or component ids 'R', 'G', 'B' without a JFIF or Adobe marker); a
+    // four-component file is YCCK under an Adobe transform other than 0,
+    // else CMYK
     bool ycc = true;
-    if (saw_jfif) {
+    if (nc == 4) {
+      ycc = saw_adobe && adobe_transform != 0;
+    } else if (saw_jfif) {
       ycc = true;
     } else if (saw_adobe) {
       ycc = adobe_transform != 0;
     } else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) {
       ycc = false;
     }
+    const uint8_t *P0 = full[0].data(), *P1 = full[1].data(),
+                  *P2 = full[2].data();
     if (!ycc) {
-      for (size_t i = 0; i < npix; ++i)
-        for (int ci = 0; ci < 3; ++ci) out[3 * i + ci] = full[ci][i];
+      for (size_t i = 0; i < npix; ++i) {
+        if (nc == 4) {
+          const int k = full[3][i];
+          out[3 * i] = cmyk_channel(P0[i], k);
+          out[3 * i + 1] = cmyk_channel(P1[i], k);
+          out[3 * i + 2] = cmyk_channel(P2[i], k);
+        } else {
+          out[3 * i] = P0[i];
+          out[3 * i + 1] = P1[i];
+          out[3 * i + 2] = P2[i];
+        }
+      }
       return;
     }
     constexpr int SCALEBITS = 16;
@@ -730,14 +1088,23 @@ struct Decoder {
     auto clamp = [](int v) {
       return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
-    const uint8_t *Y = full[0].data(), *Cb = full[1].data(),
-                  *Cr = full[2].data();
     for (size_t i = 0; i < npix; ++i) {
-      const int y = Y[i], cb = Cb[i], cr = Cr[i];
-      out[3 * i] = clamp(y + cr_r[cr]);
-      out[3 * i + 1] =
+      const int y = P0[i], cb = P1[i], cr = P2[i];
+      const int r = clamp(y + cr_r[cr]);
+      const int g =
           clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-      out[3 * i + 2] = clamp(y + cb_b[cb]);
+      const int b = clamp(y + cb_b[cb]);
+      if (nc == 4) {
+        // ycck_cmyk_convert: C, M, Y = 255 - R, G, B; K as stored
+        const int k = full[3][i];
+        out[3 * i] = cmyk_channel(255 - r, k);
+        out[3 * i + 1] = cmyk_channel(255 - g, k);
+        out[3 * i + 2] = cmyk_channel(255 - b, k);
+      } else {
+        out[3 * i] = static_cast<uint8_t>(r);
+        out[3 * i + 1] = static_cast<uint8_t>(g);
+        out[3 * i + 2] = static_cast<uint8_t>(b);
+      }
     }
   }
 };
@@ -751,8 +1118,8 @@ void copy_error(const std::string& msg, char* err, int64_t errlen) {
 
 extern "C" {
 
-// dims: height, width, channels (1 or 3) of the image. Returns 0, or 1
-// with the reason in err.
+// dims: height, width, channels (1 for gray, else 3: RGB) of the image.
+// Returns 0, or 1 with the reason in err.
 int jpeg_header(const uint8_t* data, int64_t size, int32_t* dims, char* err,
                 int64_t errlen) {
   try {
@@ -760,7 +1127,7 @@ int jpeg_header(const uint8_t* data, int64_t size, int32_t* dims, char* err,
     dec.parse_header();
     dims[0] = dec.height;
     dims[1] = dec.width;
-    dims[2] = static_cast<int32_t>(dec.comps.size());
+    dims[2] = dec.comps.size() == 1 ? 1 : 3;
     return 0;
   } catch (const Error& e) {
     copy_error(e.msg, err, errlen);
@@ -787,6 +1154,14 @@ int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, char* err,
     copy_error(e.what(), err, errlen);
     return 1;
   }
+}
+
+// rgb (n x 3) from the stored CMYK samples cmyk (n x 4), as the decoder
+// converts a four-component file.
+void jpeg_cmyk_to_rgb(const uint8_t* cmyk, uint8_t* rgb, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    for (int c = 0; c < 3; ++c)
+      rgb[3 * i + c] = cmyk_channel(cmyk[4 * i + c], cmyk[4 * i + 3]);
 }
 
 }  // extern "C"

@@ -3,17 +3,22 @@
 
 read_rgb reads a PNG or a JPEG, told apart by their first bytes, as PIL's
 Image.open(p).convert("RGB") gives it, bit for bit:
-  * PNG: 8-bit grayscale, gray+alpha, RGB and RGBA, and palette images of
-    1, 2, 4 or 8 bits (tRNS ignored, as convert("RGB") ignores it), without
-    interlacing. The chunks are parsed here, the IDAT stream inflated with
-    zlib and the rows unfiltered by a compiled host helper
+  * PNG: every color type and bit depth (gray of 1, 2, 4, 8 and 16 bits,
+    gray+alpha, RGB and RGBA of 8 and 16, palette images of 1-8), with or
+    without Adam7 interlacing; tRNS ignored, as convert("RGB") ignores it.
+    Low-bit gray is scaled to 0..255, 16-bit gray clipped at 255 (PIL's
+    I;16), the other 16-bit types keep their high byte. The chunks are
+    parsed here, the IDAT stream inflated with zlib and the rows (each
+    Adam7 pass its own image) unfiltered by a compiled host helper
     (csrc/png_unfilter.cpp). `unfilter_plain` is the same unfilter in
     numpy, the reference the tests hold the helper to; the decode never
     falls back to it.
-  * JPEG: baseline and extended-sequential Huffman files with 8-bit
-    samples, gray or YCbCr at any integral sampling, decoded by a compiled
-    host helper (csrc/jpeg_decode.cpp) with libjpeg-turbo's arithmetic.
-    Progressive, arithmetic-coded, 12-bit and CMYK files raise.
+  * JPEG: baseline, extended-sequential and progressive Huffman files
+    with 8-bit samples, gray, YCbCr, RGB, CMYK or YCCK at any integral
+    sampling, decoded by a compiled host helper (csrc/jpeg_decode.cpp)
+    with libjpeg-turbo's arithmetic, its block smoothing of unrefined
+    progressive files and Pillow's CMYK->RGB, up to the first EOI.
+    Arithmetic-coded, lossless, hierarchical and 12-bit files raise.
 Both helpers are built with the host compiler at first use. Every reading
 error is an ImageError that names the file.
 
@@ -84,28 +89,26 @@ def _png_parts(data: bytes):
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
     if header is None:
         raise PNGError("no IHDR chunk")
-    if header[6]:
-        raise PNGError("interlaced PNGs are not supported")
     return header, zlib.decompress(b"".join(idat)), palette
 
 
 def parse_png(data: bytes) -> Tuple[int, int, int, bytes]:
     """(height, width, channels, inflated filtered rows) of an 8-bit,
     non-interlaced direct-colour PNG."""
-    (width, height, depth, color, _, _, _), raw, _ = _png_parts(data)
-    if depth != 8 or color not in CHANNELS:
-        raise PNGError(f"unsupported PNG: bit depth {depth}, color type "
-                       f"{color} (8-bit gray, gray+alpha, RGB, RGBA and "
-                       "palette images only)")
+    (width, height, depth, color, _, _, interlace), raw, _ = _png_parts(data)
+    if depth != 8 or color not in CHANNELS or interlace:
+        raise PNGError(f"not an 8-bit non-interlaced direct-colour PNG: bit "
+                       f"depth {depth}, color type {color}, interlace "
+                       f"{interlace}")
     channels = CHANNELS[color]
     if len(raw) != height * (1 + width * channels):
         raise PNGError("IDAT size does not match the header")
     return height, width, channels, raw
 
 
-def _unfilter(raw: bytes, height: int, rowbytes: int,
-              bpp: int) -> np.ndarray:
-    """(height, rowbytes) uint8 by the compiled helper."""
+def _unfilter(raw, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """(height, rowbytes) uint8 by the compiled helper; raw: the filtered
+    rows (bytes or a memoryview)."""
     from view_neti_tpu_torch.ops import build
     if len(raw) != height * (1 + rowbytes):
         raise PNGError("filtered rows do not match the image size")
@@ -121,24 +124,79 @@ def _unfilter(raw: bytes, height: int, rowbytes: int,
     return out
 
 
-def _read_palette_png(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 of a palette PNG (color type 3, 1-8 bits): the
-    unfiltered rows unpacked to indices and looked up in PLTE."""
-    (width, height, depth, _, _, _, _), raw, palette = _png_parts(data)
-    if depth not in (1, 2, 4, 8):
-        raise PNGError(f"unsupported palette PNG bit depth {depth}")
-    if palette is None:
-        raise PNGError("palette PNG without a PLTE chunk")
-    rows = _unfilter(raw, height, (width * depth + 7) // 8, 1)
+# the bit depths each PNG color type allows, and the Adam7 passes as
+# (x0, y0, dx, dy)
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered rows (h, rowbytes) -> samples (h, width, channels):
+    uint16 at 16 bits (big-endian in the file), else uint8 values below
+    2**depth (sub-byte samples packed from the high bit)."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows.reshape(h, width * channels, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(
+            h, width, channels)
     if depth < 8:
-        bits = np.unpackbits(rows, axis=1)
-        bits = bits[:, :width * depth].reshape(height, width, depth)
+        bits = np.unpackbits(rows, axis=1)[:, :width * depth]
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        rows = (bits * weights).sum(-1).astype(np.uint8)
-    idx = rows[:, :width]
-    if idx.size and int(idx.max()) >= len(palette):
-        raise PNGError("palette index out of range")
-    return palette[idx]
+        rows = (bits.reshape(h, width, depth) * weights).sum(-1)
+        return rows.astype(np.uint8)[..., None]
+    return rows.reshape(h, width, channels)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8 of a PNG of any color type, bit depth and
+    interlacing, C its channels (3 for a palette image), reduced to 8 bits
+    as PIL's convert("RGB") reduces them: gray of 1, 2 or 4 bits scaled to
+    0..255 (x255, x85, x17), 16-bit gray clipped at 255 (PIL's I;16), the
+    other 16-bit types' high byte. Each Adam7 pass is its own filtered
+    image, and an empty pass has no bytes at all."""
+    (width, height, depth, color, _, _, interlace), raw, palette = \
+        _png_parts(data)
+    if color not in DEPTHS or depth not in DEPTHS[color]:
+        raise PNGError(f"invalid PNG: bit depth {depth} with color type "
+                       f"{color}")
+    if interlace > 1:
+        raise PNGError(f"unknown interlace method {interlace}")
+    if color == 3 and palette is None:
+        raise PNGError("palette PNG without a PLTE chunk")
+    channels = 1 if color == 3 else CHANNELS[color]
+    bpp = max(1, channels * depth // 8)
+    samples = np.empty((height, width, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+    view, off = memoryview(raw), 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        w = max(0, (width - x0 + dx - 1) // dx)
+        h = max(0, (height - y0 + dy - 1) // dy)
+        if not (w and h):
+            continue
+        rowbytes = (w * channels * depth + 7) // 8
+        n = h * (1 + rowbytes)
+        rows = _unfilter(view[off:off + n], h, rowbytes, bpp)
+        samples[y0::dy, x0::dx] = _unpack(rows, w, channels, depth)
+        off += n
+    if off != len(raw):
+        raise PNGError("IDAT size does not match the header")
+    if color == 3:
+        idx = samples[..., 0]
+        if idx.size and int(idx.max()) >= len(palette):
+            raise PNGError("palette index out of range")
+        return palette[idx]
+    if depth == 16:
+        if color == 0:
+            return np.minimum(samples, 255).astype(np.uint8)
+        return (samples >> 8).astype(np.uint8)
+    if color == 0 and depth < 8:
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
+
+
 def unfilter_compiled(raw: bytes, height: int, width: int,
                       channels: int) -> np.ndarray:
     """(height, width, channels) uint8 by the compiled helper."""
@@ -179,15 +237,8 @@ def unfilter_plain(raw: bytes, height: int, width: int,
 
 def read_png(path: Union[str, Path]) -> np.ndarray:
     """(H, W, C) uint8, C the file's channels (1, 2, 3 or 4), or 3 for a
-    palette image (its colours)."""
-    return _read_png_bytes(Path(path).read_bytes())
-
-
-def _read_png_bytes(data: bytes) -> np.ndarray:
-    if data[:8] == SIGNATURE and data[25:26] == b"\x03":   # IHDR color type
-        return _read_palette_png(data)
-    height, width, channels, raw = parse_png(data)
-    return unfilter_compiled(raw, height, width, channels)
+    palette image (its colours), in 8 bits as _decode_png reduces them."""
+    return _decode_png(Path(path).read_bytes())
 
 
 def _jpeg_call(fn_name: str, data: bytes, out: np.ndarray) -> None:
@@ -211,10 +262,24 @@ def _jpeg_dims(data: bytes) -> Tuple[int, int, int]:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """(H, W, C) uint8 of a JPEG, C 1 (gray) or 3 (RGB), by the compiled
-    helper."""
+    """(H, W, C) uint8 of a JPEG, C 1 (gray) or 3 (RGB, from YCbCr, RGB,
+    CMYK or YCCK), by the compiled helper."""
     out = np.empty(_jpeg_dims(data), np.uint8)
     _jpeg_call("jpeg_decode", data, out)
+    return out
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 from a four-component JPEG's stored samples
+    (..., 4), as the compiled decoder converts them: Pillow's inverted
+    CMYK ("CMYK;I") and its CMYK->RGB."""
+    from view_neti_tpu_torch.ops import build
+    cmyk = np.ascontiguousarray(cmyk, np.uint8)
+    out = np.empty(cmyk.shape[:-1] + (3,), np.uint8)
+    fn = build.host_library("jpeg_decode").jpeg_cmyk_to_rgb
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    fn.restype = None
+    fn(cmyk.ctypes.data, out.ctypes.data, cmyk.size // 4)
     return out
 
 
@@ -235,7 +300,7 @@ def read_rgb(path: Union[str, Path]) -> np.ndarray:
     data = Path(path).read_bytes()
     try:
         if data[:8] == SIGNATURE:
-            return to_rgb(_read_png_bytes(data))
+            return to_rgb(_decode_png(data))
         if data[:2] == b"\xff\xd8":
             return to_rgb(decode_jpeg(data))
         raise ImageError("neither a PNG nor a JPEG file")

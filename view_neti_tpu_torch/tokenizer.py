@@ -24,6 +24,7 @@ import json
 from functools import lru_cache
 from pathlib import Path
 import re
+import unicodedata
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -31,20 +32,67 @@ import numpy as np
 CLIP_VOCAB_SIZE = 49408
 CLIP_MAX_LENGTH = 77
 
-# CLIP's exact split pattern needs \p{L}/\p{N} classes, which the stdlib
-# `re` lacks. The `regex` module (a transformers dependency) provides them;
-# fall back to the closest stdlib approximation when it is absent.
+# CLIP's split pattern (HF CLIPTokenizer):
+#   <|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d
+#   |[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+          (case-insensitive)
+# The stdlib `re` lacks the \p{L}/\p{N} classes, and the `regex` module that
+# has them is not always installed, so `_scan_split` scans for the same
+# tokens over unicodedata's categories: a letter is a code point of a
+# category L*, a number one of N*, \s Unicode's White_Space (which differs
+# from str.isspace() on U+001C-U+001F). U+0345 (a combining mark) is skipped
+# like a space: case-insensitive `regex` folds it to a letter, so the
+# negated class refuses it, while \p{L} does not take it either. The
+# special tokens and contractions keep the stdlib pattern. `_clip_split` is
+# `regex`'s findall when the module is there, else the scanner; both give
+# the same tokens on every assigned code point.
+_SPECIAL_PAT = re.compile(
+    r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d",
+    re.IGNORECASE)
+_SKIPPED = frozenset(
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005"
+    "\u2006\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
+    "\u0345")
+_LETTER, _NUMBER, _SKIP, _OTHER = range(4)
+
+
+def _char_class(ch: str) -> int:
+    if ch in _SKIPPED:
+        return _SKIP
+    major = unicodedata.category(ch)[0]
+    return _LETTER if major == "L" else _NUMBER if major == "N" else _OTHER
+
+
+def _scan_split(text: str) -> List[str]:
+    """CLIP's pattern's findall, without the `regex` module."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        m = _SPECIAL_PAT.match(text, i)
+        if m:
+            out.append(m.group())
+            i = m.end()
+            continue
+        kind = _char_class(text[i])
+        j = i + 1
+        if kind == _SKIP:
+            i = j
+            continue
+        if kind != _NUMBER:          # a run of letters, or of the rest
+            while j < n and _char_class(text[j]) == kind:
+                j += 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
 try:
     import regex as _regex
-    _CLIP_PAT = _regex.compile(
+    _clip_split = _regex.compile(
         r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
         r"|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+",
-        _regex.IGNORECASE)
-except ImportError:  # pragma: no cover
-    _CLIP_PAT = re.compile(
-        r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
-        r"|[^\W\d_]+|\d|(?:[^\s\w]|_)+",
-        re.IGNORECASE | re.UNICODE)
+        _regex.IGNORECASE).findall
+except ImportError:
+    _clip_split = _scan_split
 
 
 @lru_cache()
@@ -67,7 +115,6 @@ def _whitespace_clean(text: str) -> str:
     """Approximate ftfy.fix_text + whitespace_clean on already-sane text
     (HF CLIPTokenizer._tokenize): double html-unescape, NFC normalize,
     collapse whitespace."""
-    import unicodedata
     text = html.unescape(html.unescape(text))
     text = unicodedata.normalize("NFC", text)
     text = re.sub(r"\s+", " ", text)
@@ -260,7 +307,7 @@ class ClipBPETokenizer(_TokenizerBase):
                 ids.append(self.added_tokens[piece])
                 continue
             piece = _whitespace_clean(piece).lower()
-            for tok in _CLIP_PAT.findall(piece):
+            for tok in _clip_split(piece):
                 tok = "".join(self.byte_encoder[b]
                               for b in tok.encode("utf-8"))
                 ids.extend(
@@ -302,7 +349,7 @@ class FallbackTokenizer(_TokenizerBase):
                 ids.append(self.added_tokens[piece])
                 continue
             piece = _whitespace_clean(piece).lower()
-            for tok in _CLIP_PAT.findall(piece):
+            for tok in _clip_split(piece):
                 ids.append(self._hash_word(tok))
         return ids
 
