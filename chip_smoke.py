@@ -134,7 +134,31 @@ Phases; any failure ends the run with a non-zero exit:
                 fixture and of the llff 8-bit PNGs, the host augmentation's
                 ms per example and its
                 share of a step, and the export and import seconds;
- 12. report  -- one JSON line of per-kernel results, then the result line.
+ 12. ddp    -- data parallel over torch.distributed
+                (view_neti_tpu_torch/parallel/dist.py): the coach phase's
+                recipe (fused B = 9 at 384x512, preset 7 on the base
+                cache, SD-1.5 at full width, bf16) for 2 warm-up and 4
+                timed steps with a checkpoint at the last, in one process;
+                through a process group of one rank over NCCL, bit for
+                bit; then over 3 ranks spawned with a FileStore (gloo when
+                they share this card, NCCL with a card each), 3 rows a
+                rank: each step's loss within 1e-5 relative and the mappers
+                within tests/test_parallel.py's tolerance (rtol 5e-3, atol
+                1e-5) of one process computing the ranks' rows at their
+                shapes (the fused batch and draws cut by plain indexing),
+                the first loss within DDP_FUSED_STEP1_RTOL of the fused
+                one-process run's, a limit that a planted fault (each
+                row's dropout draws shifted by one row) must exceed, the
+                same per-slice counts, every rank's K1-K4 launches a step
+                equal to the coach phase's, one all-gather of one size a
+                step, one set of checkpoint files; the six scan cameras of
+                the last checkpoint rendered split over the ranks (seeds
+                [0, 1], 5 DPM-Solver++ steps, CFG 7.5) equal one process's
+                render bit for bit; prints imgs/sec and ms/step of the ranks
+                beside one process's, the all-reduce's ms a step and
+                bytes, each rank's peak memory and the largest loss and
+                mapper differences;
+ 13. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -2347,6 +2371,416 @@ def phase_folders(torch, dev, card):
     return launches, stats
 
 
+# the ddp phase: the coach phase's recipe over DDP_WORLD ranks of
+# torch.distributed (gloo when they share the card, NCCL with a card each),
+# B = 9 as 3 rows a rank, against one process; then the split DTU sweep of
+# its last checkpoint: the six scan cameras cut to DDP_DENOISE steps
+DDP_WORLD = 3
+DDP_WARM = 2             # warm-up steps, then DDP_STEPS timed ones
+DDP_STEPS = 4
+DDP_DENOISE = 5
+DDP_LOSS_RTOL = 1e-5
+DDP_MAPPER_RTOL, DDP_MAPPER_ATOL = 5e-3, 1e-5   # tests/test_parallel.py
+# the ranks' first loss against the fused one-process run's (relative):
+# the limit lies between the sound reading and the planted control's
+# (the dropout draws of each rank's rows shifted by one row), which it
+# must catch
+DDP_FUSED_STEP1_RTOL = 3e-4
+DDP_TIMEOUT_S = 300      # a rank waiting longer on a collective ends it
+
+
+def ddp_config(rect, exp_dir):
+    """The coach phase's mode-2 recipe, DDP_WARM + DDP_STEPS steps and one
+    checkpoint, at the last one."""
+    steps = DDP_WARM + DDP_STEPS
+    return mode2_config(rect, exp_dir, log={"save_steps": steps},
+                        optim={"max_train_steps": steps})
+
+
+def ddp_run_stats(coach):
+    """A finished Coach's losses, host copies of its mappers, counts, and
+    the timed steps' ms a step on the host's clock."""
+    marks = coach.step_marks
+    return dict(
+        losses=coach.losses,
+        mappers={k: v.numpy() for k, v in mapper_state(coach).items()},
+        counts=coach.optimizer.counts,
+        ms_per_step=(coach.loop_end_s - marks[DDP_WARM - 1]) * 1e3
+        / DDP_STEPS)
+
+
+def ddp_rank(rank, world, root, rect, cal, cams):
+    """One spawned rank of the ddp phase: the recipe's Coach on its rows of
+    the fused batch, the kernels' launches and the peak memory of its
+    training, then its share of the split sweep of the last checkpoint
+    (rank 0 requests it and gathers the images). Writes what it measured
+    to root/rank<r>.pkl."""
+    import pickle
+    import torch
+    from view_neti_tpu_torch.parallel import dist
+    from view_neti_tpu_torch.training import inference_dtu
+    from view_neti_tpu_torch.training.coach import Coach
+    steps = DDP_WARM + DDP_STEPS
+    dp = dist.init_distributed(
+        store=torch.distributed.FileStore(os.path.join(root, "store"),
+                                          world),
+        rank=rank, world_size=world, timeout_s=DDP_TIMEOUT_S)
+    # time the gradient all-reduce (dist.all_reduce_mean_'s all-gather)
+    # on the host's clock: the collective with its wait for the slowest
+    # rank, or on NCCL its enqueue; and the bytes a rank sends
+    gather, reduce_s, reduce_bytes = torch.distributed.all_gather, [], []
+
+    def timed_gather(parts, tensor, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = gather(parts, tensor, *args, **kwargs)
+        reduce_s.append(time.perf_counter() - t0)
+        reduce_bytes.append(tensor.numel() * tensor.element_size())
+        return out
+    torch.distributed.all_gather = timed_gather
+    coach = Coach(ddp_config(rect, os.path.join(root, "ranks")),
+                  calibration_dir=cal, dist=dp)
+    # the counted run: the user's entry point, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    coach.train()
+    torch.cuda.synchronize()
+    out = ddp_run_stats(coach)
+    out.update(rank=rank, backend=dp.backend, shared_card=dp.shared_card,
+               device=str(dp.device), launches=launch_counts(),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               reduce_ms=[x * 1e3 for x in reduce_s[DDP_WARM:]],
+               reduce_bytes=sorted(set(reduce_bytes)))
+    dist.barrier(dp)
+    t0 = time.perf_counter()
+    if dp.is_main:
+        preds = inference_dtu.dtu_generate_camidxs_to_preds(
+            coach, cams, steps, num_denoising_steps=DDP_DENOISE,
+            seeds=VAL_SEEDS, calibration_dir=cal, on_missing_ckpt="raise")
+        inference_dtu.end_sweeps(coach, False)
+    else:
+        check(not inference_dtu.serve_sweeps(coach),
+              "rank 0 failed the split sweep")
+        preds = None
+    torch.cuda.synchronize()
+    out.update(sweep_s=time.perf_counter() - t0, preds=preds)
+    dist.barrier(dp)
+    dist.destroy(dp)
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def ddp_chunk(batch, draws, lo, hi, shift_dropout=False):
+    """Rows lo:hi of a fused mode-2 batch and of its StepDraws, by plain
+    indexing, independent of parallel/dist.py: every per-row tensor's rows,
+    and the nested-dropout draws' columns of their (K, B) layer-major
+    layout. shift_dropout plants a sharding fault, the control of
+    DDP_FUSED_STEP1_RTOL: each row takes the dropout draws of the row
+    before it."""
+    from view_neti_tpu_torch.training.train_step import StepDraws, TrainBatch
+    B = len(batch.input_ids)
+    check(isinstance(batch.object_idx, int),
+          f"a mode-2 batch has one object, not {batch.object_idx}")
+
+    def layer_major(x):
+        x = x.reshape(-1, B)
+        if shift_dropout:
+            x = x.roll(1, dims=1)
+        return x[:, lo:hi].reshape(-1)
+
+    part = TrainBatch(
+        pixel_values=batch.pixel_values[lo:hi],
+        input_ids=batch.input_ids[lo:hi],
+        input_ids_placeholder_object=batch.input_ids_placeholder_object[lo:hi],
+        input_ids_placeholder_view=batch.input_ids_placeholder_view[lo:hi],
+        object_idx=batch.object_idx)
+    augment = draws.augment and dataclasses.replace(draws.augment, **{
+        f.name: getattr(draws.augment, f.name)[lo:hi]
+        for f in dataclasses.fields(draws.augment)})
+    dropout = draws.dropout and {
+        key: tuple(layer_major(t) for t in d)
+        for key, d in draws.dropout.items()}
+    return part, StepDraws(vae_eps=draws.vae_eps[lo:hi],
+                           noise=draws.noise[lo:hi],
+                           timesteps=draws.timesteps[lo:hi],
+                           dropout=dropout, augment=augment)
+
+
+def ddp_chunked_reference(torch, coach, world):
+    """One process computing each fused step as the ranks compute it: the
+    one-process Coach's fused batch and draws, cut into world chunks of
+    rows (ddp_chunk), each chunk's forward and backward alone, so at a
+    rank's shapes and roundings, the chunks' gradients and losses added in
+    rank order in fp32 and divided by world, one optimizer step. Also the
+    first step's loss with the planted fault (ddp_chunk's shift_dropout).
+    Returns ddp_run_stats's losses, mappers and counts, and
+    control_loss."""
+    from view_neti_tpu_torch.data.dataset import DataLoader
+    from view_neti_tpu_torch.training import train_step as tts
+    check(not coach.dist.active, "the reference is one process")
+    ds = coach.train_dataset
+    coach._fill_base_cache()
+    ds.skip_pixels = True
+    stream = iter(DataLoader(ds, coach.micro_batch_size, seed=coach.cfg.seed))
+    opt = coach.optimizer
+    params = [p for g in opt.optimizer.param_groups for p in g["params"]]
+    n = coach.micro_batch_size // world
+
+    def chunk_loss(batch, draws, r, shift_dropout=False):
+        part, part_draws = ddp_chunk(batch, draws, r * n, (r + 1) * n,
+                                     shift_dropout)
+        latents = tts.encode_latents(
+            coach.built, part, part_draws, coach.compute_dtype,
+            coach.cache_latents, coach.augment_spec)
+        return tts.diffusion_loss(coach.built, part, part_draws, latents,
+                                  coach.compute_dtype)
+
+    def rank_mean(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return float(total / world)
+
+    losses, control = [], None
+    for step in range(DDP_WARM + DDP_STEPS):
+        batch = coach._build_batch(next(stream))
+        draws = coach._step_draws(step, batch)
+        if step == 0:
+            with torch.no_grad():
+                control = rank_mean([chunk_loss(batch, draws, r, True)
+                                     for r in range(world)])
+        sums = [torch.zeros_like(p) for p in params]
+        parts = []
+        opt.zero_grad()
+        for r in range(world):
+            loss = chunk_loss(batch, draws, r)
+            loss.backward()
+            for total, p in zip(sums, params):
+                if p.grad is not None:
+                    total += p.grad
+                    p.grad = None
+            parts.append(loss.detach())
+        for total, p in zip(sums, params):
+            p.grad = total / world
+        opt.step()
+        losses.append(rank_mean(parts))
+    return dict(losses=losses,
+                mappers={k: v.numpy() for k, v in mapper_state(coach).items()},
+                counts=opt.counts, control_loss=control)
+
+
+def ddp_diff(got, want):
+    """(largest relative loss difference, largest mapper difference, the
+    mapper elements outside DDP_MAPPER_RTOL / DDP_MAPPER_ATOL)."""
+    import numpy as np
+    losses = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                      want["losses"]))
+    worst, outside = 0.0, 0
+    for k, w in want["mappers"].items():
+        d = np.abs(got["mappers"][k] - w)
+        worst = max(worst, float(d.max()))
+        outside += int((d > DDP_MAPPER_ATOL
+                        + DDP_MAPPER_RTOL * np.abs(w)).sum())
+    return float(losses), worst, outside
+
+
+def phase_ddp(torch, dev, card):
+    """Data-parallel training and the split DTU sweep over
+    torch.distributed (view_neti_tpu_torch/parallel/dist.py): the coach
+    phase's recipe (mode 2, SD-1.5 at full width, preset 7 on the base
+    cache, fused B = 9 at 384x512, bf16) in one process; the same through
+    a process group of one rank over NCCL, bit for bit; over DDP_WORLD
+    spawned ranks (gloo when they share this card, NCCL with a card each),
+    3 rows a rank, each step's loss within DDP_LOSS_RTOL and the mappers
+    within tests/test_parallel.py's tolerance of one process at the ranks'
+    shapes (ddp_chunked_reference), the first loss within
+    DDP_FUSED_STEP1_RTOL of the fused one-process run's (and the planted
+    fault beyond it), the same per-slice counts and one set of checkpoint
+    files; then the six scan cameras of the last checkpoint rendered split
+    over the ranks (seeds [0, 1], DDP_DENOISE DPM-Solver++ steps, CFG 7.5)
+    equal to one process's render bit for bit."""
+    import gc
+    import pickle
+    import numpy as np
+    import torch.multiprocessing as mp
+    from view_neti_tpu_torch.data import dtu, image_io
+    from view_neti_tpu_torch.parallel import dist
+    from view_neti_tpu_torch.training import inference_dtu
+    from view_neti_tpu_torch.training.coach import Coach
+
+    steps = DDP_WARM + DDP_STEPS
+    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    want_launches = {k: v * steps for k, v in per_step.items()}
+    cams = dtu.dtu_get_train_idxs(6)
+    with tempfile.TemporaryDirectory() as root:
+        rect, cal, _, _ = write_scan(root, image_io, dtu, np)
+        single = Coach(ddp_config(rect, os.path.join(root, "single")),
+                       calibration_dir=cal, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        single.train()
+        torch.cuda.synchronize()
+        ref = ddp_run_stats(single)
+        ref["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # NCCL at world size 1, through the same code
+        dp = dist.init_distributed(
+            store=torch.distributed.FileStore(os.path.join(root, "store1"),
+                                              1),
+            rank=0, world_size=1, timeout_s=DDP_TIMEOUT_S)
+        check(dp.backend == "nccl" and dp.active,
+              f"one rank with a card took {dp.backend}")
+        coach = Coach(ddp_config(rect, os.path.join(root, "nccl")),
+                      calibration_dir=cal, dist=dp)
+        launch_counts(reset=True)
+        coach.train()
+        torch.cuda.synchronize()
+        nccl_launches = launch_counts()
+        nccl = ddp_run_stats(coach)
+        dist.destroy(dp)
+        nccl_equal = (nccl["losses"] == ref["losses"] and all(
+            np.array_equal(v, ref["mappers"][k])
+            for k, v in nccl["mappers"].items())
+            and nccl["counts"] == ref["counts"])
+        del coach, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one process at the ranks' shapes: the reference they are held to
+        coach = Coach(ddp_config(rect, os.path.join(root, "chunked")),
+                      calibration_dir=cal, device=dev)
+        chunked = ddp_chunked_reference(torch, coach, DDP_WORLD)
+        del coach
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # DDP_WORLD ranks on the card(s)
+        t0 = time.perf_counter()
+        mp.start_processes(ddp_rank, args=(DDP_WORLD, root, rect, cal, cams),
+                           nprocs=DDP_WORLD, join=True,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        files = {name: sorted(os.listdir(os.path.join(root, name)))
+                 for name in ("single", "ranks")}
+        with open(os.path.join(root, "ranks", "logs", "log.txt")) as f:
+            log = f.read()
+
+        # one process renders the same checkpoint
+        single.cfg.log.exp_dir = os.path.join(root, "ranks")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = inference_dtu.render_cameras(
+            single, cams, steps, num_denoising_steps=DDP_DENOISE,
+            seeds=VAL_SEEDS, calibration_dir=cal, on_missing_ckpt="raise")
+        torch.cuda.synchronize()
+        single_sweep_s = time.perf_counter() - t0
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    main = ranks[0]
+    loss_rel, mapper_abs, outside = ddp_diff(main, chunked)
+    fused_loss_rel, fused_mapper_abs, fused_outside = ddp_diff(main, ref)
+    fused_step1 = abs(main["losses"][0] - ref["losses"][0]) / abs(
+        ref["losses"][0])
+    control_step1 = abs(chunked["control_loss"] - ref["losses"][0]) / abs(
+        ref["losses"][0])
+    preds = main["preds"]
+    sweep_equal = (preds is not None and list(preds) == list(cams) and all(
+        np.array_equal(preds[c], want[c]) for c in cams))
+    sweep_levels = (max(int(np.abs(preds[c].astype(int) - want[c]).max())
+                        for c in cams) if preds is not None else None)
+    shared = torch.cuda.device_count() < DDP_WORLD
+    reduce_ms = [x for r in ranks for x in r["reduce_ms"]]
+    stats = dict(
+        backend=main["backend"], world=DDP_WORLD,
+        ranks_share_one_card=main["shared_card"],
+        note=("the ranks share one card: the rate is not a scaling figure"
+              if main["shared_card"] else "one rank per card"),
+        batch=TRAIN_BATCH, rows_per_rank=TRAIN_BATCH // DDP_WORLD,
+        height=TRAIN_HEIGHT, width=TRAIN_WIDTH, warmup_steps=DDP_WARM,
+        timed_steps=DDP_STEPS,
+        imgs_per_sec=TRAIN_BATCH * 1e3 / main["ms_per_step"],
+        ms_per_step=main["ms_per_step"],
+        ms_per_step_by_rank=[r["ms_per_step"] for r in ranks],
+        one_process_ms_per_step=ref["ms_per_step"],
+        one_process_imgs_per_sec=TRAIN_BATCH * 1e3 / ref["ms_per_step"],
+        allreduce_ms_per_step=float(np.mean(reduce_ms)),
+        allreduce_ms_max=float(np.max(reduce_ms)),
+        allreduce_bytes=main["reduce_bytes"][0],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
+        one_process_peak_memory_gib=ref["peak_memory_gib"],
+        launches_per_step_by_rank=[{k: v / steps for k, v in
+                                    r["launches"].items()} for r in ranks],
+        max_loss_rel_diff=loss_rel, max_mapper_abs_diff=mapper_abs,
+        mapper_elements_outside_tolerance=outside,
+        mapper_elements=sum(v.size for v in ref["mappers"].values()),
+        fused_step1_loss_rel_diff=fused_step1,
+        fused_step1_limit=DDP_FUSED_STEP1_RTOL,
+        control_step1_loss_rel_diff=control_step1,
+        fused_max_loss_rel_diff=fused_loss_rel,
+        fused_max_mapper_abs_diff=fused_mapper_abs,
+        fused_mapper_elements_outside_tolerance=fused_outside,
+        losses=main["losses"], one_process_chunked_losses=chunked["losses"],
+        one_process_fused_losses=ref["losses"],
+        counts_equal=all(r["counts"] == chunked["counts"] == ref["counts"]
+                         for r in ranks),
+        nccl_world1_bit_equal=nccl_equal,
+        nccl_world1_ms_per_step=nccl["ms_per_step"],
+        sweep_cams=len(cams), sweep_denoising_steps=DDP_DENOISE,
+        sweep_s_split=main["sweep_s"], sweep_s_one_process=single_sweep_s,
+        sweep_bit_equal=sweep_equal, sweep_max_diff_levels=sweep_levels,
+        ranks_wall_s=ranks_s, checkpoint_files=files["ranks"])
+    print(f"ddp [{card}]: {json.dumps(stats)}", flush=True)
+    check(all(r["backend"] == ("gloo" if shared else "nccl")
+              and r["shared_card"] == shared for r in ranks),
+          f"ranks took {[r['backend'] for r in ranks]}")
+    check(nccl_launches == want_launches,
+          f"NCCL world-1 launches {nccl_launches}, want {want_launches}")
+    check(nccl_equal, "NCCL at world size 1 differs from one process")
+    for r in ranks:
+        check(r["launches"] == want_launches,
+              f"rank {r['rank']} launches {r['launches']}, want "
+              f"{want_launches}")
+        check(r["losses"] == main["losses"] and all(
+            np.array_equal(v, main["mappers"][k])
+            for k, v in r["mappers"].items()),
+              f"rank {r['rank']} ended with other losses or mappers")
+    check(len(main["losses"]) == steps
+          and all(math.isfinite(x) for x in main["losses"]),
+          f"ddp losses {main['losses']}")
+    check(loss_rel <= DDP_LOSS_RTOL,
+          f"ddp losses differ from one process at the ranks' shapes by "
+          f"{loss_rel} relative")
+    check(outside == 0, f"{outside} mapper elements differ from one process "
+                        f"at the ranks' shapes beyond rtol "
+                        f"{DDP_MAPPER_RTOL}, atol {DDP_MAPPER_ATOL} "
+                        f"(largest {mapper_abs})")
+    check(fused_step1 <= DDP_FUSED_STEP1_RTOL,
+          f"the ranks' first loss differs from the fused one-process run's "
+          f"by {fused_step1} relative, limit {DDP_FUSED_STEP1_RTOL}")
+    check(control_step1 > DDP_FUSED_STEP1_RTOL,
+          f"the planted fault (dropout rows shifted by one) moved the first "
+          f"loss by {control_step1} relative only: the limit "
+          f"{DDP_FUSED_STEP1_RTOL} would not catch it")
+    check(all(r["reduce_bytes"] == main["reduce_bytes"]
+              and len(r["reduce_bytes"]) == 1 for r in ranks),
+          f"the ranks sent {[r['reduce_bytes'] for r in ranks]} bytes")
+    check(stats["counts_equal"], "per-slice counts differ")
+    check(files["ranks"] == files["single"],
+          f"checkpoint files {files['ranks']}, one process "
+          f"{files['single']}")
+    check(log.count("***** Running training *****") == 1,
+          "more than rank 0 logged")
+    check(sweep_equal, f"the split sweep differs from one process by up to "
+                       f"{sweep_levels} levels")
+    return stats
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
@@ -2484,6 +2918,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     folders_launches, _ = phase_folders(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ddp(torch, dev, card)
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,

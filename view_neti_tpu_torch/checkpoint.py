@@ -47,8 +47,9 @@ class CheckpointHandler:
         self.placeholder_view_token_ids = placeholder_view_token_ids
         self.placeholder_object_tokens = placeholder_object_tokens
         self.placeholder_object_token_ids = placeholder_object_token_ids
+        # created by the first save: under data parallelism only rank 0
+        # saves, and the other ranks create nothing
         self.save_root = Path(save_root)
-        self.save_root.mkdir(parents=True, exist_ok=True)
 
     def save_learned_embeds(self, token_table: np.ndarray,
                             save_name: str) -> Path:
@@ -58,6 +59,7 @@ class CheckpointHandler:
                + self.placeholder_object_token_ids)
         payload = {t: np.asarray(token_table[i], np.float32)
                    for t, i in zip(tokens, ids)}
+        self.save_root.mkdir(parents=True, exist_ok=True)
         path = self.save_root / save_name
         path.write_bytes(msgpack_codec.packb(payload))
         return path
@@ -69,6 +71,7 @@ class CheckpointHandler:
         """Writes mapper-..._object.msgpack and/or _view.msgpack from the
         JAX-layout trainable tree {"object": bank, "view": params}."""
         cfg_enc = config_lib.encode(self.cfg)
+        self.save_root.mkdir(parents=True, exist_ok=True)
         paths = []
         if trainable.get("object") is not None:
             bank = trainable["object"]

@@ -6,10 +6,12 @@ reference's pyrallis surface), so a config written for one reads the same
 in the other. YAML goes through utils/yaml_subset.py, the port's own reader
 and writer, since the machine with the card has no PyYAML.
 
-A few fields steer machinery that only the TPU build has; the port accepts
-them, so every config of the JAX package decodes, and the Coach says in one
-log line that it ignores them: `parallel.*` (the port runs on one card) and
-`optim.steps_per_dispatch` (a TPU dispatch window). `log.checkpoint_backend:
+`parallel.*` steers data parallelism over torch.distributed
+(parallel/dist.py resolve): the port's counterpart of the JAX mesh's dp
+axis; its tp axis is not ported and raises under several ranks.
+`optim.steps_per_dispatch` (a TPU dispatch window) is accepted, so every
+config of the JAX package decodes, and the Coach says in one log line that
+it ignores it. `log.checkpoint_backend:
 orbax` asks for a resumable train state, which the port writes in its own
 format (train_state.py). `optim.fuse_conv: null` means: fuse the frozen VAE
 encode when the run is on the card.
@@ -211,8 +213,12 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """The JAX package's device mesh. Accepted so that its configs decode;
-    the port runs on one card and ignores these fields."""
+    """Data parallelism, the JAX package's device mesh (its fields and
+    defaults), read by parallel/dist.py resolve under a multi-rank launch:
+    use_mesh false refuses several ranks (None and true accept them); dp 0
+    is the world size, else it must equal it; tp > 1 and tensor_parallel
+    raise there (ROADMAP item 8b). One process ignores them, as a single
+    device does in the JAX Coach."""
     use_mesh: Optional[bool] = None
     dp: int = 0
     tp: int = 1

@@ -17,7 +17,9 @@ scan, and writes preds_iter_{it}-{token}_seed{i}.png and
 results_all_iter_{it}-{token}.msgpack; its results are keyed by token. As
 in the JAX script, the frozen SD stack is the seeded one the config builds:
 no SD_WEIGHTS_DIR is read. VIEW_NETI_TINY=1 swaps in the miniature stack;
-`main(argv, device="cpu")` runs on the CPU.
+`main(argv, device="cpu")` runs on the CPU. Under torchrun (or the
+VIEW_NETI_* variables of parallel/dist.py) each sweep's cameras are split
+over the ranks and rank 0 writes everything; the other ranks return None.
 """
 from __future__ import annotations
 
@@ -28,13 +30,14 @@ from typing import Dict, List, Optional
 from view_neti_tpu_torch.config import InferenceConfig, parse_cli
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> Dict:
+def main(argv: Optional[List[str]] = None, device=None) -> Optional[Dict]:
     infer_cfg = parse_cli(argv, cls=InferenceConfig)
     if infer_cfg.input_dir is None or infer_cfg.iteration is None:
         raise SystemExit("input_dir and iteration are required (set them "
                          "in the YAML or pass --input_dir / --iteration)")
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
-    from view_neti_tpu_torch.training import builder
+    from view_neti_tpu_torch.parallel import dist
+    from view_neti_tpu_torch.training import builder, inference_dtu
     from view_neti_tpu_torch.training.coach import Coach
     from view_neti_tpu_torch.training.validate import ValidationHandler
 
@@ -64,8 +67,16 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
         arch = builder.tiny_arch()
         cfg.model.word_embedding_dim = arch.text.hidden_size
 
+    dp = dist.init_distributed(device)
     coach = Coach(cfg, arch=arch, calibration_dir=infer_cfg.calibration_dir,
-                  device=device)
+                  dist=dp)
+    if dp.active and not dp.is_main:
+        failed = inference_dtu.serve_sweeps(coach)
+        coach.logger.close()
+        dist.destroy(dp)
+        if failed:
+            raise RuntimeError("the offline sweep failed on rank 0")
+        return None
     lpips_fn = None
     lpips_weights = (infer_cfg.lpips_weights
                      or os.environ.get("LPIPS_WEIGHTS"))
@@ -77,14 +88,25 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
                                   lpips_fn=lpips_fn)
     save_dir = Path(infer_cfg.inference_dir or input_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    if cfg.learnable_mode == 3:
-        tokens = (cfg.eval.eval_placeholder_object_tokens
-                  or coach.placeholder_object_tokens[:1])
-        results = {tok: _sweep(validator, coach, infer_cfg, save_dir,
-                               tag=f"-{tok}", token=tok) for tok in tokens}
-    else:
-        results = _sweep(validator, coach, infer_cfg, save_dir)
+    try:
+        if cfg.learnable_mode == 3:
+            tokens = (cfg.eval.eval_placeholder_object_tokens
+                      or coach.placeholder_object_tokens[:1])
+            results = {tok: _sweep(validator, coach, infer_cfg, save_dir,
+                                   tag=f"-{tok}", token=tok)
+                       for tok in tokens}
+        else:
+            results = _sweep(validator, coach, infer_cfg, save_dir)
+    except dist.CollectiveError:
+        raise
+    except Exception:
+        if dp.active:   # the other ranks end with rank 0's failure
+            inference_dtu.end_sweeps(coach, True)
+        raise
+    if dp.active:
+        inference_dtu.end_sweeps(coach, False)
     coach.logger.close()
+    dist.destroy(dp)
     return results
 
 

@@ -16,6 +16,17 @@ masks, LPIPS_WEIGHTS an .npz of LPIPS weights (else validation reports
 LPIPS as 0). VIEW_NETI_TINY=1 swaps in the miniature stack
 (builder.tiny_arch(), 16-pixel resolution, the 64x48 DTU preprocess) for
 smoke runs; it does not choose the CPU: `main(argv, device="cpu")` does.
+
+Data parallel, one process per rank (parallel/dist.py):
+
+    torchrun --standalone --nproc_per_node N -m view_neti_tpu_torch.train \
+        --config_path input_configs/train.yaml
+
+(or the JAX package's VIEW_NETI_COORDINATOR / VIEW_NETI_NUM_PROCESSES /
+VIEW_NETI_PROCESS_ID) computes what one process computes, up to the order
+of the gradient sum; N must divide the fused batch (9 in the shipped
+recipes: 1, 3 or 9 ranks). Ranks with a card each talk over NCCL, ranks
+sharing one card over gloo.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from view_neti_tpu_torch.config import parse_cli
+from view_neti_tpu_torch.parallel import dist
 from view_neti_tpu_torch.utils.misc import fixseed
 
 
@@ -45,7 +57,22 @@ def prepare_directories(cfg) -> None:
 def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, float]:
     cfg = parse_cli(argv)
     fixseed(cfg.seed)
-    prepare_directories(cfg)
+    dp = dist.init_distributed(device)
+    failure = None
+    if dp.is_main:
+        try:
+            prepare_directories(cfg)
+        except Exception as e:   # raised below, on every rank
+            failure = e
+    # rank 0's directory, or its error, which ends every rank
+    exp_dir, message = dist.broadcast_from_main(
+        dp, (cfg.log.exp_dir, None if failure is None else repr(failure)))
+    if message is not None:
+        dist.destroy(dp)
+        if failure is not None:
+            raise failure
+        raise RuntimeError(f"rank 0 could not prepare {exp_dir}: {message}")
+    cfg.log.exp_dir = exp_dir
     from view_neti_tpu_torch.training import builder
     from view_neti_tpu_torch.training.coach import Coach
     from view_neti_tpu_torch.training.validate import ValidationHandler
@@ -57,8 +84,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, float]:
         cfg.data.resolution = 16
         cfg.data.dtu_preprocess_key = -1
     coach = Coach(cfg, arch=arch, calibration_dir=calibration_dir,
-                  weights_dir=os.environ.get("SD_WEIGHTS_DIR"),
-                  device=device)
+                  weights_dir=os.environ.get("SD_WEIGHTS_DIR"), dist=dp)
     lpips_fn = None
     if os.environ.get("LPIPS_WEIGHTS"):
         from view_neti_tpu_torch.ops.metrics import make_lpips
@@ -67,7 +93,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, float]:
     coach.validator = ValidationHandler(
         cfg, masks_root=os.environ.get("DTU_MASKS_DIR"),
         calibration_dir=calibration_dir, lpips_fn=lpips_fn)
-    return coach.train()
+    result = coach.train()
+    dist.destroy(dp)
+    return result
 
 
 if __name__ == "__main__":

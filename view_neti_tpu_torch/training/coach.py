@@ -45,14 +45,25 @@ What it runs, as the JAX Coach runs it:
     failures abort the run;
   * the frozen SD stack from a diffusers-layout directory (weights_dir),
     loaded strictly unless VIEW_NETI_LAX_WEIGHTS is set, and a reference
-    torch view mapper (.pt) for modes 4/5 through torch_interop.
+    torch view mapper (.pt) for modes 4/5 through torch_interop;
+  * data parallel over torch.distributed (`dist`, a parallel/dist.py
+    record; the JAX Coach's mesh dp axis): every rank runs the same loader
+    and draws the whole fused batch's numbers, keeps its rows of both
+    before the copy to the card (the caches and resume keep global
+    indices), and one all-reduce a step averages the gradients and the
+    loss; only rank 0 logs and writes files, each write followed by a
+    barrier; every rank enters the validation cadence, rank 0 runs the
+    round and the others render their share of its DTU sweeps
+    (inference_dtu.serve_sweeps), and rank 0's verdict keeps the
+    consecutive-failure count equal on every rank.
 
 Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
-scan (make_multi_step), the device mesh, the XLA cost hook, the orbax
-format (train_state.py writes the port's own).
+scan (make_multi_step), the mesh's tp axis (ROADMAP item 8b), the XLA cost
+hook, the orbax format (train_state.py writes the port's own).
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -71,8 +82,9 @@ from view_neti_tpu_torch.data.dataset import (DataLoader,
                                               TextualInversionDataset)
 from view_neti_tpu_torch.data.loader import PrefetchLoader
 from view_neti_tpu_torch.ops import device_augment
+from view_neti_tpu_torch.parallel import dist as dist_lib
 from view_neti_tpu_torch.tokenizer import FallbackTokenizer, load_tokenizer
-from view_neti_tpu_torch.training import builder
+from view_neti_tpu_torch.training import builder, inference_dtu
 from view_neti_tpu_torch.training.logger import CoachLogger
 from view_neti_tpu_torch.training.optim import (SlicedAdamW,
                                                 make_lr_schedule,
@@ -103,15 +115,42 @@ class Coach:
     def __init__(self, cfg: RunConfig,
                  arch: Optional[builder.SDArch] = None,
                  calibration_dir: Optional[str] = None,
-                 weights_dir: Optional[str] = None, device=None):
-        self.device = resolve_device(device)
+                 weights_dir: Optional[str] = None, device=None,
+                 dist: Optional[dist_lib.DataParallel] = None):
+        # dist: the rank's record from dist_lib.init_distributed (its
+        # device wins over `device`); None runs one process
+        self.dist = (dist if dist is not None
+                     else dist_lib.DataParallel(device=resolve_device(device)))
+        self.device = self.dist.device
         self.cfg = cfg
-        self.logger = CoachLogger(cfg)
+        self.logger = CoachLogger(cfg, enabled=self.dist.is_main)
         if cfg.optim.seed is not None:
             fixseed(cfg.optim.seed)
+        o = cfg.optim
+        fused = o.fuse_accumulation and o.gradient_accumulation_steps > 1
+        # mode 3 fused: the batch is k groups of train_batch_size, each
+        # with its own scene (the reference's per-micro-batch scenes)
+        self.mode3_group_size = (o.train_batch_size
+                                 if fused and cfg.learnable_mode == 3
+                                 else None)
+        if fused:
+            self.micro_batch_size = (o.train_batch_size
+                                     * o.gradient_accumulation_steps)
+            self.accum_k = 1
+        else:
+            self.micro_batch_size = o.train_batch_size
+            self.accum_k = o.gradient_accumulation_steps
+        dist_lib.resolve(cfg.parallel, self.micro_batch_size,
+                         self.dist.world)
+        if self.dist.active:
+            self.logger.log_message(
+                f"data parallel: {self.dist.world} ranks over "
+                f"{self.dist.backend}"
+                f"{' sharing one card' if self.dist.shared_card else ''}, "
+                f"{self.micro_batch_size // self.dist.world} of the "
+                f"{self.micro_batch_size} rows a step each")
         self.logger.log_message(
-            "TPU-only settings are ignored: parallel.*, "
-            "optim.steps_per_dispatch")
+            "TPU-only settings are ignored: optim.steps_per_dispatch")
         mp = cfg.optim.mixed_precision
         if mp is False:  # YAML 1.1 reads a bare `no` as False
             mp = "no"
@@ -164,7 +203,6 @@ class Coach:
             builder.fuse_vae_for_training(self.built.vae)
 
         # ---- optimizer ---------------------------------------------------
-        o = cfg.optim
         lr = scaled_learning_rate(o.learning_rate, o.scale_lr,
                                   o.train_batch_size,
                                   o.gradient_accumulation_steps,
@@ -179,19 +217,6 @@ class Coach:
             builder.trainable_groups(self.built), self.lr_schedule,
             o.adam_beta1, o.adam_beta2, o.adam_epsilon, o.adam_weight_decay,
             frozen_keys=trainable_mask_keys(cfg.learnable_mode)[1])
-        fused = o.fuse_accumulation and o.gradient_accumulation_steps > 1
-        # mode 3 fused: the batch is k groups of train_batch_size, each
-        # with its own scene (the reference's per-micro-batch scenes)
-        self.mode3_group_size = (o.train_batch_size
-                                 if fused and cfg.learnable_mode == 3
-                                 else None)
-        if fused:
-            self.micro_batch_size = (o.train_batch_size
-                                     * o.gradient_accumulation_steps)
-            self.accum_k = 1
-        else:
-            self.micro_batch_size = o.train_batch_size
-            self.accum_k = o.gradient_accumulation_steps
 
         # ---- caches on the card and the augmentation ---------------------
         ds = self.train_dataset
@@ -213,7 +238,10 @@ class Coach:
             self.optimizer, compute_dtype=self.compute_dtype,
             from_moments=self.cache_latents, augment=self.augment_spec,
             cache_pixels=self.use_pixel_cache,
-            accumulation_steps=self.accum_k)
+            accumulation_steps=self.accum_k,
+            reduce=(functools.partial(dist_lib.all_reduce_step_, self.dist,
+                                      self.optimizer)
+                    if self.dist.active else None))
 
         self.checkpoint_handler = CheckpointHandler(
             cfg=cfg,
@@ -348,7 +376,9 @@ class Coach:
                               * cfg.optim.gradient_accumulation_steps),
             num_samples=len(ds))
         if cfg.log.save_dataset_images:
-            self.save_dataset_images()
+            if self.dist.is_main:
+                self.save_dataset_images()
+            dist_lib.barrier(self.dist)
         if len(ds) < self.micro_batch_size:
             raise ValueError(
                 f"dataset yields {len(ds)} examples (num_images x repeats) "
@@ -436,22 +466,38 @@ class Coach:
         (an I/O error late in a long run must not end it), but
         eval.max_validation_failures consecutive failures abort, so that a
         systematic error (a wrong masks directory, a missing calibration)
-        does not reduce a run's evaluation to log lines."""
-        try:
-            self.validator.infer(coach=self, step=self.global_step)
+        does not reduce a run's evaluation to log lines. Under data
+        parallelism rank 0 runs the round and the other ranks render their
+        share of its sweeps until it ends the round with its verdict, so
+        every rank counts the same failures; a failed collective is never
+        a validation failure: it ends the run."""
+        error = None
+        if self.dist.active and not self.dist.is_main:
+            failed = inference_dtu.serve_sweeps(self)
+        else:
+            try:
+                self.validator.infer(coach=self, step=self.global_step)
+            except dist_lib.CollectiveError:
+                raise
+            except Exception as e:
+                error = e
+                self.logger.log_message(traceback.format_exc())
+            failed = error is not None
+            if self.dist.active:
+                inference_dtu.end_sweeps(self, failed)
+        if not failed:
             self._val_failures = 0
-        except Exception as e:
-            self._val_failures += 1
-            limit = self.cfg.eval.max_validation_failures
-            self.logger.log_message(
-                f"WARNING: validation at step {self.global_step} failed "
-                f"({e!r}); {self._val_failures}/{limit} consecutive\n"
-                + traceback.format_exc())
-            if self._val_failures >= limit:
-                raise RuntimeError(
-                    f"{limit} consecutive validation failures: aborting so "
-                    "that a systematic eval error is not swallowed (raise "
-                    "eval.max_validation_failures to allow more)") from e
+            return
+        self._val_failures += 1
+        limit = self.cfg.eval.max_validation_failures
+        self.logger.log_message(
+            f"WARNING: validation at step {self.global_step} failed "
+            f"({error!r}); {self._val_failures}/{limit} consecutive")
+        if self._val_failures >= limit:
+            raise RuntimeError(
+                f"{limit} consecutive validation failures: aborting so "
+                "that a systematic eval error is not swallowed (raise "
+                "eval.max_validation_failures to allow more)") from error
 
     def infer_frozen(self):
         """(unet, vae) for the inference paths: the VAE's decoder sections
@@ -507,10 +553,15 @@ class Coach:
         return value
 
     def _step_draws(self, micro_step: int, batch: TrainBatch):
+        """The micro-step's draws: the whole fused batch's, of which a rank
+        keeps its rows."""
         self._generator.manual_seed(step_seed(self._base_seed, micro_step))
-        return sample_step_draws(self._generator, self.built, batch,
-                                 from_moments=self.cache_latents,
-                                 augment=self.augment_spec)
+        draws = sample_step_draws(self._generator, self.built, batch,
+                                  from_moments=self.cache_latents,
+                                  augment=self.augment_spec,
+                                  batch_size=self.micro_batch_size)
+        return dist_lib.shard_draws(draws, self.dist, self.micro_batch_size,
+                                    self.mode3_group_size)
 
     def _pack(self, batch_np) -> Dict:
         """A collated host batch as torch tensors: the token ids, the two
@@ -525,13 +576,19 @@ class Coach:
                                "input_ids_placeholder_view", "image_idxs")],
             axis=1)
         obj = np.asarray(batch_np["object_idx"])
+        pixels = (None if self.use_pixel_cache
+                  else np.ascontiguousarray(batch_np["pixel_values"]))
+        if self.dist.active:   # the rank's rows, before the copy
+            ints = dist_lib.shard_rows(ints, self.dist)
+            obj = dist_lib.shard_object_idx(obj, self.dist, len(ids))
+            if pixels is not None:
+                pixels = dist_lib.shard_rows(pixels, self.dist)
         host = {"ints": torch.from_numpy(ints), "pixels": None,
                 "length": ids.shape[1],
                 "object_idx": (int(obj) if obj.ndim == 0 else
                                torch.from_numpy(obj.astype(np.int64)))}
-        if not self.use_pixel_cache:
-            host["pixels"] = torch.from_numpy(
-                np.ascontiguousarray(batch_np["pixel_values"]))
+        if pixels is not None:
+            host["pixels"] = torch.from_numpy(pixels)
         if self.device.type == "cuda":
             for key in ("ints", "pixels"):
                 if host[key] is not None:
@@ -609,6 +666,13 @@ class Coach:
             if text.view_mapper is not None else None)
 
     def _save(self, embeds_name: str, mapper_name: str) -> None:
+        """Rank 0 writes the checkpoint (and the train state, and prunes);
+        every rank then waits for it."""
+        if self.dist.is_main:
+            self._write_checkpoint(embeds_name, mapper_name)
+        dist_lib.barrier(self.dist)
+
+    def _write_checkpoint(self, embeds_name: str, mapper_name: str) -> None:
         trainable, obj_c, view_c = self.jax_trainable()
         table = self.built.text.clip.text_model.embeddings.token_embedding
         self.checkpoint_handler.save_model(

@@ -13,12 +13,21 @@ Without PIL or matplotlib: images are read and resized through
 data/image_io (PIL's bicubic resampling, bit for bit), and each seed's
 result sheet is its grid, written as a PNG, with the sheet's title and
 per-view labels in the log.
+
+Under data parallelism (the counterpart of the JAX package's dp-sharded
+denoise batch) rank 0 runs the validation round or the offline sweep; each
+sweep's cameras are split over the ranks (dist.split_items), every rank
+renders its own at the view batch it uses alone, so each image is the one
+the one-process sweep computes, and the uint8 images come to rank 0
+(dist.gather_to_main). The other ranks wait in serve_sweeps for each
+sweep's request until rank 0 ends the round (end_sweeps).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import os
+import traceback
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +44,7 @@ from view_neti_tpu_torch.inference.pipeline import (encode_uncond,
                                                     make_denoise_fn)
 from view_neti_tpu_torch.inference.prompt_manager import PromptManager
 from view_neti_tpu_torch.ops import metrics as metrics_ops
+from view_neti_tpu_torch.parallel import dist
 from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.utils.device import resolve_device
 from view_neti_tpu_torch.utils.vis import make_grid_np, to_uint8
@@ -253,15 +263,70 @@ def _reloaded(live, entry):
     return mapper.requires_grad_(False)
 
 
+def dtu_generate_camidxs_to_preds(coach, cam_idxs: Sequence[int],
+                                  step: int, **kwargs
+                                  ) -> Optional[Dict[int, np.ndarray]]:
+    """{camera: (n_seeds, H, W, 3) uint8} for every camera of cam_idxs
+    (render_cameras' arguments). Under data parallelism it runs on rank 0
+    and splits the cameras over the ranks, which serve_sweeps holds ready;
+    the images come back to rank 0."""
+    if not coach.dist.active:
+        return render_cameras(coach, cam_idxs, step, **kwargs)
+    request = dict(kwargs, cam_idxs=list(cam_idxs), step=step)
+    dist.broadcast_from_main(coach.dist, request)
+    return _render_share(coach, request)
+
+
+def _render_share(coach, request: Dict) -> Optional[Dict[int, np.ndarray]]:
+    """The rank's share of a split sweep, gathered on rank 0 in camera
+    order. A rank's failure to render travels with the gather and raises on
+    rank 0, so that the ranks never part at a collective."""
+    dp = coach.dist
+    kwargs = dict(request)
+    cams = kwargs.pop("cam_idxs")
+    share = dist.split_items(cams, dp.rank, dp.world)
+    try:
+        part, error = render_cameras(coach, share, **kwargs), None
+    except Exception as e:   # sent to rank 0, which raises
+        part, error = None, f"rank {dp.rank}: {e!r}\n{traceback.format_exc()}"
+    parts = dist.gather_to_main(dp, (part, error))
+    if parts is None:
+        return None
+    errors = [e for _, e in parts if e is not None]
+    if errors:
+        raise RuntimeError("split DTU sweep failed:\n" + "\n".join(errors))
+    merged = {}
+    for p, _ in parts:
+        merged.update(p)
+    return {c: merged[c] for c in cams}
+
+
+def serve_sweeps(coach) -> bool:
+    """A rank other than 0 during rank 0's validation round or offline
+    run: render its share of each sweep that rank 0 requests until rank 0
+    ends the round; returns rank 0's verdict, whether the round failed."""
+    while True:
+        request = dist.broadcast_from_main(coach.dist)
+        if "failed" in request:
+            return request["failed"]
+        _render_share(coach, request)
+
+
+def end_sweeps(coach, failed: bool) -> None:
+    """Rank 0 ends the round that serve_sweeps waits on."""
+    dist.broadcast_from_main(coach.dist, {"failed": bool(failed)})
+
+
 @torch.no_grad()
-def dtu_generate_camidxs_to_preds(
+def render_cameras(
         coach, cam_idxs: Sequence[int], step: int,
         num_denoising_steps: int = 30, seeds: Sequence[int] = (0, 1),
         eval_placeholder_object_token: Optional[str] = None,
         guidance_scale: float = 7.5,
         calibration_dir: Optional[str] = None,
         on_missing_ckpt: str = "warn") -> Dict[int, np.ndarray]:
-    """{camera: (n_seeds, H, W, 3) uint8} for every camera of cam_idxs.
+    """{camera: (n_seeds, H, W, 3) uint8} for every camera of cam_idxs, on
+    this process.
 
     The mappers come from the step's checkpoint files
     (mapper-steps-{step}_{view,object}.msgpack), the view vocabulary is

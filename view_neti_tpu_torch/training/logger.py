@@ -4,7 +4,8 @@ trackers (view_neti_tpu/training/logger.py:17-114).
 Messages go to stdout and to <exp_dir>/logs/log.txt; the run's config is
 written to <exp_dir>/config.yaml. Metrics go to tensorboard through
 torch.utils.tensorboard where it imports, and to wandb where that package
-exists, as log.report_to asks.
+exists, as log.report_to asks. Under data parallelism only rank 0 logs: the
+other ranks' loggers (enabled=False) print nothing and open no file.
 """
 from __future__ import annotations
 
@@ -19,25 +20,29 @@ from view_neti_tpu_torch import config as config_lib
 
 
 class CoachLogger:
-    def __init__(self, cfg, name: str = "view_neti_tpu_torch"):
+    def __init__(self, cfg, name: str = "view_neti_tpu_torch",
+                 enabled: bool = True):
         self.cfg = cfg
         self.exp_dir = Path(cfg.log.exp_dir)
-        log_dir = self.exp_dir / "logs"
-        log_dir.mkdir(parents=True, exist_ok=True)
         self.logger = logging.getLogger(name)
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False
         for h in list(self.logger.handlers):
             h.close()
             self.logger.removeHandler(h)
+        self.step = 0
+        self._writer = None
+        self._wandb = None
+        if not enabled:
+            self.logger.addHandler(logging.NullHandler())
+            return
+        log_dir = self.exp_dir / "logs"
+        log_dir.mkdir(parents=True, exist_ok=True)
         fmt = logging.Formatter("%(asctime)s | %(levelname)s | %(message)s")
         for h in (logging.StreamHandler(sys.stdout),
                   logging.FileHandler(log_dir / "log.txt")):
             h.setFormatter(fmt)
             self.logger.addHandler(h)
-        self.step = 0
-        self._writer = None
-        self._wandb = None
         config_lib.dump_config(cfg, self.exp_dir / "config.yaml")
         if cfg.log.report_to in ("tensorboard", "all"):
             try:

@@ -14,7 +14,11 @@ object bank):
     for the stacked "object" key), as `sliced_adamw` evaluates it; torch's
     per-parameter step count gives each slice its own bias correction;
   * frozen keys (the mode-5 view mapper, the mode-1 object mapper) stay out
-    of the optimizer.
+    of the optimizer;
+  * under data parallelism the ranks average the gradients before `step()`
+    (parallel/dist.py, over `gradients()`), so every rank decides each
+    slice's activity from the same reduced gradients and keeps the same
+    counts.
 """
 from __future__ import annotations
 
@@ -52,6 +56,20 @@ class SlicedAdamW:
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+
+    def gradients(self) -> List[torch.Tensor]:
+        """Every trainable parameter's gradient in the optimizer's order,
+        a zero tensor set where one has none: the buffer the ranks average.
+        The zeros change nothing: a slice whose gradients are all zero
+        stays inactive in step(), and an active slice's unused leaf takes
+        a zero gradient there anyway."""
+        out = []
+        for g in self.optimizer.param_groups:
+            for p in g["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                out.append(p.grad)
+        return out
 
     @torch.no_grad()
     def step(self) -> None:

@@ -12,6 +12,10 @@ nested-dropout draws.
 Mode 3's fused batch is G contiguous groups of B / G prompts, each with
 its own scene's object mapper: the object mappers run G small passes,
 each over its group's rows of every layer, and the CLIP pass stays one.
+Under data parallelism a rank's rows may hold part of a group or straddle
+two; parallel/dist.py (shard_object_idx, shard_draws) hands the rank equal
+groups again (its runs inside each group, or one group per row), so every
+row is still conditioned on its own group's object mapper.
 """
 from __future__ import annotations
 

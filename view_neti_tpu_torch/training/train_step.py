@@ -103,13 +103,20 @@ def latent_shape(models, batch: TrainBatch, from_moments: bool = False
 
 def sample_step_draws(generator: torch.Generator, models, batch: TrainBatch,
                       from_moments: bool = False,
-                      augment: Optional[AugmentSpec] = None) -> StepDraws:
+                      augment: Optional[AugmentSpec] = None,
+                      batch_size: Optional[int] = None) -> StepDraws:
     """Draw a step's random numbers on the generator's device: normals for
     the posterior sample and the noise, uniform integer timesteps,
     nested-dropout draws for every mapper that uses it, and with `augment`
-    the augmentation's draws. Nothing is read back to the host."""
+    the augmentation's draws. Nothing is read back to the host.
+    batch_size: the whole fused batch's, where `batch` holds one rank's
+    rows of it; the draws are the whole batch's (parallel/dist.py
+    shard_draws keeps the rank's), so that a row's numbers do not depend on
+    the number of ranks."""
     device = generator.device
     shape = latent_shape(models, batch, from_moments)
+    if batch_size is not None:
+        shape = (batch_size,) + shape[1:]
     B = shape[0]
     vae_eps = torch.randn(shape, generator=generator, device=device)
     noise = torch.randn(shape, generator=generator, device=device)
@@ -185,7 +192,9 @@ def make_train_step(optimizer: SlicedAdamW,
                     from_moments: bool = False,
                     augment: Optional[AugmentSpec] = None,
                     cache_pixels: bool = False,
-                    accumulation_steps: int = 1) -> Callable:
+                    accumulation_steps: int = 1,
+                    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                    = None) -> Callable:
     """Build the train step around `optimizer` (training/optim.py).
 
     from_moments: batch.pixel_values holds VAE posterior moments (the
@@ -197,6 +206,10 @@ def make_train_step(optimizer: SlicedAdamW,
     accumulation_steps k > 1: each call is one micro-batch; the gradients
     of k calls accumulate, each scaled by 1/k, and every k-th call steps
     the optimizer once on their mean (optax.MultiSteps in the JAX package).
+    reduce: under data parallelism, called with the step's loss between the
+    backward and the optimizer step (on every k-th call): it averages the
+    mappers' gradients over the ranks and returns the mean loss, which the
+    step returns (parallel/dist.py all_reduce_step_).
 
     Returns step(models, batch, draws) -> {"total_loss": fp32 scalar}, with
     models the builder's BuiltModels (text, unet, vae, schedule,
@@ -220,8 +233,11 @@ def make_train_step(optimizer: SlicedAdamW,
         (loss / accumulation_steps if accumulation_steps > 1
          else loss).backward()
         micro[0] = (micro[0] + 1) % accumulation_steps
+        loss = loss.detach()
         if micro[0] == 0:
+            if reduce is not None:
+                loss = reduce(loss)
             optimizer.step()
-        return {"total_loss": loss.detach()}
+        return {"total_loss": loss}
 
     return step

@@ -14,7 +14,10 @@
 
 Sheets are PNGs written by data/image_io, their captions in the log; the
 DTU sweeps reload the step's mapper files, the other renders use the live
-mappers.
+mappers. Under data parallelism the handler runs on rank 0 alone: the DTU
+sweeps of infer_dtu, infer_mode3 and infer_t2i_generalization split their
+cameras over the ranks (inference_dtu.dtu_generate_camidxs_to_preds), and
+the metrics, sheets and bundles stay on rank 0.
 """
 from __future__ import annotations
 
