@@ -67,7 +67,26 @@ Phases; any failure ends the run with a non-zero exit:
                 weights_dir; every PortReport clean, every parameter equal
                 to the written one, one UNet forward bit-equal; prints the
                 GB read, the load seconds and the peak memory;
-  8. validate -- the shipped mode-2 recipe with validation on: 34
+  8. acceptance -- python -m view_neti_tpu_torch.acceptance on that stack
+                (deleted after this phase) and the validate phase's
+                34-camera scan with IDR masks:
+                the stack's sha256 manifest written and checked clean by
+                the port's weight_port, a byte of a file added to it
+                changed and named by the check, then restored; the run
+                with SD_WEIGHTS_DIR and DTU_MASKS_DIR set, 4 steps of the
+                mode-2 recipe at full width (preset 7, DTU preprocess 1,
+                fused batch 9, bf16) and the 34-view sweep of its
+                checkpoint (its default seeds 0 1 2, 5 steps, random-VGG
+                LPIPS; B = 6 and 3-image decodes, the serving shapes):
+                acceptance.json's key set, finite metrics, not labelled
+                meaningful, K1-K4's launches; python -m
+                view_neti_tpu_torch.inference on that run with
+                SD_WEIGHTS_DIR set equals the sweep's first two cameras
+                bit for bit, and unset (the control) differs; prints the
+                train and eval wall seconds, the cache fill, the sweep's
+                sec/image, the metrics, the manifest's GB/s and the
+                launches;
+  9. validate -- the shipped mode-2 recipe with validation on: 34
                 synthetic 1600x1200 DTU scans with IDR masks from
                 RandomState(0), the Coach (DTU preprocess 1, preset 7,
                 bf16) trains 3 steps and validates once after its step-2
@@ -78,13 +97,13 @@ Phases; any failure ends the run with a non-zero exit:
                 and sec/image, the metric means, peak memory, and the
                 launches and idle share of one CFG denoise step at the
                 sweep's shapes; checks K1-K4's launches;
-  9. inference -- python -m view_neti_tpu_torch.inference on that run with
+ 10. inference -- python -m view_neti_tpu_torch.inference on that run with
                 --debug 1: its predictions equal the sweep's for the first
                 two cameras bit for bit; then python -m
                 view_neti_tpu_torch.summarize_dtu on the sweep's bundle:
                 its per-seed means equal the sweep's per-view means to
                 1e-6;
- 10. mode3  -- mode-3 multi-scene pretraining on its shipped recipe
+ 11. mode3  -- mode-3 multi-scene pretraining on its shipped recipe
                 (input_configs/train_m3.yaml): SD-2.1 at full width
                 (v-prediction, the 23-layer 1024-wide GELU CLIP, linear
                 projections, head dim 64) with seeded weights, four
@@ -108,7 +127,7 @@ Phases; any failure ends the run with a non-zero exit:
                 launches per step, each token's sweep, and the launches and
                 idle share of one grouped step and of one CFG denoise step
                 at SD-2.1;
- 11. folders -- training on other datasets' folders at 512x512, SD-1.5 at
+ 12. folders -- training on other datasets' folders at 512x512, SD-1.5 at
                 full width with seeded bf16 weights and fp32 mappers: the
                 mode-0 recipe (input_configs/train_mode0.yaml: fused B = 9,
                 the flip on the card, arch 15, nested dropout, bypass 0.2)
@@ -134,7 +153,7 @@ Phases; any failure ends the run with a non-zero exit:
                 fixture and of the llff 8-bit PNGs, the host augmentation's
                 ms per example and its
                 share of a step, and the export and import seconds;
- 12. ddp    -- data parallel over torch.distributed
+ 13. ddp    -- data parallel over torch.distributed
                 (view_neti_tpu_torch/parallel/dist.py): the coach phase's
                 recipe (fused B = 9 at 384x512, preset 7 on the base
                 cache, SD-1.5 at full width, bf16) for 2 warm-up and 4
@@ -151,14 +170,19 @@ Phases; any failure ends the run with a non-zero exit:
                 row's dropout draws shifted by one row) must exceed, the
                 same per-slice counts, every rank's K1-K4 launches a step
                 equal to the coach phase's, one all-gather of one size a
-                step, one set of checkpoint files; the six scan cameras of
+                step, one set of checkpoint files; a debug validation
+                round after the last step's checkpoint in the one-process
+                run and in the ranks (the first 2 eval cameras, seeds
+                [0, 1], 5 steps; its sweep split over the ranks): the
+                ranks' predictions equal one process's round on their
+                checkpoint bit for bit; the six scan cameras of
                 the last checkpoint rendered split over the ranks (seeds
                 [0, 1], 5 DPM-Solver++ steps, CFG 7.5) equal one process's
                 render bit for bit; prints imgs/sec and ms/step of the ranks
                 beside one process's, the all-reduce's ms a step and
                 bytes, each rank's peak memory and the largest loss and
                 mapper differences;
- 13. report  -- one JSON line of per-kernel results, then the result line.
+ 14. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -171,6 +195,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,6 +216,16 @@ VAL_TRAIN_STEPS = 3      # the validate phase's Coach steps ...
 VAL_EVERY = 2            # ... with a checkpoint and a validation at step 2
 EVAL_CAMS = 34           # the DTU eval cameras of inference_dtu.get_cam_idxs
 INFER_CAMS = 2           # offline inference with --debug 1
+# the acceptance phase: python -m view_neti_tpu_torch.acceptance on the eval
+# scan and the weights phase's stack, cut for time to ACC_STEPS steps and
+# ACC_DENOISE denoising steps; its default seeds, so that its sweep runs at
+# the serving shapes (B = 6 at 72x96 latents, decodes of 3 images)
+ACC_STEPS = 4
+ACC_DENOISE = 5
+ACC_SEEDS = [0, 1, 2]
+ACC_KEYS = {"metrics", "assets", "manifest", "all_assets_real",
+            "meaningful_for_quality", "train_wall_s", "eval_wall_s",
+            "steps", "seeds", "denoise_steps", "acceptance"}
 # the mode3 phase: input_configs/train_m3.yaml, its four scans and three
 # eval tokens; cut for time: the sweeps to the first 4 eval cameras
 M3_CONFIG = os.path.join("input_configs", "train_m3.yaml")
@@ -417,11 +452,13 @@ def attention_shapes(serve_steps: int):
     SD-1.5 has 8 heads and 5 transformer blocks on each of its three
     attention levels (2 down, 3 up) plus 1 in the mid block; each block
     runs a self- and a cross-attention (Lk = 77). Serving: B = 6 (3 seeds x
-    CFG) at 72x96 latents. The DTU sweep (validate, inference; and the
-    weights phase's two UNet forwards): B = 4 (2 seeds x CFG) at 72x96, 30
-    steps a camera. The object-token renders of a validation round: B = 4
-    at 64x64 latents (512x512). Training (the train step and the validate
-    phase's Coach steps): B = 9 at 48x64 latents; the first
+    CFG) at 72x96 latents; the acceptance phase's sweep too (its default 3
+    seeds, ACC_DENOISE steps a camera). The DTU sweep (validate,
+    inference; and the weights phase's two UNet forwards): B = 4 (2 seeds
+    x CFG) at 72x96, 30 steps a camera. The object-token renders of a
+    validation round: B = 4 at 64x64 latents (512x512). Training (the
+    train step and the validate and acceptance phases' Coach steps): B = 9
+    at 48x64 latents; the first
     self-attention's inputs need no gradient (no backward) and the first
     cross-attention's q needs none (K3 only), so a step runs K2 30 times
     and K3 31 times. SD-2.1 (the mode3 phase) has the same blocks with a
@@ -457,7 +494,9 @@ def attention_shapes(serve_steps: int):
             for Lk in (L, 77):
                 first = kind.endswith("train") and level == 0
                 if kind == "serve":
-                    per_run = {"K1": {"serve": n * serve_steps}}
+                    per_run = {"K1": {
+                        "serve": n * serve_steps,
+                        "acceptance": n * ACC_DENOISE * EVAL_CAMS}}
                 elif kind == "sweep":
                     per_run = {"K1": {
                         "validate": n * VAL_DENOISE * EVAL_CAMS,
@@ -476,7 +515,8 @@ def attention_shapes(serve_steps: int):
                     paths = ({"mode3": m3_steps} if kind == "m3 train" else
                              {"folders": folders_steps}
                              if kind == "folders train" else
-                             {"train": 1, "validate": VAL_TRAIN_STEPS})
+                             {"train": 1, "validate": VAL_TRAIN_STEPS,
+                              "acceptance": ACC_STEPS})
                     per_run = {
                         key: {p: m * k for p, k in paths.items()}
                         for key, m in (("K1", n), ("K2", n - first),
@@ -618,12 +658,13 @@ def k4_shapes():
     """Every norm->SiLU->conv3x3 section of the VAE decoder (29 per decode)
     and of its encoder (21 per train step): (B, H, W, Cin, Cout, residual,
     {path: launches per run}). conv1 of each ResNet block has no residual,
-    conv2 adds it. Decodes: serving B = 3 from 72x96 latents; the DTU sweep
+    conv2 adds it. Decodes: serving B = 3 from 72x96 latents, and the
+    acceptance phase's sweep (3 seeds) once a camera; the DTU sweep
     B = 2 (one camera's seeds) from 72x96, once a camera; the object
     renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
-    step and in the validate phase's Coach steps. SD-2.1's VAE is SD-1.5's,
-    so the mode3 phase runs the same shapes: its train steps, a decode per
-    camera of its sweeps and one per token's render. The folders phase
+    step and in the validate and acceptance phases' Coach steps. SD-2.1's
+    VAE is SD-1.5's, so the mode3 phase runs the same shapes: its train
+    steps, a decode per camera of its sweeps and one per token's render. The folders phase
     encodes B = 9 at 512x512 every step and decodes its renders at the
     render shapes."""
     def decoder(D, h, w, per):
@@ -641,12 +682,13 @@ def k4_shapes():
 
     def train(n):
         return {"train": n, "validate": n * VAL_TRAIN_STEPS,
-                "mode3": n * m3_steps}
+                "mode3": n * m3_steps, "acceptance": n * ACC_STEPS}
 
     def folders(n):
         return {"folders": n * folders_steps}
 
-    return (decoder(BATCH // 2, 72, 96, lambda n: {"serve": n})
+    return (decoder(BATCH // 2, 72, 96, lambda n: {
+                "serve": n, "acceptance": n * EVAL_CAMS})
             + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
                 "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
                 "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
@@ -1292,11 +1334,11 @@ def phase_weights(torch, dev, card, rect, cal):
     """SD-1.5 read from disk: a seeded stack (seed 1) written in the
     diffusers layout (unet/, vae/, text_encoder/; the CLIP table without
     its headroom rows) by the port's safetensors writer, in the dtypes the
-    stack holds, under build/; a Coach (seed 0) given weights_dir. Every
+    stack holds, under build/ (returned; main deletes it after the
+    acceptance phase); a Coach (seed 0) given weights_dir. Every
     PortReport clean, every loaded parameter equal to the written one,
     the placeholders' rows the loaded super-category rows, and one UNet
     forward of the loaded stack bit-equal to the written stack's."""
-    import shutil
     from view_neti_tpu_torch.config import ModelConfig, RunConfig
     from view_neti_tpu_torch.tokenizer import FallbackTokenizer
     from view_neti_tpu_torch.training import builder
@@ -1394,7 +1436,162 @@ def phase_weights(torch, dev, card, rect, cal):
                  unet_forward_bit_equal=True, launches=launches)
     print(f"weights [{card}]: {json.dumps(stats)}", flush=True)
     del coach, built, mem, out_loaded, out_mem
-    shutil.rmtree(root)
+    return launches, root
+
+
+def phase_acceptance(torch, dev, card, root, weights, cal, masks_root):
+    """python -m view_neti_tpu_torch.acceptance on the eval scan under root
+    (34 cameras, IDR masks) and the weights phase's seeded SD-1.5 stack:
+    first the stack's sha256 manifest (weight_port.write_manifest), clean
+    on a check, and a small file added to the stack and to the manifest,
+    one byte of it changed, named by check_manifest, and restored; then the
+    run with SD_WEIGHTS_DIR and DTU_MASKS_DIR set (its manifest checked
+    before training), --steps ACC_STEPS --denoise_steps ACC_DENOISE and
+    the default seeds (ACC_SEEDS): the mode-2 recipe at full width (preset
+    7, DTU preprocess 1, fused batch 9, bf16) and the 34-view sweep of its
+    checkpoint with a random-VGG LPIPS; acceptance.json's keys, finite
+    metrics, the launches of K1-K4. Then python -m
+    view_neti_tpu_torch.inference on that run (--debug 1, the same seeds
+    and steps) with SD_WEIGHTS_DIR set: bit-equal to the sweep's first two
+    cameras; and unset (the control): it renders the seeded stack and must
+    differ."""
+    import numpy as np
+    from view_neti_tpu_torch import acceptance
+    from view_neti_tpu_torch.inference import offline
+    from view_neti_tpu_torch.weight_port import check_manifest, write_manifest
+
+    manifest = os.path.join(weights, "MANIFEST.sha256")
+    t0 = time.perf_counter()
+    n_files = write_manifest(weights, manifest)
+    write_s = time.perf_counter() - t0
+    with open(manifest) as f:
+        nbytes = sum(int(line.split()[1]) for line in f if line.strip())
+    t0 = time.perf_counter()
+    problems = check_manifest(weights, manifest)
+    check_s = time.perf_counter() - t0
+    check(problems == [], f"the fresh manifest does not check: {problems}")
+    probe = os.path.join(weights, "probe.bin")
+    with open(probe, "wb") as f:
+        f.write(bytes(range(256)) * 16)
+    write_manifest(weights, manifest)
+    with open(probe, "r+b") as f:
+        f.seek(1000)
+        byte = f.read(1)
+        f.seek(1000)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    tampered = check_manifest(weights, manifest)
+    with open(probe, "r+b") as f:   # restored: the run checks it clean
+        f.seek(1000)
+        f.write(byte)
+    check(tampered == ["sha256 mismatch: probe.bin"],
+          f"check_manifest on a changed byte of probe.bin: {tampered}")
+
+    out = os.path.join(root, "acceptance")
+    env = {"SD_WEIGHTS_DIR": weights, "DTU_MASKS_DIR": masks_root,
+           "WEIGHTS_MANIFEST": None, "TOKENIZER_PATH": None,
+           "LPIPS_WEIGHTS": None}
+    saved = {k: os.environ.get(k) for k in env}
+
+    def set_env(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    set_env(env)
+    try:
+        # the counted run: the user's entry point, counts from 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        payload, res = acceptance.main([
+            "--dtu_root", os.path.join(root, "dtu"), "--out", out,
+            "--steps", str(ACC_STEPS), "--denoise_steps", str(ACC_DENOISE)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        infer_argv = [
+            "--input_dir", os.path.join(out, "run"), "--iteration",
+            str(ACC_STEPS), "--seeds", json.dumps(ACC_SEEDS),
+            "--num_denoising_steps",
+            str(ACC_DENOISE), "--debug", "1", "--torch_dtype", "bf16",
+            "--calibration_dir", cal, "--masks_root", masks_root]
+        t0 = time.perf_counter()
+        loaded = offline.main(infer_argv + [
+            "--inference_dir", os.path.join(out, "inference")])
+        offline_s = time.perf_counter() - t0
+        os.environ.pop("SD_WEIGHTS_DIR")
+        seeded = offline.main(infer_argv + [
+            "--inference_dir", os.path.join(out, "inference_seeded")])
+    finally:
+        set_env(saved)
+    with open(os.path.join(out, "acceptance.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(out, "run", "logs", "log.txt")) as f:
+        log = f.read()
+    fill = re.search(r"device base-image cache: \d+ images \(\d+ MB uint8\) "
+                     r"in ([\d.]+) s", log)
+    loop = re.search(r"training done: \d+ steps in ([\d.]+)s", log)
+    ref = np.stack(res["imgs_pred"])[:, :INFER_CAMS]
+    got = np.stack(loaded["imgs_pred"])
+    control = np.stack(seeded["imgs_pred"])
+    diff = float(np.abs(got - ref).max()) * 255
+    control_diff = float(np.abs(control - ref).max()) * 255
+    cams = len(res["cam_idxs"])
+    stats = dict(
+        steps=ACC_STEPS, seeds=payload["seeds"], denoising_steps=ACC_DENOISE,
+        cams=cams, wall_s=wall_s, train_wall_s=res["wall_s"]["train"],
+        eval_wall_s=res["wall_s"]["eval"],
+        cache_fill_s=float(fill.group(1)) if fill else None,
+        train_loop_s=float(loop.group(1)) if loop else None,
+        sweep_sec_per_image=res["wall_s"]["eval"] / (
+            cams * len(payload["seeds"])),
+        metrics=payload["metrics"],
+        meaningful_for_quality=payload["meaningful_for_quality"],
+        manifest_files=n_files, manifest_gb=nbytes / 1e9,
+        manifest_write_s=write_s, manifest_check_s=check_s,
+        manifest_gb_per_s=nbytes / 1e9 / check_s,
+        manifest_clean=problems == [], tampered_named=tampered,
+        peak_memory_gib=peak_gb, launches=launches,
+        offline_s=offline_s, offline_max_diff_levels_vs_sweep=diff,
+        offline_bit_equal=bool(np.array_equal(got, ref)),
+        control_unset_max_diff_levels=control_diff)
+    print(f"acceptance [{card}]: {json.dumps(stats)}", flush=True)
+    check(written == json.loads(json.dumps(payload)),
+          "acceptance.json differs from the payload returned")
+    check(set(payload) == ACC_KEYS, f"acceptance.json keys {set(payload)}")
+    check(len(payload["metrics"]) == 8 and all(
+        math.isfinite(v) for v in payload["metrics"].values()),
+          f"acceptance metrics {payload['metrics']}")
+    check(payload["manifest"] == manifest, f"manifest {payload['manifest']}")
+    check(payload["assets"]["SD_WEIGHTS_DIR"]["present"]
+          and payload["assets"]["DTU_MASKS_DIR"]["present"],
+          f"assets {payload['assets']}")
+    check(payload["meaningful_for_quality"] is False
+          and payload["acceptance"] is None,
+          "a run without a tokenizer or LPIPS weights is labelled "
+          "meaningful")
+    check(cams == EVAL_CAMS, f"{cams} cameras swept")
+    check(payload["seeds"] == ACC_SEEDS and 2 * len(ACC_SEEDS) == BATCH,
+          f"seeds {payload['seeds']}: the sweep would leave the serving "
+          f"shapes that the kernels phase checks")
+    check(fill is not None and loop is not None,
+          "no cache fill or training line in the run's log")
+    want = {"K1": 32 * ACC_STEPS + 32 * ACC_DENOISE * EVAL_CAMS,
+            "K2": 30 * ACC_STEPS, "K3": 31 * ACC_STEPS,
+            "K4": 21 * ACC_STEPS + 29 * EVAL_CAMS}
+    check(launches == want, f"acceptance launches {launches}, want {want}")
+    check(loaded["cam_idxs"] == res["cam_idxs"][:INFER_CAMS],
+          f"offline cameras {loaded['cam_idxs']}")
+    check(np.array_equal(got, ref),
+          f"offline inference with SD_WEIGHTS_DIR differs from the "
+          f"acceptance sweep by up to {diff} levels")
+    check(not np.array_equal(control, ref),
+          "offline inference without SD_WEIGHTS_DIR equals the sweep on "
+          "the loaded stack: the check could not catch a stack left unread")
     return launches, stats
 
 
@@ -1629,7 +1826,6 @@ def phase_mode3(torch, dev, card, coach_stats):
     replay the straight one bit for bit and then validates, offline
     inference and the summary of that run."""
     import gc
-    import shutil
     import numpy as np
     from view_neti_tpu_torch import summarize_dtu
     from view_neti_tpu_torch.data import dtu, image_io
@@ -2093,7 +2289,6 @@ def phase_folders(torch, dev, card):
     checkpoints exported through python -m view_neti_tpu_torch.export_torch
     and imported back through torch_interop.import_torch_artifacts."""
     import gc
-    import shutil
     import numpy as np
     from view_neti_tpu_torch import export_torch, torch_interop, weight_port
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
@@ -2379,6 +2574,8 @@ DDP_WORLD = 3
 DDP_WARM = 2             # warm-up steps, then DDP_STEPS timed ones
 DDP_STEPS = 4
 DDP_DENOISE = 5
+DDP_VAL_CAMS = 2         # the validation round's cameras (cfg.debug) ...
+DDP_VAL_DENOISE = 2      # ... and its denoising steps (ValidationHandler)
 DDP_LOSS_RTOL = 1e-5
 DDP_MAPPER_RTOL, DDP_MAPPER_ATOL = 5e-3, 1e-5   # tests/test_parallel.py
 # the ranks' first loss against the fused one-process run's (relative):
@@ -2390,22 +2587,58 @@ DDP_TIMEOUT_S = 300      # a rank waiting longer on a collective ends it
 
 
 def ddp_config(rect, exp_dir):
-    """The coach phase's mode-2 recipe, DDP_WARM + DDP_STEPS steps and one
-    checkpoint, at the last one."""
+    """The coach phase's mode-2 recipe, DDP_WARM + DDP_STEPS steps, one
+    checkpoint at the last one and, where a validator is attached
+    (ddp_validator), one debug validation round after it: the first
+    DDP_VAL_CAMS eval cameras, seeds [0, 1]."""
     steps = DDP_WARM + DDP_STEPS
-    return mode2_config(rect, exp_dir, log={"save_steps": steps},
-                        optim={"max_train_steps": steps})
+    cfg = mode2_config(rect, exp_dir, log={"save_steps": steps},
+                       eval={"validation_prompts": ["A photo of a {}"],
+                             "validation_steps": steps,
+                             "validation_seeds": VAL_SEEDS,
+                             "num_validation_images": len(VAL_SEEDS)},
+                       optim={"max_train_steps": steps})
+    cfg.debug = True
+    return cfg
+
+
+def ddp_validator(torch, coach, cal):
+    """Attach the ddp phase's validation round to a Coach (every rank needs
+    one to enter the round): ValidationHandler's round under cfg.debug, the
+    DTU sweep of DDP_VAL_CAMS cameras (its result bundle in the run's
+    directory) and one object render, at DDP_VAL_DENOISE steps. Each
+    round's seconds, after the card finishes the step before it, go to
+    coach.validate_s and its kernel launches to coach.validate_launches,
+    so that the step times and the training's launches leave them out."""
+    from view_neti_tpu_torch.training.validate import ValidationHandler
+
+    coach.validator = ValidationHandler(coach.cfg, calibration_dir=cal)
+    coach.validate_s = []
+    coach.validate_launches = dict.fromkeys(launch_counts(), 0)
+    validate = coach._validate
+
+    def timed():
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        validate()
+        coach.validate_s.append(time.perf_counter() - t0)
+        for k, v in launch_counts().items():
+            coach.validate_launches[k] += v - before[k]
+    coach._validate = timed
 
 
 def ddp_run_stats(coach):
     """A finished Coach's losses, host copies of its mappers, counts, and
-    the timed steps' ms a step on the host's clock."""
+    the timed steps' ms a step on the host's clock, its validation rounds
+    left out."""
     marks = coach.step_marks
     return dict(
         losses=coach.losses,
         mappers={k: v.numpy() for k, v in mapper_state(coach).items()},
         counts=coach.optimizer.counts,
-        ms_per_step=(coach.loop_end_s - marks[DDP_WARM - 1]) * 1e3
+        ms_per_step=(coach.loop_end_s - marks[DDP_WARM - 1]
+                     - sum(getattr(coach, "validate_s", ()))) * 1e3
         / DDP_STEPS)
 
 
@@ -2439,15 +2672,20 @@ def ddp_rank(rank, world, root, rect, cal, cams):
     torch.distributed.all_gather = timed_gather
     coach = Coach(ddp_config(rect, os.path.join(root, "ranks")),
                   calibration_dir=cal, dist=dp)
+    ddp_validator(torch, coach, cal)
     # the counted run: the user's entry point, counts from 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch_counts(reset=True)
     coach.train()
     torch.cuda.synchronize()
+    launches = {k: v - coach.validate_launches[k]
+                for k, v in launch_counts().items()}
     out = ddp_run_stats(coach)
     out.update(rank=rank, backend=dp.backend, shared_card=dp.shared_card,
-               device=str(dp.device), launches=launch_counts(),
+               device=str(dp.device), launches=launches,
+               validate_s=coach.validate_s,
+               validate_launches=coach.validate_launches,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                reduce_ms=[x * 1e3 for x in reduce_s[DDP_WARM:]],
                reduce_bytes=sorted(set(reduce_bytes)))
@@ -2596,9 +2834,12 @@ def phase_ddp(torch, dev, card):
     shapes (ddp_chunked_reference), the first loss within
     DDP_FUSED_STEP1_RTOL of the fused one-process run's (and the planted
     fault beyond it), the same per-slice counts and one set of checkpoint
-    files; then the six scan cameras of the last checkpoint rendered split
-    over the ranks (seeds [0, 1], DDP_DENOISE DPM-Solver++ steps, CFG 7.5)
-    equal to one process's render bit for bit."""
+    files; the validation round after the last step (ddp_validator), its
+    sweep split over the ranks, equal to one process's round on the ranks'
+    checkpoint bit for bit; then the six scan cameras of the last
+    checkpoint rendered split over the ranks (seeds [0, 1], DDP_DENOISE
+    DPM-Solver++ steps, CFG 7.5) equal to one process's render bit for
+    bit."""
     import gc
     import pickle
     import numpy as np
@@ -2607,15 +2848,21 @@ def phase_ddp(torch, dev, card):
     from view_neti_tpu_torch.parallel import dist
     from view_neti_tpu_torch.training import inference_dtu
     from view_neti_tpu_torch.training.coach import Coach
+    from view_neti_tpu_torch.utils import msgpack_codec
 
     steps = DDP_WARM + DDP_STEPS
     per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
     want_launches = {k: v * steps for k, v in per_step.items()}
     cams = dtu.dtu_get_train_idxs(6)
+    val_cams = inference_dtu.get_cam_idxs(6)[0][:DDP_VAL_CAMS]
     with tempfile.TemporaryDirectory() as root:
-        rect, cal, _, _ = write_scan(root, image_io, dtu, np)
+        # the train cameras first: their pixels are drawn as before
+        rect, cal, _, _ = write_scan(
+            root, image_io, dtu, np,
+            cams=list(cams) + [c for c in val_cams if c not in cams])
         single = Coach(ddp_config(rect, os.path.join(root, "single")),
                        calibration_dir=cal, device=dev)
+        ddp_validator(torch, single, cal)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         single.train()
@@ -2669,7 +2916,8 @@ def phase_ddp(torch, dev, card):
         with open(os.path.join(root, "ranks", "logs", "log.txt")) as f:
             log = f.read()
 
-        # one process renders the same checkpoint
+        # one process renders the same checkpoint, and runs the ranks'
+        # validation round on it
         single.cfg.log.exp_dir = os.path.join(root, "ranks")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2678,6 +2926,18 @@ def phase_ddp(torch, dev, card):
             seeds=VAL_SEEDS, calibration_dir=cal, on_missing_ckpt="raise")
         torch.cuda.synchronize()
         single_sweep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        val_want = single.validator.infer_dtu(
+            single, steps, DDP_VAL_DENOISE, return_instead_of_save=True,
+            on_missing_ckpt="raise")
+        single_val_s = time.perf_counter() - t0
+        # the ranks' round, as rank 0 wrote its bundle
+        with open(os.path.join(
+                root, "ranks", f"validation-iter_{steps}-denoisesteps_"
+                f"{DDP_VAL_DENOISE}_numseeds_{len(VAL_SEEDS)}.msgpack"),
+                "rb") as f:
+            val_got = msgpack_codec.unpackb(f.read())["imgs_pred"]
+    single_val_train_s = single.validate_s
     del single
     gc.collect()
     torch.cuda.empty_cache()
@@ -2696,6 +2956,17 @@ def phase_ddp(torch, dev, card):
                         for c in cams) if preds is not None else None)
     shared = torch.cuda.device_count() < DDP_WORLD
     reduce_ms = [x for r in ranks for x in r["reduce_ms"]]
+    val_ref = np.stack(val_want["imgs_pred"])
+    val_equal = (val_want["cam_idxs"] == val_cams
+                 and np.array_equal(val_got, val_ref))
+    val_levels = (float(np.abs(val_got - val_ref).max()) * 255
+                  if val_got.shape == val_ref.shape else None)
+    # a rank's share of the sweep's cameras, and on rank 0 the render
+    val_launches = [{k: n * (len(dist.split_items(val_cams, r["rank"],
+                                                  DDP_WORLD))
+                             + (r["rank"] == 0))
+                     for k, n in (("K1", 32 * DDP_VAL_DENOISE), ("K2", 0),
+                                  ("K3", 0), ("K4", 29))} for r in ranks]
     stats = dict(
         backend=main["backend"], world=DDP_WORLD,
         ranks_share_one_card=main["shared_card"],
@@ -2734,6 +3005,13 @@ def phase_ddp(torch, dev, card):
         sweep_cams=len(cams), sweep_denoising_steps=DDP_DENOISE,
         sweep_s_split=main["sweep_s"], sweep_s_one_process=single_sweep_s,
         sweep_bit_equal=sweep_equal, sweep_max_diff_levels=sweep_levels,
+        val_round_cams=val_cams, val_round_denoising_steps=DDP_VAL_DENOISE,
+        val_round_s_by_rank=[r["validate_s"] for r in ranks],
+        val_round_s_one_process_training=single_val_train_s,
+        val_round_s_one_process=single_val_s,
+        val_round_launches_by_rank=[r["validate_launches"] for r in ranks],
+        val_round_bit_equal=val_equal,
+        val_round_max_diff_levels=val_levels,
         ranks_wall_s=ranks_s, checkpoint_files=files["ranks"])
     print(f"ddp [{card}]: {json.dumps(stats)}", flush=True)
     check(all(r["backend"] == ("gloo" if shared else "nccl")
@@ -2778,6 +3056,14 @@ def phase_ddp(torch, dev, card):
           "more than rank 0 logged")
     check(sweep_equal, f"the split sweep differs from one process by up to "
                        f"{sweep_levels} levels")
+    check(all(len(r["validate_s"]) == 1 for r in ranks)
+          and len(single_val_train_s) == 1,
+          "a run did not validate once")
+    check([r["validate_launches"] for r in ranks] == val_launches,
+          f"validation launches {[r['validate_launches'] for r in ranks]}, "
+          f"want {val_launches}")
+    check(val_equal, f"the ranks' validation round differs from one "
+                     f"process's by up to {val_levels} levels")
     return stats
 
 
@@ -2786,8 +3072,9 @@ def kernel_report(kernels, launches, card):
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
     shape, and the same summed over one run of each path that launches it
     (<path>_path_*: a serving run, a train step, the weights phase, the
-    validate phase, the inference phase, the mode3 phase, the folders
-    phase), each shape weighted by its launches there."""
+    acceptance phase, the validate phase, the inference phase, the mode3
+    phase, the folders phase), each shape weighted by its launches
+    there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -2807,8 +3094,8 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|")):
         rows = kernels[key]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
-        paths = ("serve", "train", "weights", "validate", "inference",
-                 "mode3", "folders")
+        paths = ("serve", "train", "weights", "acceptance", "validate",
+                 "inference", "mode3", "folders")
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
                                      for r in rows)
                 for p in paths
@@ -2901,7 +3188,15 @@ def main() -> int:
                                               cams=cams, masks=True)
         print(f"eval scan: {len(cams)} images and masks in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        weights_launches, _ = phase_weights(torch, dev, card, rect, cal)
+        weights_launches, weights = phase_weights(torch, dev, card, rect,
+                                                  cal)
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            acceptance_launches, _ = phase_acceptance(
+                torch, dev, card, root, weights, cal, masks_root)
+        finally:
+            shutil.rmtree(weights)
         gc.collect()
         torch.cuda.empty_cache()
         run_dir = os.path.join(root, "run")
@@ -2925,6 +3220,7 @@ def main() -> int:
                                      "train": train_launches,
                                      "coach": coach_launches,
                                      "weights": weights_launches,
+                                     "acceptance": acceptance_launches,
                                      "validate": validate_launches,
                                      "inference": inference_launches,
                                      "mode3": mode3_launches,

@@ -14,9 +14,13 @@ results_all_iter_{it}.msgpack under inference_dir, which summarize_dtu
 scores. A mode-3 run sweeps each token of eval_placeholder_object_tokens
 (else the run's own list, else its first object token) against that token's
 scan, and writes preds_iter_{it}-{token}_seed{i}.png and
-results_all_iter_{it}-{token}.msgpack; its results are keyed by token. As
-in the JAX script, the frozen SD stack is the seeded one the config builds:
-no SD_WEIGHTS_DIR is read. VIEW_NETI_TINY=1 swaps in the miniature stack;
+results_all_iter_{it}-{token}.msgpack; its results are keyed by token. The
+frozen SD stack is read from SD_WEIGHTS_DIR (a diffusers-layout directory)
+when it is set, as the train CLI reads it, so that a run is rendered on the
+weights it was trained on; unset, it is the seeded stack the config builds,
+as in the JAX script (scripts/inference.py builds its Coach without
+weights, a deviation ROADMAP.md records). VIEW_NETI_TINY=1 swaps in the
+miniature stack;
 `main(argv, device="cpu")` runs on the CPU. Under torchrun (or the
 VIEW_NETI_* variables of parallel/dist.py) each sweep's cameras are split
 over the ranks and rank 0 writes everything; the other ranks return None.
@@ -69,7 +73,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> Optional[Dict]:
 
     dp = dist.init_distributed(device)
     coach = Coach(cfg, arch=arch, calibration_dir=infer_cfg.calibration_dir,
-                  dist=dp)
+                  weights_dir=os.environ.get("SD_WEIGHTS_DIR"), dist=dp)
     if dp.active and not dp.is_main:
         failed = inference_dtu.serve_sweeps(coach)
         coach.logger.close()

@@ -17,12 +17,18 @@ through the port's own reader, .bin through torch.load(weights_only=True)).
 The port's modules use diffusers'/transformers' own keys, so the files'
 state_dicts load as they are; the same key tables account for every key
 (PortReport), and the CLIP token table gains its vocab headroom.
+
+write_manifest and check_manifest pin a weights directory by sha256, in
+the JAX package's manifest format; python -m
+view_neti_tpu_torch.weights_manifest is their command line.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from pathlib import Path as FilePath
-from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -502,3 +508,71 @@ def load_lpips_npz(path: Union[str, FilePath]) -> Dict[str, torch.Tensor]:
         for key in data.files:
             _set_path(tree, tuple(key.split("/")), data[key])
     return from_jax_lpips(tree)
+
+
+# --------------------------------------------------------------------------
+# weight manifests (view_neti_tpu/weight_port.py:479-542): pin the weight
+# files by sha256, so that an acceptance run scores the files it names.
+# A manifest written by either package checks in the other.
+# --------------------------------------------------------------------------
+
+MANIFEST_PATTERNS = ("*.safetensors", "*.bin", "*.npz", "vocab.json",
+                     "merges.txt")
+
+
+def _manifest_files(root: Union[str, FilePath],
+                    extra: Sequence[str] = ()) -> List[FilePath]:
+    """The weight files under a diffusers-layout directory (those
+    load_sd_weights reads, the tokenizer's vocabulary files), each pattern
+    sorted, then the extras that exist."""
+    root = FilePath(root)
+    files: List[FilePath] = []
+    for pattern in MANIFEST_PATTERNS:
+        files += sorted(root.rglob(pattern))
+    return files + [FilePath(e) for e in extra if FilePath(e).exists()]
+
+
+def _sha256_file(path: Union[str, FilePath]) -> str:
+    """sha256 of a file read in 4 MiB chunks: weight files are GBs."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 22), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def write_manifest(root: Union[str, FilePath],
+                   out_path: Union[str, FilePath],
+                   extra: Sequence[str] = ()) -> int:
+    """Write one line "sha256  bytes  relpath" per weight file (an extra
+    outside root keeps its own path); returns the number of files."""
+    root = FilePath(root)
+    lines = []
+    for f in _manifest_files(root, extra):
+        try:
+            rel = f.relative_to(root)
+        except ValueError:
+            rel = f
+        lines.append(f"{_sha256_file(f)}  {f.stat().st_size}  {rel}")
+    FilePath(out_path).write_text("\n".join(lines) + "\n")
+    return len(lines)
+
+
+def check_manifest(root: Union[str, FilePath],
+                   manifest_path: Union[str, FilePath]) -> List[str]:
+    """The files that differ from a manifest, one "missing: ", "size
+    mismatch: " or "sha256 mismatch: " line each; [] when all match."""
+    root = FilePath(root)
+    problems = []
+    for line in FilePath(manifest_path).read_text().splitlines():
+        if not line.strip():
+            continue
+        want_hash, want_size, rel = line.split(maxsplit=2)
+        f = FilePath(rel) if FilePath(rel).is_absolute() else root / rel
+        if not f.exists():
+            problems.append(f"missing: {rel}")
+        elif f.stat().st_size != int(want_size):
+            problems.append(f"size mismatch: {rel}")
+        elif _sha256_file(f) != want_hash:
+            problems.append(f"sha256 mismatch: {rel}")
+    return problems
