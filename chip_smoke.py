@@ -18,7 +18,8 @@ Phases; any failure ends the run with a non-zero exit:
                 B=9 train step (K1-K3 at 4096 x 4096 and 4096 x 77, K4's
                 encoder at 512x512 down to 64x64), in SD-1.5 (head dims
                 40, 80, 160) and in SD-2.1 (head dim 64, the mode3 phase),
-                bf16
+                bf16, and at SD-1.5's tp-2 shapes (4 heads a rank) of the
+                tp phase's render and train steps;
                 inputs from a seed, held against their plain
                 versions in fp32 with TF32 off, each limit with a control
                 it must catch (K4 two: a lost input-channel chunk and the halo
@@ -182,7 +183,35 @@ Phases; any failure ends the run with a non-zero exit:
                 beside one process's, the all-reduce's ms a step and
                 bytes, each rank's peak memory and the largest loss and
                 mapper differences;
- 14. report  -- one JSON line of per-kernel results, then the result line.
+ 14. tp     -- the mesh's tp axis over torch.distributed
+                (view_neti_tpu_torch/parallel/tensor.py): the coach
+                phase's recipe (fused B = 9 at 384x512, preset 7, SD-1.5 at
+                full width, bf16) for 2 warm-up and 3 timed steps in one
+                process; in one process computing the tp split by plain
+                indexing (tp_emulate_: the pieces' partials and input
+                gradients added in piece order in fp32), and the same with
+                a planted fault (one attention's input gradients not
+                summed over the pieces); then over 2 spawned ranks in a
+                dp 1 x tp 2 layout with tensor_parallel (gloo when they
+                share this card, NCCL with a card each): the ranks
+                bit-equal to each other, each step's loss within 1e-5
+                relative and the mappers within rtol 5e-3, atol 1e-5 of
+                the split in one process, a loss limit the planted fault
+                must exceed; each rank's K1-K4 launches a step those of
+                one process; the all-gathers a step the count worked out
+                from the table (one forward sum per row-parallel layer,
+                one backward sum per split unit's input that needs a
+                gradient); a render at the serving shapes (3 seeds,
+                768x576, 5 DPM-Solver++ steps, CFG 7.5) on each rank
+                against one process's, its mean uint8 difference within a
+                limit that a planted fault (rank 1's partial of one
+                row-parallel layer dropped) must exceed; one SD-2.1 UNet
+                forward split over the ranks (its 5-head level whole, the
+                rest split) against the same UNet whole; prints imgs/sec
+                and ms/step beside one process's, the all-gathers' count,
+                bytes and host ms a step, each rank's frozen-parameter
+                bytes beside one process's, each rank's peak memory;
+ 15. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -468,7 +497,10 @@ def attention_shapes(serve_steps: int):
     cameras and over the offline inference's INFER_CAMS, and the renders
     of the eval tokens. The folders phase trains at 512x512 (64x64
     latents, B = 9): 2 (FOLDERS_WARM + FOLDERS_STEPS) steps of its two
-    Coaches, and FOLDERS_RENDERS renders at the render shapes."""
+    Coaches, and FOLDERS_RENDERS renders at the render shapes. A rank of
+    the tp phase runs SD-1.5's attentions over 8 / TP_WORLD heads: one
+    render at the serving shapes (TP_DENOISE steps) and TP_WARM + TP_STEPS
+    train steps."""
     shapes = []
     m3_steps = 2 * (M3_WARM + M3_STEPS)
     folders_steps = 2 * (FOLDERS_WARM + FOLDERS_STEPS)
@@ -488,7 +520,11 @@ def attention_shapes(serve_steps: int):
             ("m3 render", SWEEP_BATCH, (4096, 1024, 256, 64), (64,) * 4,
              (5, 10, 20, 20)),
             ("folders train", TRAIN_BATCH, (4096, 1024, 256, 64),
-             (40, 80, 160, 160), (8,) * 4)):
+             (40, 80, 160, 160), (8,) * 4),
+            ("tp serve", BATCH, (6912, 1728, 432, 108), (40, 80, 160, 160),
+             (8 // TP_WORLD,) * 4),
+            ("tp train", TRAIN_BATCH, (3072, 768, 192, 48),
+             (40, 80, 160, 160), (8 // TP_WORLD,) * 4)):
         for level, (L, d, H, n) in enumerate(zip(lengths, dims, heads,
                                                  (5, 5, 5, 1))):
             for Lk in (L, 77):
@@ -511,10 +547,14 @@ def attention_shapes(serve_steps: int):
                                       * (M3_SWEEP_CAMS + INFER_CAMS)}}
                 elif kind == "m3 render":
                     per_run = {"K1": {"mode3": n * VAL_DENOISE * M3_TOKENS}}
+                elif kind == "tp serve":
+                    per_run = {"K1": {"tp": n * TP_DENOISE}}
                 else:
                     paths = ({"mode3": m3_steps} if kind == "m3 train" else
                              {"folders": folders_steps}
                              if kind == "folders train" else
+                             {"tp": TP_WARM + TP_STEPS}
+                             if kind == "tp train" else
                              {"train": 1, "validate": VAL_TRAIN_STEPS,
                               "acceptance": ACC_STEPS})
                     per_run = {
@@ -666,7 +706,8 @@ def k4_shapes():
     VAE is SD-1.5's, so the mode3 phase runs the same shapes: its train
     steps, a decode per camera of its sweeps and one per token's render. The folders phase
     encodes B = 9 at 512x512 every step and decodes its renders at the
-    render shapes."""
+    render shapes. A tp rank decodes its render at the serving shapes and
+    encodes TP_WARM + TP_STEPS train steps."""
     def decoder(D, h, w, per):
         return [(D, h * s, w * s, ci, co, res, per(n)) for s, ci, co, res, n
                 in ((1, 512, 512, False, 5), (1, 512, 512, True, 5),
@@ -682,13 +723,14 @@ def k4_shapes():
 
     def train(n):
         return {"train": n, "validate": n * VAL_TRAIN_STEPS,
-                "mode3": n * m3_steps, "acceptance": n * ACC_STEPS}
+                "mode3": n * m3_steps, "acceptance": n * ACC_STEPS,
+                "tp": n * (TP_WARM + TP_STEPS)}
 
     def folders(n):
         return {"folders": n * folders_steps}
 
     return (decoder(BATCH // 2, 72, 96, lambda n: {
-                "serve": n, "acceptance": n * EVAL_CAMS})
+                "serve": n, "acceptance": n * EVAL_CAMS, "tp": n})
             + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
                 "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
                 "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
@@ -829,7 +871,9 @@ def phase_kernels(torch, dev, card, serve_steps):
           == 21 * 2 * (M3_WARM + M3_STEPS)
           + 29 * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1)
           and sum(s[-1].get("folders", 0) for s in shapes)
-          == 21 * 2 * (FOLDERS_WARM + FOLDERS_STEPS) + 29 * FOLDERS_RENDERS,
+          == 21 * 2 * (FOLDERS_WARM + FOLDERS_STEPS) + 29 * FOLDERS_RENDERS
+          and sum(s[-1].get("tp", 0) for s in shapes)
+          == 29 + 21 * (TP_WARM + TP_STEPS),
           "K4 shape table")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
@@ -2628,18 +2672,18 @@ def ddp_validator(torch, coach, cal):
     coach._validate = timed
 
 
-def ddp_run_stats(coach):
+def ddp_run_stats(coach, warm=DDP_WARM, steps=DDP_STEPS):
     """A finished Coach's losses, host copies of its mappers, counts, and
-    the timed steps' ms a step on the host's clock, its validation rounds
-    left out."""
+    the timed steps' ms a step on the host's clock (the steps after warm),
+    its validation rounds left out."""
     marks = coach.step_marks
     return dict(
         losses=coach.losses,
         mappers={k: v.numpy() for k, v in mapper_state(coach).items()},
         counts=coach.optimizer.counts,
-        ms_per_step=(coach.loop_end_s - marks[DDP_WARM - 1]
+        ms_per_step=(coach.loop_end_s - marks[warm - 1]
                      - sum(getattr(coach, "validate_s", ()))) * 1e3
-        / DDP_STEPS)
+        / steps)
 
 
 def ddp_rank(rank, world, root, rect, cal, cams):
@@ -3067,14 +3111,516 @@ def phase_ddp(torch, dev, card):
     return stats
 
 
+# the tp phase: the coach phase's recipe over TP_WORLD ranks in a dp 1 x
+# tp TP_WORLD layout with the frozen UNet and CLIP split over them
+# (parallel/tensor.py), against one process; a render at the serving
+# shapes cut to TP_DENOISE steps; one SD-2.1 UNet forward
+TP_WORLD = 2
+TP_WARM = 2              # warm-up steps, then TP_STEPS timed ones
+TP_STEPS = 3
+TP_DENOISE = 5
+# the ranks against one process computing the split (tp_emulate_): each
+# step's loss (relative) and the mappers (tests/test_parallel.py); the
+# loss limit must catch the planted fault (TP_FAULT_INPUTS)
+TP_LOSS_RTOL = 1e-5
+TP_MAPPER_RTOL, TP_MAPPER_ATOL = 5e-3, 1e-5
+# the planted faults: the backward sum over the tp group of this
+# attention's inputs left out (the train step), and rank 1's partial of
+# this row-parallel layer dropped (the render)
+TP_FAULT_INPUTS = "mid_block.attentions.0.transformer_blocks.0.attn2"
+TP_FAULT_ROW = "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.2"
+# the render against one process's: the mean uint8 difference, a limit
+# that the planted fault must exceed
+TP_RENDER_MEAN_LIMIT = 5.0
+# SD-2.1's UNet forward at tp against one process: rms(diff) / rms(out)
+TP_SD21_RTOL = 2e-2
+TP_TIMEOUT_S = 300
+
+
+def tp_config(rect, exp_dir, parallel=None):
+    """The coach phase's mode-2 recipe for TP_WARM + TP_STEPS steps, with
+    the parallel section of the ranks (one process ignores it)."""
+    cfg = mode2_config(rect, exp_dir,
+                       optim={"max_train_steps": TP_WARM + TP_STEPS})
+    cfg.parallel = dataclasses.replace(cfg.parallel, **(parallel or {}))
+    return cfg
+
+
+def tp_render(torch, coach):
+    """The serving slice's render on a Coach's stack: the first view token
+    and the object, seeds 0 1 2 at HEIGHT x WIDTH, TP_DENOISE DPM-Solver++
+    steps, CFG 7.5, the fused decode: (3, H, W, 3) uint8 on the host."""
+    from view_neti_tpu_torch.inference import pipeline
+    from view_neti_tpu_torch.inference.prompt_manager import PromptManager
+    from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
+    built = coach.built
+    sched = DPMSolverSchedule()
+    unet, vae = coach.infer_frozen()
+    pm = PromptManager(coach.tokenizer, built.text,
+                       sched.set_timesteps(TP_DENOISE),
+                       built.placeholder_view_token_ids,
+                       built.placeholder_object_token_ids,
+                       dtype=coach.compute_dtype)
+    prompt = (f"{coach.placeholder_view_tokens[0]}. A photo of a "
+              f"{coach.placeholder_object_tokens[0]}")
+    with torch.no_grad():
+        ctx, ctx_b = pm.embed_prompt(prompt)
+        uncond = pipeline.encode_uncond(built.text.clip, coach.tokenizer)
+    return pipeline.generate(unet, vae, sched, ctx, ctx_b, uncond, HEIGHT,
+                             WIDTH, [0, 1, 2], TP_DENOISE, 7.5,
+                             coach.compute_dtype, device=coach.device)
+
+
+def frozen_bytes(built):
+    """The bytes of the frozen UNet's, CLIP's and VAE's parameters."""
+    return {name: sum(p.numel() * p.element_size()
+                      for p in module.parameters())
+            for name, module in (("unet", built.unet),
+                                 ("clip", built.text.clip),
+                                 ("vae", built.vae))}
+
+
+def tp_emulate_(torch, built, tp, fault=None):
+    """One process computing what the tp ranks compute, the reference they
+    are held to, by plain indexing of the whole weights, independent of
+    parallel/tensor.py: every attention whose heads tp divides and every
+    feed-forward and CLIP MLP whose hidden width it divides runs as tp
+    pieces (the r-th piece of the output features of q/k/v, fc1 and
+    GEGLU's value and gate halves, of the input features of to_out.0,
+    ff.net.2 and fc2, each a contiguous copy as a rank holds it), the
+    pieces' partial outputs added in piece order in fp32 with the bias
+    after, and each unit's input gradients added over the pieces in piece
+    order in fp32. fault (a unit's path in the UNet) keeps only the first
+    piece's input gradients there: the planted fault of the tp phase."""
+    import torch.nn.functional as F
+    from view_neti_tpu_torch.models.clip_text import CLIPMLP
+    from view_neti_tpu_torch.models.unet import CrossAttention, FeedForward
+    from view_neti_tpu_torch.ops.attention import multi_head_attention
+
+    class Fan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, keep):
+            ctx.keep = keep
+            return tuple(x.view_as(x) for _ in range(tp))
+
+        @staticmethod
+        def backward(ctx, *grads):
+            total = grads[0].float()
+            for g in grads[1:ctx.keep]:
+                total = total + g.float()
+            return total.to(grads[0].dtype), None
+
+    def fan(x, keep):
+        return None if x is None else Fan.apply(x, keep)
+
+    def total(parts, bias, dtype):
+        out = parts[0].float()
+        for part in parts[1:]:
+            out = out + part.float()
+        if bias is not None:
+            out = out + bias.float()
+        return out.to(dtype)
+
+    def rows(w, r):
+        n = w.shape[0] // tp
+        return w[r * n:(r + 1) * n].clone(memory_format=torch.contiguous_format)
+
+    def cols(w, r):
+        n = w.shape[1] // tp
+        return w[:, r * n:(r + 1) * n].clone(
+            memory_format=torch.contiguous_format)
+
+    def attention(m, keep):
+        H = m.heads // tp
+        pieces = [[rows(m.to_q.weight, r), rows(m.to_k.weight, r),
+                   rows(m.to_v.weight, r), cols(m.to_out[0].weight, r)]
+                  for r in range(tp)]
+        bias = m.to_out[0].bias
+
+        def forward(x, ctx_k=None, ctx_v=None):
+            B, L, _ = x.shape
+            xs = fan(x, keep)
+            ks = xs if ctx_k is None else fan(ctx_k.to(x.dtype), keep)
+            vs = ks if ctx_v is None else fan(ctx_v.to(x.dtype), keep)
+            parts = []
+            for r, (wq, wk, wv, wo) in enumerate(pieces):
+                q = F.linear(xs[r], wq)
+                hd = q.shape[-1] // H
+                k = F.linear(ks[r], wk).reshape(B, ks[r].shape[1], H, hd)
+                v = F.linear(vs[r], wv).reshape(B, vs[r].shape[1], H, hd)
+                o = multi_head_attention(q.reshape(B, L, H, hd), k, v)
+                parts.append(F.linear(o.reshape(B, L, H * hd), wo))
+            return total(parts, bias, x.dtype)
+        return forward
+
+    def feed_forward(m, keep):
+        proj, out = m.net[0].proj, m.net[2]
+        value, gate = proj.weight.chunk(2, dim=0)
+        bv, bg = proj.bias.chunk(2, dim=0)
+        pieces = [(torch.cat([rows(value, r), rows(gate, r)]),
+                   torch.cat([rows(bv, r), rows(bg, r)]),
+                   cols(out.weight, r)) for r in range(tp)]
+
+        def forward(x):
+            xs = fan(x, keep)
+            parts = []
+            for r, (w, b, wo) in enumerate(pieces):
+                h, g = F.linear(xs[r], w, b).chunk(2, dim=-1)
+                parts.append(F.linear(h * F.gelu(g), wo))
+            return total(parts, out.bias, x.dtype)
+        return forward
+
+    def mlp(m):
+        pieces = [(rows(m.fc1.weight, r), rows(m.fc1.bias, r),
+                   cols(m.fc2.weight, r)) for r in range(tp)]
+
+        def forward(x):
+            xs = fan(x, tp)
+            parts = []
+            for r, (w, b, wo) in enumerate(pieces):
+                h = F.linear(xs[r], w, b)
+                if m.act == "quick_gelu":
+                    h = h * torch.sigmoid(1.702 * h)
+                else:
+                    h = F.gelu(h)
+                parts.append(F.linear(h, wo))
+            return total(parts, m.fc2.bias, x.dtype)
+        return forward
+
+    split = 0
+    for path, m in built.unet.named_modules():
+        keep = 1 if path == fault else tp
+        if isinstance(m, CrossAttention) and m.heads % tp == 0:
+            m.forward = attention(m, keep)
+            split += 1
+        elif isinstance(m, FeedForward):
+            m.forward = feed_forward(m, keep)
+            split += 1
+    for m in built.text.clip.modules():
+        if isinstance(m, CLIPMLP):
+            m.forward = mlp(m)
+            split += 1
+    check(fault is None or isinstance(built.unet.get_submodule(fault),
+                                      CrossAttention),
+          f"{fault} is not an attention")
+    return split
+
+
+def tp_collectives_per_step(unet_blocks, clip_layers):
+    """The tp all-gathers of one train step at dp 1, from the table: one
+    forward sum per row-parallel layer (an attention's to_out.0, a
+    feed-forward's ff.net.2, a CLIP MLP's fc2); one backward sum per input
+    of a split unit whose gradient the step needs: a self-attention's x,
+    a cross-attention's x and its two contexts (the regular and the bypass
+    stack), a feed-forward's and an MLP's x; the first transformer block's
+    two attentions see x from the latents alone, which needs none."""
+    forward = 3 * unet_blocks + clip_layers
+    backward = unet_blocks * (1 + 3 + 1) - 2 + clip_layers
+    return forward + backward
+
+
+def tp_rank(rank, world, root, rect, cal):
+    """One spawned rank of the tp phase: the recipe's Coach in a dp 1 x tp
+    world layout (tensor_parallel true); the render (its launches counted)
+    and the render with TP_FAULT_ROW's rank-1 partial dropped; then the
+    counted training (launches, peak memory, the all-gathers' count, bytes
+    and host ms); then one SD-2.1 UNet forward, whole and split. Writes
+    what it measured to root/tp<r>.pkl."""
+    import pickle
+    import torch
+    from view_neti_tpu_torch.models.unet import (UNet2DCondition,
+                                                 sd21_unet_config)
+    from view_neti_tpu_torch.parallel import dist, tensor
+    from view_neti_tpu_torch.training import builder
+    from view_neti_tpu_torch.training.coach import Coach
+    steps = TP_WARM + TP_STEPS
+    dp = dist.init_distributed(
+        store=torch.distributed.FileStore(os.path.join(root, "store_tp"),
+                                          world),
+        rank=rank, world_size=world, timeout_s=TP_TIMEOUT_S)
+    gather, calls = torch.distributed.all_gather, []
+
+    def timed_gather(parts, tensor, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = gather(parts, tensor, *args, **kwargs)
+        calls.append((time.perf_counter() - t0,
+                      tensor.numel() * tensor.element_size()))
+        return out
+    torch.distributed.all_gather = timed_gather
+    coach = Coach(tp_config(rect, os.path.join(root, "tp_ranks"),
+                            {"tp": world, "tensor_parallel": True}),
+                  calibration_dir=cal, dist=dp)
+    out = dict(rank=rank, backend=dp.backend, shared_card=dp.shared_card,
+               frozen_bytes=frozen_bytes(coach.built),
+               layout=(coach.dist.dp_index, coach.dist.tp_index,
+                       coach.dist.dp_world, coach.dist.tp_world))
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out["render"] = tp_render(torch, coach)
+    torch.cuda.synchronize()
+    out.update(render_s=time.perf_counter() - t0,
+               render_launches=launch_counts(), render_gathers=len(calls))
+    row = coach.built.unet.get_submodule(TP_FAULT_ROW)
+    check(isinstance(row, tensor.RowParallelLinear),
+          f"{TP_FAULT_ROW} is not split")
+    kept = row.weight.detach().clone()
+    if rank == 1:
+        row.weight.data.zero_()
+    out["fault_render"] = tp_render(torch, coach)
+    row.weight.data.copy_(kept)
+    del calls[:]
+    # the counted run: the user's entry point, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    coach.train()
+    torch.cuda.synchronize()
+    out.update(ddp_run_stats(coach, TP_WARM, TP_STEPS),
+               launches=launch_counts(),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               gathers=len(calls),
+               gather_bytes=sum(b for _, b in calls),
+               gather_ms_timed=sum(t for t, _ in calls[
+                   len(calls) * TP_WARM // steps:]) * 1e3)
+    # SD-2.1: one forward of a seeded UNet, whole, then split over the
+    # same group
+    torch.manual_seed(0)
+    with torch.device(dp.device):
+        unet = UNet2DCondition(sd21_unet_config())
+    builder.cast_compute_dtype_(unet, torch.bfloat16)
+    unet.requires_grad_(False)
+    g = torch.Generator(dp.device).manual_seed(1)
+    lat = torch.randn(2, 64, 64, 4, generator=g, device=dp.device)
+    ctx = torch.randn(16, 2, 77, 1024, generator=g,
+                      device=dp.device).bfloat16()
+    ts = torch.tensor([500, 100], device=dp.device)
+    with torch.no_grad():
+        whole = unet(lat, ts, ctx).float()
+        logged = []
+        plan = tensor.shard_frozen_(unet, torch.nn.Module(), coach.dist,
+                                    log=logged.append)
+        split = unet(lat, ts, ctx).float()
+    out["sd21"] = dict(
+        rel_rms=float((split - whole).pow(2).mean().sqrt()
+                      / whole.pow(2).mean().sqrt()),
+        max_abs=float((split - whole).abs().max()),
+        finite=bool(torch.isfinite(split).all()),
+        kept_whole=logged,
+        split_units=sorted({k.rsplit(".", 2)[0] for k, v in plan.items()
+                            if v in ("column", "geglu")}))
+    dist.barrier(dp)
+    dist.destroy(dp)
+    with open(os.path.join(root, f"tp{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_tp(torch, dev, card):
+    """The mesh's tp axis over torch.distributed
+    (view_neti_tpu_torch/parallel/tensor.py): the coach phase's recipe
+    (mode 2, SD-1.5 at full width, preset 7 on the base cache, fused B = 9
+    at 384x512, bf16) for TP_WARM + TP_STEPS steps in one process, in one
+    process computing the tp split (tp_emulate_), the same with the
+    planted fault, and over TP_WORLD spawned ranks (dp 1 x tp TP_WORLD,
+    tensor_parallel; gloo when they share this card, NCCL with a card
+    each). The ranks must be bit-equal to each other; each step's loss
+    within TP_LOSS_RTOL and the mappers within tests/test_parallel.py's
+    tolerance of the split computed in one process, a loss limit that the
+    planted fault must exceed; each rank's K1-K4 launches a step those of
+    one process; the all-gathers a step the count worked out from the
+    table. The render (3 seeds, 768x576, TP_DENOISE steps, CFG 7.5)
+    against one process's within TP_RENDER_MEAN_LIMIT mean levels, which
+    the planted dropped partial must exceed. SD-2.1: the 5-head level
+    whole, the rest split, the forward within TP_SD21_RTOL."""
+    import gc
+    import pickle
+    import numpy as np
+    import torch.multiprocessing as mp
+    from view_neti_tpu_torch.data import dtu, image_io
+    from view_neti_tpu_torch.training.coach import Coach
+
+    steps = TP_WARM + TP_STEPS
+    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    want_launches = {k: v * steps for k, v in per_step.items()}
+    want_render = {"K1": 32 * TP_DENOISE, "K2": 0, "K3": 0, "K4": 29}
+    unet_blocks, clip_layers = 16, 12
+    want_gathers = tp_collectives_per_step(unet_blocks, clip_layers) * steps
+    with tempfile.TemporaryDirectory() as root:
+        rect, cal, _, _ = write_scan(root, image_io, dtu, np)
+        single = Coach(tp_config(rect, os.path.join(root, "single")),
+                       calibration_dir=cal, device=dev)
+        single_bytes = frozen_bytes(single.built)
+        want = tp_render(torch, single)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        single.train()
+        torch.cuda.synchronize()
+        single_launches = launch_counts()
+        ref = ddp_run_stats(single, TP_WARM, TP_STEPS)
+        ref["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        emulated = {}
+        for name, fault in (("split", None), ("fault", TP_FAULT_INPUTS)):
+            coach = Coach(tp_config(rect, os.path.join(root, name)),
+                          calibration_dir=cal, device=dev)
+            units = tp_emulate_(torch, coach.built, TP_WORLD, fault)
+            coach.train()
+            torch.cuda.synchronize()
+            emulated[name] = ddp_run_stats(coach, TP_WARM, TP_STEPS)
+            del coach
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(units == 2 * unet_blocks + unet_blocks + clip_layers,
+              f"the split computed in one process has {units} units")
+
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(TP_WORLD, root, rect, cal),
+                           nprocs=TP_WORLD, join=True, start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(root, f"tp{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    main = ranks[0]
+    split = emulated["split"]
+    loss_rel, mapper_abs, outside = ddp_diff(main, split)
+    control_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        emulated["fault"]["losses"], split["losses"]))
+    _, control_mapper_abs, control_outside = ddp_diff(emulated["fault"],
+                                                      split)
+    plain_rel, plain_mapper_abs, plain_outside = ddp_diff(main, ref)
+    diff = np.abs(main["render"].astype(int) - want)
+    fault = np.abs(main["fault_render"].astype(int) - want)
+    shared = torch.cuda.device_count() < TP_WORLD
+    unet_share = [r["frozen_bytes"]["unet"] / single_bytes["unet"]
+                  for r in ranks]
+    stats = dict(
+        backend=main["backend"], world=TP_WORLD, dp=1, tp=TP_WORLD,
+        ranks_share_one_card=main["shared_card"],
+        note=("the ranks share one card: the rate is not a scaling figure"
+              if main["shared_card"] else "one rank per card"),
+        batch=TRAIN_BATCH, height=TRAIN_HEIGHT, width=TRAIN_WIDTH,
+        warmup_steps=TP_WARM, timed_steps=TP_STEPS,
+        imgs_per_sec=TRAIN_BATCH * 1e3 / main["ms_per_step"],
+        ms_per_step=main["ms_per_step"],
+        ms_per_step_by_rank=[r["ms_per_step"] for r in ranks],
+        one_process_imgs_per_sec=TRAIN_BATCH * 1e3 / ref["ms_per_step"],
+        one_process_ms_per_step=ref["ms_per_step"],
+        split_in_one_process_ms_per_step=split["ms_per_step"],
+        gathers_per_step=main["gathers"] / steps,
+        gathers_per_step_from_table=want_gathers / steps,
+        gather_bytes_per_step=main["gather_bytes"] / steps,
+        gather_ms_per_step=main["gather_ms_timed"] / TP_STEPS,
+        frozen_bytes_by_rank=[r["frozen_bytes"] for r in ranks],
+        one_process_frozen_bytes=single_bytes,
+        unet_bytes_share_by_rank=unet_share,
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in ranks],
+        one_process_peak_memory_gib=ref["peak_memory_gib"],
+        launches_per_step_by_rank=[{k: v / steps for k, v in
+                                    r["launches"].items()} for r in ranks],
+        one_process_launches_per_step={k: v / steps for k, v in
+                                       single_launches.items()},
+        render_launches_by_rank=[r["render_launches"] for r in ranks],
+        losses=main["losses"], split_losses=split["losses"],
+        one_process_losses=ref["losses"],
+        max_loss_rel_diff=loss_rel, loss_limit=TP_LOSS_RTOL,
+        control_max_loss_rel_diff=control_rel,
+        control_mapper_elements_outside_tolerance=control_outside,
+        control_max_mapper_abs_diff=control_mapper_abs,
+        max_mapper_abs_diff=mapper_abs,
+        mapper_elements_outside_tolerance=outside,
+        mapper_elements=sum(v.size for v in split["mappers"].values()),
+        one_process_max_loss_rel_diff=plain_rel,
+        one_process_max_mapper_abs_diff=plain_mapper_abs,
+        one_process_mapper_elements_outside_tolerance=plain_outside,
+        counts_equal=all(r["counts"] == split["counts"] == ref["counts"]
+                         for r in ranks),
+        render_seeds=3, render_height=HEIGHT, render_width=WIDTH,
+        render_denoising_steps=TP_DENOISE,
+        render_s_by_rank=[r["render_s"] for r in ranks],
+        render_max_diff_levels=int(diff.max()),
+        render_mean_diff_levels=float(diff.mean()),
+        render_mean_limit=TP_RENDER_MEAN_LIMIT,
+        control_render_max_diff_levels=int(fault.max()),
+        control_render_mean_diff_levels=float(fault.mean()),
+        sd21=main["sd21"], sd21_limit=TP_SD21_RTOL, ranks_wall_s=ranks_s)
+    print(f"tp [{card}]: {json.dumps(stats)}", flush=True)
+    check(all(r["backend"] == ("gloo" if shared else "nccl")
+              and r["shared_card"] == shared for r in ranks),
+          f"ranks took {[r['backend'] for r in ranks]}")
+    check([r["layout"] for r in ranks]
+          == [(0, r, 1, TP_WORLD) for r in range(TP_WORLD)],
+          f"rank layout {[r['layout'] for r in ranks]}")
+    check(single_launches == want_launches,
+          f"one process launches {single_launches}, want {want_launches}")
+    for r in ranks:
+        check(r["launches"] == want_launches,
+              f"rank {r['rank']} launches {r['launches']}, want "
+              f"{want_launches}")
+        check(r["render_launches"] == want_render,
+              f"rank {r['rank']} render launches {r['render_launches']}, "
+              f"want {want_render}")
+        check(r["gathers"] == want_gathers,
+              f"rank {r['rank']}: {r['gathers']} all-gathers in "
+              f"{steps} steps, want {want_gathers} from the table")
+        check(r["losses"] == main["losses"] and all(
+            np.array_equal(v, main["mappers"][k])
+            for k, v in r["mappers"].items())
+            and np.array_equal(r["render"], main["render"])
+            and np.array_equal(r["fault_render"], main["fault_render"]),
+              f"rank {r['rank']} ended with other losses, mappers or "
+              "images than rank 0")
+    check(len(main["losses"]) == steps
+          and all(math.isfinite(x) for x in main["losses"]),
+          f"tp losses {main['losses']}")
+    check(loss_rel <= TP_LOSS_RTOL,
+          f"the ranks' losses differ from the split in one process by "
+          f"{loss_rel} relative, limit {TP_LOSS_RTOL}")
+    check(control_rel > TP_LOSS_RTOL,
+          f"the planted fault ({TP_FAULT_INPUTS}'s input gradients not "
+          f"summed) moved the losses by {control_rel} relative only: the "
+          f"limit {TP_LOSS_RTOL} would not catch it")
+    check(outside == 0, f"{outside} mapper elements differ from the split "
+                        f"in one process beyond rtol {TP_MAPPER_RTOL}, atol "
+                        f"{TP_MAPPER_ATOL} (largest {mapper_abs})")
+    check(stats["counts_equal"], "per-slice counts differ")
+    check(diff.mean() <= TP_RENDER_MEAN_LIMIT,
+          f"the ranks' render differs from one process's by "
+          f"{diff.mean()} levels on average, limit {TP_RENDER_MEAN_LIMIT}")
+    check(fault.mean() > TP_RENDER_MEAN_LIMIT,
+          f"the planted fault (rank 1's partial of {TP_FAULT_ROW} dropped) "
+          f"moved the render by {fault.mean()} levels on average only: "
+          f"the limit {TP_RENDER_MEAN_LIMIT} would not catch it")
+    sd21 = main["sd21"]
+    whole_level = [k for k in sd21["kept_whole"] if "attn" in k]
+    check(sd21["finite"] and sd21["rel_rms"] <= TP_SD21_RTOL,
+          f"SD-2.1 split forward: rel rms {sd21['rel_rms']}, limit "
+          f"{TP_SD21_RTOL}")
+    check(len(sd21["kept_whole"]) == len(whole_level) == 10
+          and all(" unet.down_blocks.0." in k or " unet.up_blocks.3." in k
+                  for k in sd21["kept_whole"])
+          and len(sd21["split_units"]) == 16 + 22,
+          f"SD-2.1 plan: kept whole {sd21['kept_whole']}, split "
+          f"{len(sd21['split_units'])}")
+    return dict(stats, launches={k: main["render_launches"][k] + v
+                                 for k, v in main["launches"].items()})
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
     shape, and the same summed over one run of each path that launches it
     (<path>_path_*: a serving run, a train step, the weights phase, the
     acceptance phase, the validate phase, the inference phase, the mode3
-    phase, the folders phase), each shape weighted by its launches
-    there."""
+    phase, the folders phase, a tp rank's render and training), each
+    shape weighted by its launches there."""
     report = []
     for key, name, source, replaces, tol in (
             ("K1", "flash_attention_fwd",
@@ -3095,7 +3641,7 @@ def kernel_report(kernels, launches, card):
         rows = kernels[key]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
         paths = ("serve", "train", "weights", "acceptance", "validate",
-                 "inference", "mode3", "folders")
+                 "inference", "mode3", "folders", "tp")
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
                                      for r in rows)
                 for p in paths
@@ -3216,6 +3762,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_ddp(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp(torch, dev, card)["launches"]
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
@@ -3224,7 +3773,8 @@ def main() -> int:
                                      "validate": validate_launches,
                                      "inference": inference_launches,
                                      "mode3": mode3_launches,
-                                     "folders": folders_launches}, card)
+                                     "folders": folders_launches,
+                                     "tp": tp_launches}, card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

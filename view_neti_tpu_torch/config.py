@@ -6,9 +6,10 @@ reference's pyrallis surface), so a config written for one reads the same
 in the other. YAML goes through utils/yaml_subset.py, the port's own reader
 and writer, since the machine with the card has no PyYAML.
 
-`parallel.*` steers data parallelism over torch.distributed
-(parallel/dist.py resolve): the port's counterpart of the JAX mesh's dp
-axis; its tp axis is not ported and raises under several ranks.
+`parallel.*` steers the dp x tp rank layout over torch.distributed
+(parallel/dist.py resolve and with_layout; parallel/tensor.py for
+tensor_parallel): the port's counterpart of the JAX mesh's dp and tp
+axes.
 `optim.steps_per_dispatch` (a TPU dispatch window) is accepted, so every
 config of the JAX package decodes, and the Coach says in one log line that
 it ignores it. `log.checkpoint_backend:
@@ -213,12 +214,14 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Data parallelism, the JAX package's device mesh (its fields and
+    """The rank layout, the JAX package's device mesh (its fields and
     defaults), read by parallel/dist.py resolve under a multi-rank launch:
-    use_mesh false refuses several ranks (None and true accept them); dp 0
-    is the world size, else it must equal it; tp > 1 and tensor_parallel
-    raise there (ROADMAP item 8b). One process ignores them, as a single
-    device does in the JAX Coach."""
+    use_mesh false refuses several ranks (None and true accept them); tp
+    must divide the world size; dp 0 is world / tp, else it must equal it;
+    tensor_parallel splits the frozen UNet's and CLIP's projections over
+    each group of tp ranks (parallel/tensor.py), and without it the tp
+    ranks are replicas. One process ignores them, as a single device does
+    in the JAX Coach."""
     use_mesh: Optional[bool] = None
     dp: int = 0
     tp: int = 1

@@ -23,18 +23,49 @@ weights, a deviation ROADMAP.md records). VIEW_NETI_TINY=1 swaps in the
 miniature stack;
 `main(argv, device="cpu")` runs on the CPU. Under torchrun (or the
 VIEW_NETI_* variables of parallel/dist.py) each sweep's cameras are split
-over the ranks and rank 0 writes everything; the other ranks return None.
+over the dp groups and rank 0 writes everything; the other ranks return
+None. --parallel.* options set the run config's parallel section (the
+checkpoint's own otherwise): with --parallel.tp N
+--parallel.tensor_parallel true each group of N ranks
+renders its cameras together through the split UNet and CLIP
+(parallel/tensor.py); a rank that fails inside them leaves its partners
+waiting until the process group's timeout.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import sys
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-from view_neti_tpu_torch.config import InferenceConfig, parse_cli
+from view_neti_tpu_torch.config import (InferenceConfig, ParallelConfig,
+                                        parse_cli)
+
+
+def split_parallel_args(argv: List[str]) -> Tuple[List[str], List[str]]:
+    """(the InferenceConfig's arguments, the --parallel.* ones as
+    ParallelConfig arguments: --tp 2 ...)."""
+    rest, parallel, i = [], [], 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--parallel."):
+            rest.append(arg)
+            i += 1
+            continue
+        key = "--" + arg[len("--parallel."):]
+        if "=" in key:
+            parallel.append(key)
+            i += 1
+        else:
+            parallel += [key] + argv[i + 1:i + 2]
+            i += 2
+    return rest, parallel
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> Optional[Dict]:
+    argv, parallel_argv = split_parallel_args(
+        list(sys.argv[1:] if argv is None else argv))
     infer_cfg = parse_cli(argv, cls=InferenceConfig)
     if infer_cfg.input_dir is None or infer_cfg.iteration is None:
         raise SystemExit("input_dir and iteration are required (set them "
@@ -59,6 +90,12 @@ def main(argv: Optional[List[str]] = None, device=None) -> Optional[Dict]:
     cfg.eval.num_validation_images = len(infer_cfg.seeds)
     cfg.eval.num_denoising_steps = infer_cfg.num_denoising_steps
     cfg.debug = bool(infer_cfg.debug)
+    if parallel_argv:
+        given = parse_cli(parallel_argv, cls=ParallelConfig)
+        keys = {a[2:].split("=")[0] for a in parallel_argv
+                if a.startswith("--")}
+        cfg.parallel = dataclasses.replace(
+            cfg.parallel, **{k: getattr(given, k) for k in keys})
     if infer_cfg.eval_placeholder_object_tokens:
         cfg.eval.eval_placeholder_object_tokens = list(
             infer_cfg.eval_placeholder_object_tokens)

@@ -8,6 +8,10 @@ loads strictly. As in the JAX module:
   * the mappers run outside; their word-embedding and bypass vectors come
     in as arguments, and this module overwrites the placeholder row and
     merges the bypass after the encoder;
+  * under tensor parallelism (parallel/tensor.py shard_frozen_) each MLP
+    runs its rank's piece of the hidden units and adds its input's
+    gradient over the tp group (copy_to_tp); attention stays whole, as
+    in the JAX mesh;
   * the token table carries `vocab_headroom` spare rows for placeholder
     tokens;
   * attention logits are fp32 with a finfo(f32).min causal bias;
@@ -27,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from view_neti_tpu_torch.ops.norm import LayerNorm
+from view_neti_tpu_torch.parallel.tensor import copy_to_tp
 
 
 @dataclass(frozen=True)
@@ -88,11 +93,12 @@ class CLIPMLP(nn.Module):
         self.act = cfg.hidden_act
         if self.act not in ("quick_gelu", "gelu"):
             raise ValueError(self.act)
+        self.tp = None
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        h = self.fc1(x)
+        h = self.fc1(copy_to_tp(x, self.tp))
         if self.act == "quick_gelu":
             h = h * torch.sigmoid(1.702 * h)
         else:

@@ -11,6 +11,10 @@ checkpoint loads strictly. As in the JAX module:
     conv_out runs in fp32;
   * every attention call goes through ops.attention.multi_head_attention,
     the flash-attention kernel on the card;
+  * under tensor parallelism (parallel/tensor.py shard_frozen_) an
+    attention runs its rank's heads and a feed-forward its rank's piece of
+    the hidden units; `tp` is then the rank's record, and each adds its
+    inputs' gradients over the tp group (copy_to_tp);
   * the ResNet convs stay unfused (the fused conv serves the VAE);
   * with `gradient_checkpointing` the ResNet blocks are recomputed in the
     backward (torch.utils.checkpoint), as nn.remat does there.
@@ -30,6 +34,7 @@ from view_neti_tpu_torch.ops.attention import multi_head_attention
 from view_neti_tpu_torch.ops.conv import conv_nhwc
 from view_neti_tpu_torch.ops.norm import GroupNorm, LayerNorm
 from view_neti_tpu_torch.ops.resize import nearest_upsample_2x
+from view_neti_tpu_torch.parallel.tensor import copy_to_tp
 
 
 @dataclass(frozen=True)
@@ -110,25 +115,32 @@ class ResnetBlock(nn.Module):
 class CrossAttention(nn.Module):
     """QKV attention with separate K-source and V-source tensors: None for
     both is self-attention; for XTI cross-attention ctx_k is the regular
-    context and ctx_v the bypass context."""
+    context and ctx_v the bypass context. heads: the heads this process
+    runs (under tensor parallelism, its rank's)."""
 
     def __init__(self, dim: int, ctx_dim: int, heads: int):
         super().__init__()
         self.heads = heads
+        self.tp = None
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(ctx_dim, dim, bias=False)
         self.to_v = nn.Linear(ctx_dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x, ctx_k=None, ctx_v=None):
-        B, L, C = x.shape
+        B, L, _ = x.shape
         H = self.heads
-        src_k = x if ctx_k is None else ctx_k.to(x.dtype)
-        src_v = src_k if ctx_v is None else ctx_v.to(x.dtype)
-        q = self.to_q(x).reshape(B, L, H, C // H)
-        k = self.to_k(src_k).reshape(B, src_k.shape[1], H, C // H)
-        v = self.to_v(src_v).reshape(B, src_v.shape[1], H, C // H)
-        out = multi_head_attention(q, k, v).reshape(B, L, C)
+        x = copy_to_tp(x, self.tp)
+        src_k = x if ctx_k is None else copy_to_tp(ctx_k.to(x.dtype),
+                                                   self.tp)
+        src_v = src_k if ctx_v is None else copy_to_tp(ctx_v.to(x.dtype),
+                                                       self.tp)
+        q = self.to_q(x)
+        hd = q.shape[-1] // H
+        q = q.reshape(B, L, H, hd)
+        k = self.to_k(src_k).reshape(B, src_k.shape[1], H, hd)
+        v = self.to_v(src_v).reshape(B, src_v.shape[1], H, hd)
+        out = multi_head_attention(q, k, v).reshape(B, L, H * hd)
         return self.to_out[0](out)
 
 
@@ -145,10 +157,12 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
+        self.tp = None
         self.net = nn.ModuleList(
             [GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp)
         for m in self.net:
             x = m(x)
         return x

@@ -26,7 +26,16 @@ Data parallel, one process per rank (parallel/dist.py):
 VIEW_NETI_PROCESS_ID) computes what one process computes, up to the order
 of the gradient sum; N must divide the fused batch (9 in the shipped
 recipes: 1, 3 or 9 ranks). Ranks with a card each talk over NCCL, ranks
-sharing one card over gloo.
+sharing one card over gloo. The mesh's tp axis:
+
+    torchrun --standalone --nproc_per_node 2 -m view_neti_tpu_torch.train \
+        --config_path input_configs/train.yaml \
+        --parallel.tp 2 --parallel.tensor_parallel true
+
+runs dp = N / tp groups of tp ranks; the ranks of a group hold the same
+rows and split the frozen UNet's attention and feed-forward projections
+and CLIP's MLP between them (parallel/tensor.py). dp must divide the fused
+batch.
 """
 from __future__ import annotations
 

@@ -55,11 +55,20 @@ What it runs, as the JAX Coach runs it:
     barrier; every rank enters the validation cadence, rank 0 runs the
     round and the others render their share of its DTU sweeps
     (inference_dtu.serve_sweeps), and rank 0's verdict keeps the
-    consecutive-failure count equal on every rank.
+    consecutive-failure count equal on every rank;
+  * the mesh's tp axis (parallel.tp): the ranks form a dp x tp layout
+    (dist_lib.with_layout); the rows, the draws and the sweeps are cut by
+    the dp index, so the ranks of a tp group compute the same rows, and
+    the gradient all-reduce runs over the dp group. With
+    parallel.tensor_parallel the frozen UNet's attention and feed-forward
+    projections and CLIP's MLP are split over the tp group after the
+    weights are loaded (parallel/tensor.py shard_frozen_, the JAX Coach's
+    _place_frozen_on_mesh); the ranks of a group then render rank 0's
+    prompt sheets together with it (inference_dtu.render_prompt_rows).
 
 Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
-scan (make_multi_step), the mesh's tp axis (ROADMAP item 8b), the XLA cost
-hook, the orbax format (train_state.py writes the port's own).
+scan (make_multi_step), the XLA cost hook, the orbax format
+(train_state.py writes the port's own).
 """
 from __future__ import annotations
 
@@ -83,6 +92,7 @@ from view_neti_tpu_torch.data.dataset import (DataLoader,
 from view_neti_tpu_torch.data.loader import PrefetchLoader
 from view_neti_tpu_torch.ops import device_augment
 from view_neti_tpu_torch.parallel import dist as dist_lib
+from view_neti_tpu_torch.parallel import tensor as tensor_lib
 from view_neti_tpu_torch.tokenizer import FallbackTokenizer, load_tokenizer
 from view_neti_tpu_torch.training import builder, inference_dtu
 from view_neti_tpu_torch.training.logger import CoachLogger
@@ -140,15 +150,20 @@ class Coach:
         else:
             self.micro_batch_size = o.train_batch_size
             self.accum_k = o.gradient_accumulation_steps
-        dist_lib.resolve(cfg.parallel, self.micro_batch_size,
-                         self.dist.world)
+        n_dp = dist_lib.resolve(cfg.parallel, self.micro_batch_size,
+                                self.dist.world)
+        self.dist = dist_lib.with_layout(self.dist, self.dist.world // n_dp,
+                                         cfg.parallel.tensor_parallel)
         if self.dist.active:
             self.logger.log_message(
                 f"data parallel: {self.dist.world} ranks over "
                 f"{self.dist.backend}"
                 f"{' sharing one card' if self.dist.shared_card else ''}, "
-                f"{self.micro_batch_size // self.dist.world} of the "
+                f"{self.micro_batch_size // n_dp} of the "
                 f"{self.micro_batch_size} rows a step each")
+            self.logger.log_message(
+                f"device mesh: dp={n_dp} tp={self.dist.tp_world} "
+                f"(tensor_parallel={cfg.parallel.tensor_parallel})")
         self.logger.log_message(
             "TPU-only settings are ignored: optim.steps_per_dispatch")
         mp = cfg.optim.mixed_precision
@@ -195,6 +210,8 @@ class Coach:
             calibration_dir=calibration_dir, device=self.device)
         if weights_dir is not None:
             self._load_pretrained_weights(weights_dir)
+        tensor_lib.shard_frozen_(self.built.unet, self.built.text.clip,
+                                 self.dist, log=self.logger.log_message)
         self._maybe_load_pretrained_mappers()
         fuse = cfg.optim.fuse_conv
         self.fuse_conv = (self.device.type == "cuda" if fuse is None

@@ -16,11 +16,18 @@ per-view labels in the log.
 
 Under data parallelism (the counterpart of the JAX package's dp-sharded
 denoise batch) rank 0 runs the validation round or the offline sweep; each
-sweep's cameras are split over the ranks (dist.split_items), every rank
-renders its own at the view batch it uses alone, so each image is the one
-the one-process sweep computes, and the uint8 images come to rank 0
-(dist.gather_to_main). The other ranks wait in serve_sweeps for each
-sweep's request until rank 0 ends the round (end_sweeps).
+sweep's cameras are split over the dp groups (dist.split_items), every
+group renders its own at the view batch it uses alone, so each image is
+the one the one-process sweep computes, and the uint8 images come to rank
+0 (dist.gather_to_main) from tp index 0 of each group. The other ranks
+wait in serve_sweeps for each request until rank 0 ends the round
+(end_sweeps). Under tensor parallelism the ranks of a tp group render
+their cameras in lockstep, each through its piece of the split UNet and
+CLIP, and rank 0's tp group renders its prompt sheets with it
+(render_prompt_rows). A rank that fails between two of the UNet's
+collectives leaves its partners waiting in the next one until the process
+group's timeout (dist.TIMEOUT_S) ends them: the failure is not caught, as
+no partner could go on without it.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from view_neti_tpu_torch.checkpoint import CheckpointHandler
 from view_neti_tpu_torch.constants import DTU_MASKS, DTU_SPLIT_IDXS
 from view_neti_tpu_torch.data import dtu as dtu_mod
 from view_neti_tpu_torch.data import image_io
-from view_neti_tpu_torch.inference.pipeline import (encode_uncond,
+from view_neti_tpu_torch.inference.pipeline import (encode_uncond, generate,
                                                     generate_batch,
                                                     make_denoise_fn)
 from view_neti_tpu_torch.inference.prompt_manager import PromptManager
@@ -278,18 +285,20 @@ def dtu_generate_camidxs_to_preds(coach, cam_idxs: Sequence[int],
 
 
 def _render_share(coach, request: Dict) -> Optional[Dict[int, np.ndarray]]:
-    """The rank's share of a split sweep, gathered on rank 0 in camera
-    order. A rank's failure to render travels with the gather and raises on
-    rank 0, so that the ranks never part at a collective."""
+    """The rank's dp group's share of a split sweep, gathered on rank 0 in
+    camera order (tp index 0 of each group sends the images). A failure to
+    render outside the UNet's collectives travels with the gather and
+    raises on rank 0, so that the ranks never part at a collective."""
     dp = coach.dist
     kwargs = dict(request)
     cams = kwargs.pop("cam_idxs")
-    share = dist.split_items(cams, dp.rank, dp.world)
+    share = dist.split_items(cams, dp.dp_index, dp.dp_world)
     try:
         part, error = render_cameras(coach, share, **kwargs), None
     except Exception as e:   # sent to rank 0, which raises
         part, error = None, f"rank {dp.rank}: {e!r}\n{traceback.format_exc()}"
-    parts = dist.gather_to_main(dp, (part, error))
+    parts = dist.gather_to_main(dp, (part if dp.tp_index == 0 else None,
+                                     error))
     if parts is None:
         return None
     errors = [e for _, e in parts if e is not None]
@@ -297,19 +306,79 @@ def _render_share(coach, request: Dict) -> Optional[Dict[int, np.ndarray]]:
         raise RuntimeError("split DTU sweep failed:\n" + "\n".join(errors))
     merged = {}
     for p, _ in parts:
-        merged.update(p)
+        merged.update(p or {})
     return {c: merged[c] for c in cams}
 
 
 def serve_sweeps(coach) -> bool:
     """A rank other than 0 during rank 0's validation round or offline
-    run: render its share of each sweep that rank 0 requests until rank 0
-    ends the round; returns rank 0's verdict, whether the round failed."""
+    run: render its share of each sweep that rank 0 requests, and under
+    tensor parallelism in rank 0's tp group each prompt sheet with it,
+    until rank 0 ends the round; returns rank 0's verdict, whether the
+    round failed."""
     while True:
         request = dist.broadcast_from_main(coach.dist)
         if "failed" in request:
             return request["failed"]
+        if "prompts" in request:
+            if coach.dist.dp_index == 0:
+                _prompt_rows(coach, **request)
+            continue
         _render_share(coach, request)
+
+
+def render_prompt_rows(coach, prompts: Sequence[str], num_steps: int,
+                       res: int, seeds: Sequence[int]) -> np.ndarray:
+    """Rank 0's (or one process's) prompt sheet: one row per prompt across
+    the seeds, res x res, with the live mappers. Under tensor parallelism
+    rank 0 first asks its tp group, waiting in serve_sweeps, to render the
+    same rows with it."""
+    request = dict(prompts=list(prompts), num_steps=num_steps, res=res,
+                   seeds=list(seeds))
+    if coach.dist.sharded:
+        dist.broadcast_from_main(coach.dist, request)
+    return _prompt_rows(coach, **request)
+
+
+@torch.no_grad()
+def _prompt_rows(coach, prompts: Sequence[str], num_steps: int, res: int,
+                 seeds: Sequence[int]) -> np.ndarray:
+    """Each prompt across the seeds, one row per prompt, stacked into a
+    sheet. The object mapper of each prompt is the one whose token id it
+    holds."""
+    unet, vae = coach.infer_frozen()
+    text = coach.built.text
+    schedule = DPMSolverSchedule(
+        prediction_type=coach.built.schedule.prediction_type)
+    pm = PromptManager(
+        coach.tokenizer, text, schedule.set_timesteps(num_steps),
+        placeholder_view_token_ids=coach.built.placeholder_view_token_ids,
+        placeholder_object_token_ids=coach.built.placeholder_object_token_ids,
+        dtype=coach.compute_dtype)
+    uncond = encode_uncond(text.clip, coach.tokenizer)
+    denoise = make_denoise_fn(unet, schedule, num_steps, 7.5,
+                              coach.compute_dtype)
+    rows, pending = [], None
+    for prompt in prompts:
+        prompt_ids = set(int(x) for x in np.asarray(coach.tokenizer(
+            prompt, padding="max_length", truncation=True,
+            max_length=coach.tokenizer.model_max_length
+        ).input_ids).reshape(-1).tolist())
+        object_idx = next(
+            (i for i, tok_id in enumerate(
+                coach.built.placeholder_object_token_ids or ())
+             if int(tok_id) in prompt_ids), 0)
+        ctx, ctx_b = pm.embed_prompt(prompt, object_idx=object_idx)
+        dev = generate(unet, vae, schedule, ctx, ctx_b, uncond, res, res,
+                       seeds, num_steps, 7.5, coach.compute_dtype,
+                       denoise_fn=denoise, as_numpy=False,
+                       device=coach.device)
+        if pending is not None:
+            rows.append(np.concatenate(list(pending.cpu().numpy()), axis=1))
+        pending = dev
+    if pending is not None:
+        rows.append(np.concatenate(list(pending.cpu().numpy()), axis=1))
+    return np.concatenate(rows, axis=0)
 
 
 def end_sweeps(coach, failed: bool) -> None:

@@ -16,8 +16,10 @@ Sheets are PNGs written by data/image_io, their captions in the log; the
 DTU sweeps reload the step's mapper files, the other renders use the live
 mappers. Under data parallelism the handler runs on rank 0 alone: the DTU
 sweeps of infer_dtu, infer_mode3 and infer_t2i_generalization split their
-cameras over the ranks (inference_dtu.dtu_generate_camidxs_to_preds), and
-the metrics, sheets and bundles stay on rank 0.
+cameras over the dp groups (inference_dtu.dtu_generate_camidxs_to_preds),
+under tensor parallelism rank 0's tp group renders the prompt sheets with
+it (inference_dtu.render_prompt_rows), and the metrics, sheets and bundles
+stay on rank 0.
 """
 from __future__ import annotations
 
@@ -25,14 +27,9 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from view_neti_tpu_torch.constants import T2I_GENERALIZATION_PROMPTS
 from view_neti_tpu_torch.data import image_io
-from view_neti_tpu_torch.inference.pipeline import (encode_uncond, generate,
-                                                    make_denoise_fn)
-from view_neti_tpu_torch.inference.prompt_manager import PromptManager
-from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.training import inference_dtu
 from view_neti_tpu_torch.utils import msgpack_codec
 from view_neti_tpu_torch.utils.vis import make_grid_np, to_uint8
@@ -277,53 +274,19 @@ class ValidationHandler:
         out = Path(cfg.log.exp_dir) / f"val-{tag}-step{step}.png"
         self._render_prompts(coach, num_steps, prompts, out, tag=tag)
 
-    @torch.no_grad()
     def _render_prompts(self, coach, num_steps: int, prompts: Sequence[str],
                         out_path: Path, tag: str = "validation",
                         res: Optional[int] = None) -> np.ndarray:
         """Each prompt across the validation seeds with the live mappers:
-        one row per prompt, stacked into a sheet written at out_path.
-        Square renders at 512 (32 on the tests' miniature protocol) unless
-        res is given. The object mapper of each prompt is the one whose
-        token id it holds."""
+        one row per prompt, stacked into a sheet written at out_path
+        (inference_dtu.render_prompt_rows, with rank 0's tp group under
+        tensor parallelism). Square renders at 512 (32 on the tests'
+        miniature protocol) unless res is given."""
         cfg = self.cfg
-        unet, vae = coach.infer_frozen()
-        text = coach.built.text
-        schedule = DPMSolverSchedule(
-            prediction_type=coach.built.schedule.prediction_type)
-        pm = PromptManager(
-            coach.tokenizer, text, schedule.set_timesteps(num_steps),
-            placeholder_view_token_ids=coach.built.placeholder_view_token_ids,
-            placeholder_object_token_ids=(
-                coach.built.placeholder_object_token_ids),
-            dtype=coach.compute_dtype)
-        uncond = encode_uncond(text.clip, coach.tokenizer)
         if res is None:
             res = 512 if cfg.data.dtu_preprocess_key != -1 else 32
-        denoise = make_denoise_fn(unet, schedule, num_steps, 7.5,
-                                  coach.compute_dtype)
-        rows, pending = [], None
-        for prompt in prompts:
-            prompt_ids = set(int(x) for x in np.asarray(coach.tokenizer(
-                prompt, padding="max_length", truncation=True,
-                max_length=coach.tokenizer.model_max_length
-            ).input_ids).reshape(-1).tolist())
-            object_idx = next(
-                (i for i, tok_id in enumerate(
-                    coach.built.placeholder_object_token_ids or ())
-                 if int(tok_id) in prompt_ids), 0)
-            ctx, ctx_b = pm.embed_prompt(prompt, object_idx=object_idx)
-            dev = generate(unet, vae, schedule, ctx, ctx_b, uncond, res, res,
-                           cfg.eval.validation_seeds, num_steps, 7.5,
-                           coach.compute_dtype, denoise_fn=denoise,
-                           as_numpy=False, device=coach.device)
-            if pending is not None:
-                rows.append(np.concatenate(list(pending.cpu().numpy()),
-                                           axis=1))
-            pending = dev
-        if pending is not None:
-            rows.append(np.concatenate(list(pending.cpu().numpy()), axis=1))
-        sheet = np.concatenate(rows, axis=0)
+        sheet = inference_dtu.render_prompt_rows(
+            coach, prompts, num_steps, res, cfg.eval.validation_seeds)
         image_io.write_png(out_path, sheet)
         coach.logger.log_message(f"saved {tag} sheet {out_path}")
         return sheet
