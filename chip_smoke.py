@@ -132,13 +132,18 @@ Phases; any failure ends the run with a non-zero exit:
                 full width with seeded bf16 weights and fp32 mappers: the
                 mode-0 recipe (input_configs/train_mode0.yaml: fused B = 9,
                 the flip on the card, arch 15, nested dropout, bypass 0.2)
-                on a folder of ten 512x512 views: the five committed
+                on a folder of fourteen 512x512 views: the five committed
                 baseline JPEGs (tests/data/jpeg/teapot) and one per format
                 of tests/data/formats/teapot (progressive 4:2:0 and
                 progressive CMYK JPEG, YCCK JPEG, Adam7 8-bit RGB PNG,
-                16-bit RGB PNG), decoded by the port's readers; first every
-                committed image fixture decoded on the host and held to
-                its manifest's sha256 of PIL's decode; then spherical mode 2
+                16-bit RGB PNG, arithmetic-coded sequential 4:2:0 and
+                progressive 4:4:4 JPEG, lossless RGB and gray JPEG),
+                decoded by the port's readers; first every committed
+                image fixture decoded on the host and held to its
+                manifest's sha256 of PIL's decode, with the decode ms per
+                megapixel of each kind of 512x512 view, and the host
+                crop's compiled resize against its plain numpy version;
+                then spherical mode 2
                 on an llff folder of 12 PNG views (6 at 1008x756, 6 at
                 756x1008; deg_freedom "phi") with data.device_augment
                 false, preset 7 cropping to 512x512 on the host; each run 2
@@ -269,7 +274,8 @@ M3_SWEEP_CAMS = 4
 FOLDERS_CONFIG = os.path.join("input_configs", "train_mode0.yaml")
 # the mode-0 folder: the five baseline JPEGs and one 512x512 view per
 # format of tests/data/formats (progressive 4:2:0, progressive CMYK, YCCK,
-# Adam7 8-bit RGB PNG, 16-bit RGB PNG)
+# Adam7 8-bit RGB PNG, 16-bit RGB PNG, arithmetic-coded sequential 4:2:0
+# and progressive 4:4:4, lossless RGB and gray)
 FOLDERS_VIEW_DIRS = (os.path.join("tests", "data", "jpeg", "teapot"),
                      os.path.join("tests", "data", "formats", "teapot"))
 # the committed image fixtures, each with a manifest of PIL's decode
@@ -282,6 +288,19 @@ FOLDERS_SIZE = 512
 FOLDERS_PROMPTS = 2      # eval.validation_prompts cut to the first 2
 FOLDERS_SHEET_TOKENS = 3  # the prompt sheet's view tokens (and one without)
 FOLDERS_VIEWS = 12       # the llff folder: 6 at 1008x756, 6 at 756x1008
+FOLDERS_MODE0_VIEWS = 14
+# the 512x512 views whose decode ms per megapixel the phase prints by kind
+DECODE_KINDS = {
+    "baseline_420": "tests/data/jpeg/teapot/view_0.jpg",
+    "progressive_420": "tests/data/formats/teapot/view_5_progressive.jpg",
+    "arith_seq_420": "tests/data/formats/teapot/view_10_arith.jpg",
+    "arith_prog_444_rst": "tests/data/formats/teapot/view_11_arith_prog.jpg",
+    "lossless_rgb_p1": "tests/data/formats/teapot/view_12_lossless_rgb.jpg",
+    "lossless_gray_p7": "tests/data/formats/teapot/view_13_lossless_gray.jpg",
+}
+# the host crop's compiled resize (data/augment.py) against its plain numpy
+# version, which fuses every multiply-add: within a level
+RESIZE_PLAIN_MAX_LEVELS = 1
 FOLDERS_RENDERS = FOLDERS_PROMPTS + 1 + FOLDERS_SHEET_TOKENS
 
 
@@ -2322,6 +2341,37 @@ def decode_fixtures(image_io, np):
     return out
 
 
+def crop_resize_check(np):
+    """The host crop's resize (data/augment.py: native_bilinear_resize,
+    csrc/bilinear_resize.cpp built with -march=native on this host) against
+    its plain numpy version on the llff crops' shapes (a 1008x756 view's
+    crop boxes to 512x512), within RESIZE_PLAIN_MAX_LEVELS; the ms of
+    each."""
+    from view_neti_tpu_torch.data import augment
+    from view_neti_tpu_torch.ops import build
+    t0 = time.perf_counter()
+    build.host_library("bilinear_resize")
+    rng = np.random.default_rng(0)
+    out = dict(max_levels=0, build_or_load_s=time.perf_counter() - t0,
+               compiled_ms=[], plain_ms=[])
+    for h, w in ((700, 900), (756, 640), (512, 1008)):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        got = augment.native_bilinear_resize(img, FOLDERS_SIZE, FOLDERS_SIZE)
+        t1 = time.perf_counter()
+        want = augment.native_bilinear_resize_plain(img, FOLDERS_SIZE,
+                                                    FOLDERS_SIZE)
+        t2 = time.perf_counter()
+        levels = int(np.abs(got.astype(int) - want.astype(int)).max())
+        check(levels <= RESIZE_PLAIN_MAX_LEVELS,
+              f"the crop resize at {h}x{w} is {levels} levels from its "
+              f"plain version")
+        out["max_levels"] = max(out["max_levels"], levels)
+        out["compiled_ms"].append((t1 - t0) * 1e3)
+        out["plain_ms"].append((t2 - t1) * 1e3)
+    return out
+
+
 def phase_folders(torch, dev, card):
     """Training on other datasets' folders and the export of its mappers:
     every committed image fixture held to its manifest, the mode-0 recipe
@@ -2500,6 +2550,13 @@ def phase_folders(torch, dev, card):
         fixtures_ms_per_mp = decode_fixtures(image_io, np)
         print(f"decode fixtures [{card}]: "
               f"{json.dumps(fixtures_ms_per_mp)}", flush=True)
+        kinds_ms_per_mp = {k: fixtures_ms_per_mp[v]
+                           for k, v in DECODE_KINDS.items()}
+        print(f"decode kinds 512x512 ms/MP [{card}]: "
+              f"{json.dumps(kinds_ms_per_mp)}", flush=True)
+        resize_check = crop_resize_check(np)
+        print(f"crop resize [{card}]: {json.dumps(resize_check)}",
+              flush=True)
 
         # ---- (a) the mode-0 recipe on the mixed-format folder ------------
         folder = os.path.join(root, "teapot")
@@ -2525,7 +2582,8 @@ def phase_folders(torch, dev, card):
                 c.augment_spec == da.from_augmentation_key(0, 0.5)
                 and c.use_pixel_cache and not c.cache_latents
                 and c.compute_dtype == torch.bfloat16
-                and c.train_dataset.num_images == len(views) == 10))
+                and c.train_dataset.num_images == len(views)
+              == FOLDERS_MODE0_VIEWS))
         check(os.path.exists(os.path.join(
             root, "mode0", f"val-images-{FOLDERS_WARM}.png")),
             "no mode-0 validation sheet")
@@ -2577,7 +2635,25 @@ def phase_folders(torch, dev, card):
         check(all(x.shape == (FOLDERS_SIZE, FOLDERS_SIZE, 3)
                   and x.min() >= -1 and x.max() <= 1 for x in pix),
               "host-augmented pixels")
+        # the same examples with the crop's plain numpy resize, for the
+        # compiled resize's share of the host path
+        from view_neti_tpu_torch.data import augment
+        compiled = augment.native_bilinear_resize
+        augment.native_bilinear_resize = augment.native_bilinear_resize_plain
+        try:
+            t0 = time.perf_counter()
+            for i in range(B):
+                ds._load_pixels(pngs[i % len(pngs)],
+                                np.random.default_rng((7, i)))
+            aug_plain_ms = (time.perf_counter() - t0) * 1e3 / B
+        finally:
+            augment.native_bilinear_resize = compiled
+        print(f"llff host path [{card}]: {aug_ms:.3f} ms per example "
+              f"(preset 7 on cached bases, crop to {FOLDERS_SIZE}x"
+              f"{FOLDERS_SIZE}, B = {B}); {aug_plain_ms:.3f} with the "
+              f"crop's plain numpy resize", flush=True)
         stats_b.update(host_augment_ms_per_example=aug_ms,
+                       host_augment_plain_crop_ms_per_example=aug_plain_ms,
                        host_augment_share_of_step=(
                            aug_ms * B / stats_b["ms_per_step"]),
                        write_views_s=write_s)
@@ -2593,7 +2669,9 @@ def phase_folders(torch, dev, card):
         for p in pngs:
             image_io.read_rgb(p)
         decode = dict(llff_png8_ms_per_mp=(time.perf_counter() - t0) * 1e3
-                      / mp, fixtures_equal_to_pil=len(fixtures_ms_per_mp))
+                      / mp, fixtures_equal_to_pil=len(fixtures_ms_per_mp),
+                      kinds_ms_per_mp=kinds_ms_per_mp,
+                      crop_resize=resize_check)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {k: launches_a[k] + launches_b[k] for k in launches_a}

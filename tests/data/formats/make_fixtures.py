@@ -11,6 +11,9 @@ tests/data/jpeg/make_fixtures.py (view 5 onwards):
                            to 2: the decoder reads it as YCCK
   view_8_adam7.png         8-bit RGB, Adam7 interlaced
   view_9_rgb16.png         16-bit RGB (the view in the high byte)
+  view_10_arith.jpg ...      arithmetic-coded and lossless JPEG views,
+  view_13_lossless_gray.jpg  with the small arith/ and lossless/ files:
+                             make_arith_lossless.py (`fixtures`)
 ycck_45x37.jpg: a small YCCK file, patched the same way.
 smoothing_5scans.jpg: the first 5 scans of a progressive file and an EOI;
 its coefficients stay unrefined, so libjpeg's block smoothing runs.
@@ -140,9 +143,18 @@ def first_scans(data: bytes, n: int) -> bytes:
     return data[:starts[n]] + b"\xff\xd9"
 
 
+def _arith_lossless():
+    spec = importlib.util.spec_from_file_location(
+        "arith_lossless", HERE / "make_arith_lossless.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def write_all() -> dict:
     view = _jpeg_views()
-    (HERE / "teapot").mkdir(exist_ok=True)
+    for sub in ("teapot", "arith", "lossless"):
+        (HERE / sub).mkdir(exist_ok=True)
     files = {
         "teapot/view_5_progressive.jpg": jpeg_bytes(
             Image.fromarray(view(5)), quality=90, subsampling=2,
@@ -163,6 +175,7 @@ def write_all() -> dict:
     y, x = np.mgrid[0:512, 0:512]
     low = ((x * 5 + y * 3) % 256).astype(np.uint16)[..., None]
     files["teapot/view_9_rgb16.png"] = png_bytes((hi << 8) | low, 2, 16)
+    files.update(_arith_lossless().fixtures(view))
     manifest = {}
     for rel in sorted(files):
         (HERE / rel).write_bytes(files[rel])

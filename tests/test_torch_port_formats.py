@@ -4,9 +4,9 @@ PIL's Image.open(p).convert("RGB"), bit for bit: progressive JPEG at every
 sampling with and without restarts, CMYK and YCCK, libjpeg's block
 smoothing on every cut of a scan script, a second image after the first
 EOI; Adam7 PNG at every color type and bit depth down to 1x1, 16-bit and
-low-bit PNG; image_size on each; the committed fixtures against their
-manifest; and the mode-0 dataset on a folder of mixed formats against the
-JAX package's."""
+low-bit PNG; image_size on each; the committed fixtures (arithmetic-coded
+and lossless JPEG among them) against their manifest; and the mode-0
+dataset on a folder of mixed formats against the JAX package's."""
 import hashlib
 import importlib.util
 import json
@@ -279,7 +279,9 @@ def one_thread():
 
 def test_mode0_dataset_on_a_mixed_folder_equals_jax(tmp_path, one_thread):
     """The mode-0 training folder of the card's run (the five baseline
-    JPEGs and one 512x512 view per new format): the same files, captions
+    JPEGs and one 512x512 view per other format: progressive, CMYK and
+    YCCK JPEG, Adam7 and 16-bit PNG, arithmetic-coded sequential and
+    progressive JPEG, lossless RGB and gray JPEG): the same files, captions
     and ids as the JAX TextualInversionDataset, every decode equal to
     PIL's, bases within one level of JAX's (the two packages' resizes
     differ by a level), and with JAX's bases in the port's cache every
@@ -295,7 +297,11 @@ def test_mode0_dataset_on_a_mixed_folder_equals_jax(tmp_path, one_thread):
     t = tdataset.TextualInversionDataset(tokenizer=TTok(), **kw)
     assert [p.name for p in t.image_paths] == [p.name
                                                for p in j.image_paths]
-    assert t.num_images == 10
+    assert t.num_images == 14
+    names = [p.name for p in t.image_paths]
+    assert {"view_10_arith.jpg", "view_11_arith_prog.jpg",
+            "view_12_lossless_rgb.jpg", "view_13_lossless_gray.jpg"} <= set(
+                names)
     for p in t.image_paths:
         assert_like_pil(p)
         want = np.asarray(j._load_base(p)).astype(int)

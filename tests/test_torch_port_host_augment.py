@@ -116,13 +116,47 @@ def test_random_resized_crop(seed, scale):
     assert_same(got, want, rt, rj)
 
 
-@pytest.mark.parametrize("shape", [(97, 131, 64, 64), (50, 60, 300, 20),
-                                   (200, 170, 97, 131)])
+RESIZE_SHAPES = [(97, 131, 64, 64), (50, 60, 300, 20), (200, 170, 97, 131)]
+# the plain numpy resize fuses every multiply-add; a build of the native
+# library may leave some unfused, which moves a sum that rounds across .5
+# by one level
+PLAIN_MAX_LEVELS = 1
+
+
+@pytest.mark.parametrize("shape", RESIZE_SHAPES)
 def test_native_bilinear_resize(shape):
+    """The compiled crop resize (csrc/bilinear_resize.cpp, built with
+    native/Makefile's flags) against the JAX package's native.resize, bit
+    for bit."""
     h, w, oh, ow = shape
     img = image(h, h, w)
     np.testing.assert_array_equal(taug.native_bilinear_resize(img, oh, ow),
                                   native.resize(img, oh, ow, mode="bilinear"))
+
+
+def test_native_bilinear_resize_on_random_shapes():
+    """The compiled crop resize against native.resize, bit for bit, at 300
+    random sizes from 1 to 299 a side, up and down."""
+    rng = np.random.default_rng(13)
+    for _ in range(300):
+        h, w, oh, ow = map(int, rng.integers(1, 300, 4))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        np.testing.assert_array_equal(
+            taug.native_bilinear_resize(img, oh, ow),
+            native.resize(img, oh, ow, mode="bilinear"), err_msg=str(
+                (h, w, oh, ow)))
+
+
+@pytest.mark.parametrize("shape", RESIZE_SHAPES)
+def test_plain_bilinear_resize_is_within_a_level(shape):
+    """The plain numpy version within PLAIN_MAX_LEVELS of the compiled
+    resize."""
+    h, w, oh, ow = shape
+    img = image(h, h, w)
+    got = taug.native_bilinear_resize_plain(img, oh, ow).astype(int)
+    want = taug.native_bilinear_resize(img, oh, ow).astype(int)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= PLAIN_MAX_LEVELS
 
 
 @pytest.mark.parametrize("key", range(1, 9))

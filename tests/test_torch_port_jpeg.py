@@ -3,7 +3,8 @@ data/image_io.py) and palette PNGs against PIL's Image.open(p).convert(
 "RGB"), bit for bit: every sampling PIL writes, three qualities,
 optimised Huffman tables, restart intervals, gray, odd and tiny sizes,
 APPn/COM segments; the committed fixtures against their manifest; the
-files it refuses, with errors that name the file."""
+files it refuses, with errors that name the file. Arithmetic-coded and
+lossless files are tests/test_torch_port_jpeg_arith_lossless.py's."""
 import hashlib
 import json
 from pathlib import Path
@@ -106,15 +107,16 @@ def test_committed_fixtures(rel):
 
 
 def test_refused_files_name_the_file_and_the_feature(tmp_path):
-    """Arithmetic-coded, lossless, hierarchical and 12-bit files (a
-    baseline file's SOF0 marker or its precision byte patched: nothing
-    here writes such files), a truncated file and a GIF."""
+    """Lossless arithmetic-coded (SOF11), hierarchical arithmetic-coded
+    (SOF13), hierarchical and 12-bit files (a baseline file's SOF0 marker
+    or its precision byte patched: nothing here writes such files), a
+    truncated file and a GIF."""
     img = smooth(40, 40, 2)
     data = save(tmp_path, img, "whole.jpg", quality=90).read_bytes()
     sof = data.index(b"\xff\xc0")
     cases = {}
-    for feature, at, byte in (("arithmetic-coded", sof + 1, 0xC9),
-                              ("lossless", sof + 1, 0xC3),
+    for feature, at, byte in (("lossless arithmetic", sof + 1, 0xCB),
+                              ("hierarchical arithmetic", sof + 1, 0xCD),
                               ("hierarchical", sof + 1, 0xC5),
                               ("12-bit", sof + 4, 12)):
         patched = bytearray(data)

@@ -1,5 +1,6 @@
-// Huffman-coded JPEG decoding (ITU-T T.81: baseline, extended-sequential
-// and progressive, SOF0/SOF1/SOF2, 8-bit samples), a host helper of
+// JPEG decoding (ITU-T T.81 with 8-bit samples: baseline,
+// extended-sequential and progressive, Huffman- or arithmetic-coded,
+// SOF0/1/2/9/10, and lossless Huffman-coded, SOF3), a host helper of
 // data/image_io.py.
 //
 // The output is what PIL's Image.open(p).convert("RGB") gives through
@@ -25,15 +26,45 @@
 //   * the fixed-point YCbCr->RGB tables of jdcolor.c (SCALEBITS 16), and
 //     for four-component files its YCCK->CMYK conversion (Adobe transform
 //     2) or CMYK as stored; then Pillow's reading of those samples as
-//     inverted CMYK ("CMYK;I") and its CMYK->RGB conversion.
+//     inverted CMYK ("CMYK;I") and its CMYK->RGB conversion;
+//   * arithmetic decoding (jdarith.c, jaricom.c; T.81 Annex D, F.2.4 and
+//     G.2): the QM-coder's interval register with the byte stuffing and
+//     the zero bits past a marker of arith_decode, the DC statistics (64
+//     bins a table, conditioned on L and U from DAC) and the AC statistics
+//     (256 bins, split at Kx), the sign and refinement bits at the fixed
+//     probability 0.5; the sequential MCU decoder and the four progressive
+//     ones, whose coefficients go through the same buffer, smoothing,
+//     IDCT, upsampling and colour conversion as Huffman's. At each restart
+//     the statistics, the coder and the DC predictions and contexts are
+//     reset. A bad code (a magnitude or a run past the block) leaves the
+//     rest of its restart interval's blocks as they were, as libjpeg does
+//     after its JWRN_ARITH_BAD_CODE warning;
+//   * lossless decoding (jdlhuff.c, jddiffct.c, jdlossls.c; T.81 Annex
+//     H): Huffman-coded differences of categories 0-16 (16 is 32768 with
+//     no extra bits), added modulo 2^16 to the prediction of selection
+//     value Ss (1-7); the first row of a scan and of each restart interval
+//     predicted from the left, from 2^(P - Pt - 1) at its first sample,
+//     the first column from above (libjpeg resets the prediction when a
+//     restart falls in an iMCU row, at that row's top), each sample then
+//     shifted left by Pt into 8 bits; plain replication for subsampled
+//     components (libjpeg's fancy upsampling needs DCT blocks). Without a
+//     JFIF or Adobe marker a three-component lossless file is RGB; marked
+//     YCbCr (or YCCK), it fails, as libjpeg-turbo converts no lossless
+//     data.
 // Gray images come out with one channel, the others with three. EXIF
-// orientation is not applied. Decoding stops at the first EOI, so a second
-// image after it (an MPO's) is not read. A file without Huffman tables
+// orientation is not applied. Decoding stops at the first EOI (or after
+// the only scan of a single-scan file), so a second image after it (an
+// MPO's) is not read. A file without Huffman tables
 // (a motion-JPEG frame) gets the standard ones, as libjpeg gives them.
 //
-// Lossless, hierarchical and arithmetic-coded files, 12-bit samples and
-// truncated or corrupt entropy-coded data fail with a message naming the
-// feature.
+// Corrupt entropy-coded data decodes as libjpeg decodes it (HuffBits,
+// ArithReader). Lossless arithmetic-coded (SOF11) and hierarchical files
+// (SOF5-7, SOF13-15), other sample precisions than 8 bits (which Pillow
+// refuses), lossless files marked YCbCr, a lossless restart interval that
+// splits a row of MCUs (libjpeg's JERR_BAD_RESTART), truncated data (where
+// libjpeg would wait for more input, which Pillow turns into an error),
+// restart markers out of order (which libjpeg resyncs) and corrupt marker
+// segments fail with a message naming the feature or the fault.
 //
 // Built with the host C++ compiler into build/kernels/ at first use and
 // loaded with ctypes (ops/build.py: host_library).
@@ -63,13 +94,15 @@ const int kZigzag[64 + 16] = {
 
 struct Huffman {
   bool defined = false;
+  int count = 0;
   uint8_t vals[256] = {};
   int32_t mincode[17] = {}, maxcode[18] = {}, valptr[17] = {};
   uint8_t look_nbits[512] = {};   // 9-bit lookahead: code length, 0 = slow
   uint8_t look_sym[512] = {};
 
-  void build(const uint8_t* bits, const uint8_t* values, int count) {
-    std::memcpy(vals, values, count);
+  void build(const uint8_t* bits, const uint8_t* values, int n) {
+    count = n;
+    std::memcpy(vals, values, n);
     int code = 0, k = 0;
     std::memset(look_nbits, 0, sizeof(look_nbits));
     for (int l = 1; l <= 16; ++l) {
@@ -142,7 +175,12 @@ struct Component {
   int bw = 0, bh = 0;          // blocks across and down, MCU-padded
   int ds_w = 0, ds_h = 0;      // samples across and down (downsampled_*)
   int dc_pred = 0;
+  int dc_context = 0;          // arithmetic DC conditioning (F.1.4.4.1.2)
   std::vector<int16_t> coef;   // bh x bw blocks of 64, natural order
+  // lossless files: the reconstructed values (modulo 2^16) and the output
+  // samples, bh x bw samples (a block is one sample there)
+  std::vector<int32_t> value;
+  std::vector<uint8_t> samples;
   // the quantization table, latched at the component's first scan (as
   // libjpeg's latch_quant_tables)
   bool latched = false;
@@ -153,65 +191,165 @@ struct Component {
   Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
-// Entropy-coded data: byte stuffing removed, zero bits supplied past a
-// marker or the end of the data (as libjpeg does), and an error when a
-// decode consumes one of those bits.
-struct BitReader {
+// jaricom.c: T.81 Table D.2, the probability estimation state machine, as
+// libjpeg packs it: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS. Entry 113 is the fixed probability 0.5 (T.851 Table 5)
+// of the sign and refinement bits.
+constexpr int64_t qe_entry(int64_t qe, int nlps, int nmps, int sw) {
+  return (qe << 16) | (int64_t{nmps} << 8) | (int64_t{sw} << 7) | nlps;
+}
+const int64_t kAritab[114] = {
+    qe_entry(0x5a1d, 1, 1, 1),     qe_entry(0x2586, 14, 2, 0),
+    qe_entry(0x1114, 16, 3, 0),    qe_entry(0x080b, 18, 4, 0),
+    qe_entry(0x03d8, 20, 5, 0),    qe_entry(0x01da, 23, 6, 0),
+    qe_entry(0x00e5, 25, 7, 0),    qe_entry(0x006f, 28, 8, 0),
+    qe_entry(0x0036, 30, 9, 0),    qe_entry(0x001a, 33, 10, 0),
+    qe_entry(0x000d, 35, 11, 0),   qe_entry(0x0006, 9, 12, 0),
+    qe_entry(0x0003, 10, 13, 0),   qe_entry(0x0001, 12, 13, 0),
+    qe_entry(0x5a7f, 15, 15, 1),   qe_entry(0x3f25, 36, 16, 0),
+    qe_entry(0x2cf2, 38, 17, 0),   qe_entry(0x207c, 39, 18, 0),
+    qe_entry(0x17b9, 40, 19, 0),   qe_entry(0x1182, 42, 20, 0),
+    qe_entry(0x0cef, 43, 21, 0),   qe_entry(0x09a1, 45, 22, 0),
+    qe_entry(0x072f, 46, 23, 0),   qe_entry(0x055c, 48, 24, 0),
+    qe_entry(0x0406, 49, 25, 0),   qe_entry(0x0303, 51, 26, 0),
+    qe_entry(0x0240, 52, 27, 0),   qe_entry(0x01b1, 54, 28, 0),
+    qe_entry(0x0144, 56, 29, 0),   qe_entry(0x00f5, 57, 30, 0),
+    qe_entry(0x00b7, 59, 31, 0),   qe_entry(0x008a, 60, 32, 0),
+    qe_entry(0x0068, 62, 33, 0),   qe_entry(0x004e, 63, 34, 0),
+    qe_entry(0x003b, 32, 35, 0),   qe_entry(0x002c, 33, 9, 0),
+    qe_entry(0x5ae1, 37, 37, 1),   qe_entry(0x484c, 64, 38, 0),
+    qe_entry(0x3a0d, 65, 39, 0),   qe_entry(0x2ef1, 67, 40, 0),
+    qe_entry(0x261f, 68, 41, 0),   qe_entry(0x1f33, 69, 42, 0),
+    qe_entry(0x19a8, 70, 43, 0),   qe_entry(0x1518, 72, 44, 0),
+    qe_entry(0x1177, 73, 45, 0),   qe_entry(0x0e74, 74, 46, 0),
+    qe_entry(0x0bfb, 75, 47, 0),   qe_entry(0x09f8, 77, 48, 0),
+    qe_entry(0x0861, 78, 49, 0),   qe_entry(0x0706, 79, 50, 0),
+    qe_entry(0x05cd, 48, 51, 0),   qe_entry(0x04de, 50, 52, 0),
+    qe_entry(0x040f, 50, 53, 0),   qe_entry(0x0363, 51, 54, 0),
+    qe_entry(0x02d4, 52, 55, 0),   qe_entry(0x025c, 53, 56, 0),
+    qe_entry(0x01f8, 54, 57, 0),   qe_entry(0x01a4, 55, 58, 0),
+    qe_entry(0x0160, 56, 59, 0),   qe_entry(0x0125, 57, 60, 0),
+    qe_entry(0x00f6, 58, 61, 0),   qe_entry(0x00cb, 59, 62, 0),
+    qe_entry(0x00ab, 61, 63, 0),   qe_entry(0x008f, 61, 32, 0),
+    qe_entry(0x5b12, 65, 65, 1),   qe_entry(0x4d04, 80, 66, 0),
+    qe_entry(0x412c, 81, 67, 0),   qe_entry(0x37d8, 82, 68, 0),
+    qe_entry(0x2fe8, 83, 69, 0),   qe_entry(0x293c, 84, 70, 0),
+    qe_entry(0x2379, 86, 71, 0),   qe_entry(0x1edf, 87, 72, 0),
+    qe_entry(0x1aa9, 87, 73, 0),   qe_entry(0x174e, 72, 74, 0),
+    qe_entry(0x1424, 72, 75, 0),   qe_entry(0x119c, 74, 76, 0),
+    qe_entry(0x0f6b, 74, 77, 0),   qe_entry(0x0d51, 75, 78, 0),
+    qe_entry(0x0bb6, 77, 79, 0),   qe_entry(0x0a40, 77, 48, 0),
+    qe_entry(0x5832, 80, 81, 1),   qe_entry(0x4d1c, 88, 82, 0),
+    qe_entry(0x438e, 89, 83, 0),   qe_entry(0x3bdd, 90, 84, 0),
+    qe_entry(0x34ee, 91, 85, 0),   qe_entry(0x2eae, 92, 86, 0),
+    qe_entry(0x299a, 93, 87, 0),   qe_entry(0x2516, 86, 71, 0),
+    qe_entry(0x5570, 88, 89, 1),   qe_entry(0x4ca9, 95, 90, 0),
+    qe_entry(0x44d9, 96, 91, 0),   qe_entry(0x3e22, 97, 92, 0),
+    qe_entry(0x3824, 99, 93, 0),   qe_entry(0x32b4, 99, 94, 0),
+    qe_entry(0x2e17, 93, 86, 0),   qe_entry(0x56a8, 95, 96, 1),
+    qe_entry(0x4f46, 101, 97, 0),  qe_entry(0x47e5, 102, 98, 0),
+    qe_entry(0x41cf, 103, 99, 0),  qe_entry(0x3c3d, 104, 100, 0),
+    qe_entry(0x375e, 99, 93, 0),   qe_entry(0x5231, 105, 102, 0),
+    qe_entry(0x4c0f, 106, 103, 0), qe_entry(0x4639, 107, 104, 0),
+    qe_entry(0x415e, 103, 99, 0),  qe_entry(0x5627, 105, 106, 1),
+    qe_entry(0x50e7, 108, 107, 0), qe_entry(0x4b85, 109, 103, 0),
+    qe_entry(0x5597, 110, 109, 0), qe_entry(0x504f, 111, 107, 0),
+    qe_entry(0x5a10, 110, 111, 1), qe_entry(0x5522, 112, 109, 0),
+    qe_entry(0x59eb, 112, 111, 1), qe_entry(0x5a1d, 113, 113, 0)};
+
+// The position of the 0xFF just before the next marker code at or after
+// pos (past stuffed zeros, fill bytes and data left unread), or n.
+int64_t next_marker_at(const uint8_t* d, int64_t n, int64_t pos) {
+  while (pos < n && !(d[pos] == 0xFF && pos + 1 < n && d[pos + 1] != 0x00 &&
+                      d[pos + 1] != 0xFF))
+    ++pos;
+  return pos;
+}
+
+// The arithmetic decoder of jdarith.c (arith_decode): C holds the base of
+// the interval and the next input bits above a floating cut point (CT
+// bits), A the interval's size. Past a marker it is fed zero bytes (legal
+// in arithmetic coding); running out of data is a truncated file.
+struct ArithReader {
   const uint8_t* d;
   int64_t n, pos;
-  uint64_t acc = 0;
-  int nbits = 0;
-  int fake = 0;                 // zero bits past the data, at acc's bottom
-  bool at_marker = false;
+  int64_t c = 0, a = 0;
+  int ct = -16;                 // -16: two bytes to read before decoding
+  bool at_marker = false;       // pos is at the marker's first 0xFF
 
-  void fill() {
-    while (nbits <= 56) {
-      int b = 0;
-      if (at_marker || pos >= n) {
-        at_marker = true;
-        fake += 8;
-      } else if (d[pos] == 0xFF) {
-        if (pos + 1 < n && d[pos + 1] == 0x00) {
-          b = 0xFF;
-          pos += 2;
-        } else {
-          at_marker = true;
-          fake += 8;
-        }
+  int next_byte() {
+    if (at_marker) return 0;
+    if (pos >= n)
+      fail("truncated JPEG: arithmetic-coded data ends early");
+    const int64_t start = pos;
+    int data = d[pos++];
+    if (data == 0xFF) {
+      do {
+        if (pos >= n)
+          fail("truncated JPEG: arithmetic-coded data ends early");
+        data = d[pos++];
+      } while (data == 0xFF);
+      if (data == 0) {
+        data = 0xFF;            // a stuffed zero
       } else {
-        b = d[pos++];
+        at_marker = true;
+        pos = start;
+        data = 0;
       }
-      acc |= static_cast<uint64_t>(b) << (56 - nbits);
-      nbits += 8;
     }
+    return data;
   }
-  int peek(int k) {
-    if (nbits < k) fill();
-    return static_cast<int>(acc >> (64 - k));
+
+  // One binary decision with the statistics bin *st (state index in bits
+  // 0-6, the more probable symbol in bit 7), which it updates.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {        // renormalization and input, D.2.6
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;      // decoding and estimation, D.2.4-5
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
   }
-  void skip(int k) {
-    acc <<= k;
-    nbits -= k;
-    if (nbits < fake)
-      fail("truncated or corrupt JPEG: entropy-coded data ends early");
-  }
-  int bits(int k) {
-    if (k == 0) return 0;
-    const int v = peek(k);
-    skip(k);
-    return v;
-  }
-  // Discard the buffered bits and move to the next marker.
-  void reset() {
-    acc = 0;
-    nbits = fake = 0;
+
+  void restart() {
+    c = a = 0;
+    ct = -16;
     at_marker = false;
-    while (pos < n) {
-      if (d[pos] == 0xFF && pos + 1 < n && d[pos + 1] != 0x00 &&
-          d[pos + 1] != 0xFF)
-        return;
-      ++pos;
-    }
+  }
+
+  // Move to the next marker (skipping what the decoder left unread).
+  void to_marker() {
+    at_marker = false;
+    pos = next_marker_at(d, n, pos);
   }
 };
 
@@ -219,22 +357,112 @@ inline int extend(int v, int t) {
   return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v;
 }
 
-int decode_huffman(BitReader& br, const Huffman& h) {
-  const int look = br.peek(9);
-  const int nb = h.look_nbits[look];
-  if (nb) {
-    br.skip(nb);
-    return h.look_sym[look];
+// Huffman-coded data read as libjpeg-turbo's decoders read it (jdhuff.c:
+// jpeg_fill_bit_buffer with a 64-bit buffer, MIN_GET_BITS 57; jdhuff.h:
+// HUFF_DECODE with 8 bits of lookahead; jpeg_huff_decode), so that a file
+// ends early, or a marker cuts its data, where libjpeg finds it: data
+// that ends before a marker is truncated (libjpeg suspends for more
+// input, and Pillow raises); past a marker the buffer is padded with zero
+// bits and `insufficient` set (JWRN_HIT_MARKER), after which the MCU
+// decoders leave their MCUs as they are until the next restart; a code no
+// table holds decodes as 0 (JWRN_HUFF_BAD_CODE). Pillow ignores both
+// warnings. This is the lossless decoder's reading step for step; the DCT
+// decoders' fast path (whole MCUs from a buffer with room, which depends
+// on how Pillow feeds libjpeg) reads the same bits, so only where a file
+// without an EOI counts as truncated can differ.
+struct HuffBits {
+  static constexpr int MIN_GET_BITS = 57;
+  const uint8_t* d;
+  int64_t n, pos;
+  uint64_t buf = 0;
+  int bits_left = 0;
+  bool at_marker = false;       // pos is at the marker's first 0xFF
+  bool insufficient = false;
+
+  [[noreturn]] static void truncated() {
+    fail("truncated JPEG: entropy-coded data ends before a marker");
   }
-  for (int l = 10; l <= 16; ++l) {
-    const int code = br.peek(l);
-    if (code <= h.maxcode[l]) {
-      br.skip(l);
-      return h.vals[h.valptr[l] + code - h.mincode[l]];
+
+  void fill(int nbits) {
+    if (!at_marker) {
+      while (bits_left < MIN_GET_BITS) {
+        if (pos >= n) truncated();
+        const int64_t start = pos;
+        int c = d[pos++];
+        if (c == 0xFF) {
+          do {
+            if (pos >= n) truncated();
+            c = d[pos++];
+          } while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            at_marker = true;
+            pos = start;
+            break;
+          }
+        }
+        buf = (buf << 8) | static_cast<uint64_t>(c);
+        bits_left += 8;
+      }
+      if (!at_marker) return;
+    }
+    if (nbits > bits_left) {
+      insufficient = true;
+      buf <<= MIN_GET_BITS - bits_left;
+      bits_left = MIN_GET_BITS;
     }
   }
-  fail("corrupt JPEG: bad Huffman code");
-}
+  void check(int nbits) {
+    if (bits_left < nbits) fill(nbits);
+  }
+  int get(int nbits) {
+    bits_left -= nbits;
+    return static_cast<int>((buf >> bits_left) & ((1u << nbits) - 1));
+  }
+  int bits(int nbits) {
+    if (nbits == 0) return 0;
+    check(nbits);
+    return get(nbits);
+  }
+
+  int decode(const Huffman& h) {
+    int l = 9;
+    if (bits_left < 8) {
+      fill(0);
+      if (bits_left < 8) l = 1;
+    }
+    if (l == 9) {
+      const int look = static_cast<int>((buf >> (bits_left - 8)) & 0xFF);
+      const int nb = h.look_nbits[look << 1];
+      if (nb && nb <= 8) {
+        bits_left -= nb;
+        return h.look_sym[look << 1];
+      }
+    }
+    check(l);
+    int code = get(l);
+    while (code > h.maxcode[l]) {
+      code <<= 1;
+      check(1);
+      code |= get(1);
+      ++l;
+    }
+    if (l > 16) return 0;
+    return h.vals[h.valptr[l] + code - h.mincode[l]];
+  }
+
+  // The buffered bits dropped and the next marker found (after any data
+  // left unread), as at a restart (jdhuff.c: process_restart) and at the
+  // scan's end; a restart clears `insufficient` once its RSTn is read.
+  int64_t to_marker() {
+    bits_left = 0;
+    pos = next_marker_at(d, n, pos);
+    at_marker = false;
+    insufficient = false;
+    return pos;
+  }
+};
 
 // jidctint.c (libjpeg-turbo), jpeg_idct_islow
 constexpr int CONST_BITS = 13, PASS1_BITS = 2;
@@ -409,14 +637,23 @@ struct Decoder {
   int restart_interval = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
-  bool frame = false, progressive = false;
+  bool frame = false, progressive = false, arith = false, lossless = false;
   int scans = 0;
   std::vector<Component> comps;
   uint16_t quant[4][64] = {};
   bool quant_defined[4] = {};
   Huffman dc[4], ac[4];
+  // arithmetic coding: the DAC conditioning of each table (defaults L = 0,
+  // U = 1, Kx = 5), the statistics bins, the fixed-probability bin
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
+  uint8_t dc_stats[16][64] = {}, ac_stats[16][256] = {};
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
 
-  Decoder(const uint8_t* data, int64_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, int64_t size) : d(data), n(size) {
+    std::fill(dc_L, dc_L + 16, 0);
+    std::fill(dc_U, dc_U + 16, 1);
+    std::fill(ac_K, ac_K + 16, 5);
+  }
 
   int u8() {
     if (pos >= n) fail("truncated JPEG: ends inside a marker segment");
@@ -474,24 +711,28 @@ struct Decoder {
       case 0xC0:
       case 0xC1:
       case 0xC2:
-        sof(end, m == 0xC2);
-        break;
       case 0xC3:
-        fail("lossless JPEG (SOF3) is not supported");
+      case 0xC9:
+      case 0xCA:
+        arith = m >= 0xC9;
+        lossless = m == 0xC3;
+        sof(end, m == 0xC2 || m == 0xCA);
+        break;
+      case 0xCB:
+        fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
       case 0xC5:
       case 0xC6:
       case 0xC7:
       case 0xDE:
         fail("hierarchical JPEG (SOF5-7, DHP) is not supported");
-      case 0xC9:
-      case 0xCA:
-      case 0xCB:
-      case 0xCC:
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        fail("arithmetic-coded JPEG (SOF9-11, SOF13-15, DAC) is not "
+        fail("hierarchical arithmetic-coded JPEG (SOF13-15) is not "
              "supported");
+      case 0xCC:
+        dac(end);
+        break;
       case 0xC4:
         dht(end);
         break;
@@ -546,8 +787,9 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
-    mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
+    const int unit = lossless ? 1 : 8;
+    mcus_x = (width + unit * hmax - 1) / (unit * hmax);
+    mcus_y = (height + unit * vmax - 1) / (unit * vmax);
     for (auto& c : comps) {
       if (hmax % c.h || vmax % c.v)
         fail("JPEG with non-integral sampling factors is not supported");
@@ -557,9 +799,34 @@ struct Decoder {
           (static_cast<int64_t>(width) * c.h + hmax - 1) / hmax);
       c.ds_h = static_cast<int>(
           (static_cast<int64_t>(height) * c.v + vmax - 1) / vmax);
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      // a lossless file's "blocks" are single samples
+      const size_t blocks = static_cast<size_t>(c.bw) * c.bh;
+      if (lossless) {
+        c.value.assign(blocks, 0);
+        c.samples.assign(blocks, 0);
+      } else {
+        c.coef.assign(blocks * 64, 0);
+      }
     }
     frame = true;
+  }
+
+  // jdmarker.c's get_dac: (Tc << 4 | Tb, value) pairs; a DC table's value
+  // is U << 4 | L with L <= U, an AC table's Kx.
+  void dac(int64_t end) {
+    while (pos + 2 <= end) {
+      const int index = u8(), val = u8();
+      if (index >= 32) fail("corrupt JPEG: bad DAC table index");
+      if (index >= 16) {
+        ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L[index] > dc_U[index])
+          fail("corrupt JPEG: bad DAC conditioning (L > U)");
+      }
+    }
+    if (pos != end) fail("corrupt JPEG: bad DAC segment length");
   }
 
   void dht(int64_t end) {
@@ -592,13 +859,13 @@ struct Decoder {
   }
 
   // A sequential scan's block: DC difference and the 63 AC coefficients.
-  void decode_block(BitReader& br, Component& c, int16_t* blk) {
-    const int s = decode_huffman(br, dc[c.td]);
+  void decode_block(HuffBits& br, Component& c, int16_t* blk) {
+    const int s = br.decode(dc[c.td]);
     const int diff = s ? extend(br.bits(s), s) : 0;
     c.dc_pred += diff;
     blk[0] = static_cast<int16_t>(c.dc_pred);
     for (int k = 1; k < 64; ++k) {
-      const int rs = decode_huffman(br, ac[c.ta]);
+      const int rs = br.decode(ac[c.ta]);
       const int r = rs >> 4, sz = rs & 15;
       if (sz) {
         k += r;
@@ -617,24 +884,24 @@ struct Decoder {
     return static_cast<int16_t>(static_cast<uint32_t>(v) << al);
   }
 
-  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
-    const int s = decode_huffman(br, dc[c.td]);
+  void dc_first(HuffBits& br, Component& c, int16_t* blk, int al) {
+    const int s = br.decode(dc[c.td]);
     c.dc_pred += s ? extend(br.bits(s), s) : 0;
     blk[0] = scaled(c.dc_pred, al);
   }
 
-  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+  static void dc_refine(HuffBits& br, int16_t* blk, int al) {
     if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
   }
 
-  void ac_first(BitReader& br, const Huffman& h, int16_t* blk, int ss,
+  void ac_first(HuffBits& br, const Huffman& h, int16_t* blk, int ss,
                 int se, int al, int& eobrun) {
     if (eobrun > 0) {
       --eobrun;
       return;
     }
     for (int k = ss; k <= se; ++k) {
-      const int rs = decode_huffman(br, h);
+      const int rs = br.decode(h);
       int r = rs >> 4;
       const int sz = rs & 15;
       if (sz) {
@@ -649,18 +916,18 @@ struct Decoder {
     }
   }
 
-  static void refine_bit(BitReader& br, int16_t& coef, int p1) {
+  static void refine_bit(HuffBits& br, int16_t& coef, int p1) {
     if (br.bits(1) && (coef & p1) == 0)
       coef = static_cast<int16_t>(coef >= 0 ? coef + p1 : coef - p1);
   }
 
-  void ac_refine(BitReader& br, const Huffman& h, int16_t* blk, int ss,
+  void ac_refine(HuffBits& br, const Huffman& h, int16_t* blk, int ss,
                  int se, int al, int& eobrun) {
     const int p1 = 1 << al;
     int k = ss;
     if (eobrun == 0) {
       for (; k <= se; ++k) {
-        const int rs = decode_huffman(br, h);
+        const int rs = br.decode(h);
         int r = rs >> 4;
         int s = rs & 15;
         if (s) {
@@ -692,10 +959,156 @@ struct Decoder {
     }
   }
 
+  // The arithmetic-coded MCU decoders of jdarith.c. Each returns false on
+  // a bad code (a magnitude past 2^15 or a run past the scan's band),
+  // where libjpeg warns and decodes nothing more until the next restart.
+
+  // F.2.4.1: one DC difference, added to c.dc_pred (modulo 2^16), with
+  // the conditioning category it sets for the next one.
+  bool arith_dc_diff(ArithReader& ar, Component& c) {
+    uint8_t* st = dc_stats[c.td] + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m != 0) {
+      st = dc_stats[c.td] + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++st;
+      }
+    }
+    if (m < ((1 << dc_L[c.td]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << dc_U[c.td]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c.dc_pred = (c.dc_pred + v) & 0xffff;
+    return true;
+  }
+
+  // F.2.4.2: the AC coefficients ss..se of one block, scaled by 1 << al.
+  bool arith_ac(ArithReader& ar, int tbl, int16_t* blk, int ss, int se,
+                int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;                 // end of block
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      const int sign = ar.decode(fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= ac_K[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kZigzag[k]] = scaled(v, al);
+    }
+    return true;
+  }
+
+  // G.1.3.3: the next bit of every coefficient ss..se known nonzero, and
+  // the newly nonzero ones (+-1 << al), with the EOB decision only past
+  // the block's last nonzero coefficient.
+  bool arith_ac_refine(ArithReader& ar, int tbl, int16_t* blk, int ss,
+                       int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    while (kex > 0 && !blk[kZigzag[kex]]) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;      // end of block
+      for (;;) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef) {
+          if (ar.decode(st + 2))
+            coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          coef = static_cast<int16_t>(ar.decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  using Mcu = std::vector<std::pair<Component*, int16_t*>>;
+
+  bool arith_mcu(ArithReader& ar, const Mcu& mcu, int ss, int se, int ah,
+                 int al) {
+    for (const auto& [c, blk] : mcu) {
+      if (!progressive) {                       // decode_mcu
+        if (!arith_dc_diff(ar, *c)) return false;
+        blk[0] = static_cast<int16_t>(c->dc_pred);
+        if (!arith_ac(ar, c->ta, blk, 1, 63, 0)) return false;
+      } else if (ss == 0 && ah == 0) {          // decode_mcu_DC_first
+        if (!arith_dc_diff(ar, *c)) return false;
+        blk[0] = scaled(c->dc_pred, al);
+      } else if (ss == 0) {                     // decode_mcu_DC_refine
+        if (ar.decode(fixed_bin))
+          blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      } else if (ah == 0) {                     // decode_mcu_AC_first
+        if (!arith_ac(ar, c->ta, blk, ss, se, al)) return false;
+      } else {                                  // decode_mcu_AC_refine
+        if (!arith_ac_refine(ar, c->ta, blk, ss, se, al)) return false;
+      }
+    }
+    return true;
+  }
+
+  // jdarith.c's start_pass and process_restart: zeroed statistics for the
+  // tables the scan codes with, the DC predictions and contexts cleared.
+  void arith_reset(const std::vector<Component*>& in_scan, int ss, int ah) {
+    for (auto* c : in_scan) {
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c->td], 0, sizeof(dc_stats[0]));
+        c->dc_pred = 0;
+        c->dc_context = 0;
+      }
+      if (!progressive || ss)
+        std::memset(ac_stats[c->ta], 0, sizeof(ac_stats[0]));
+    }
+  }
+
+  // The restart marker RSTn expected at pos (after the data left unread).
+  void restart_marker(int64_t at, int& next_rst) {
+    if (at + 1 >= n || d[at + 1] != 0xD0 + next_rst)
+      fail("corrupt JPEG: missing restart marker");
+    next_rst = (next_rst + 1) & 7;
+  }
+
   void scan(int64_t seg_end) {
     const int ns = u8();
-    if (ns < 1 || ns > 4) fail("corrupt JPEG: bad scan header");
+    if (ns < 1 || ns > 4 || seg_end - pos != 2 * ns + 3)
+      fail("corrupt JPEG: bad scan header");
     std::vector<Component*> in_scan;
+    const int max_table = arith ? 15 : 3;
     for (int i = 0; i < ns; ++i) {
       const int id = u8(), tables = u8();
       Component* c = nullptr;
@@ -704,12 +1117,18 @@ struct Decoder {
       if (!c) fail("corrupt JPEG: scan names an unknown component");
       c->td = tables >> 4;
       c->ta = tables & 15;
-      if (c->td > 3 || c->ta > 3)
-        fail("corrupt JPEG: bad Huffman table id in a scan");
+      if (c->td > max_table || c->ta > max_table)
+        fail("corrupt JPEG: bad entropy table id in a scan");
       in_scan.push_back(c);
     }
     const int ss = u8(), se = u8(), ahal = u8();
     const int ah = ahal >> 4, al = ahal & 15;
+    if (lossless) {
+      pos = seg_end;
+      lossless_scan(in_scan, ss, se, ah, al);
+      ++scans;
+      return;
+    }
     if (!progressive) {
       if (ss != 0 || se != 63 || ahal != 0)
         fail("corrupt JPEG: not a sequential scan");
@@ -721,8 +1140,14 @@ struct Decoder {
     for (auto* c : in_scan) {
       const bool need_dc = !progressive || (dc_scan && first);
       const bool need_ac = !progressive || !dc_scan;
-      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+      if (!arith && ((need_dc && !dc[c->td].defined) ||
+                     (need_ac && !ac[c->ta].defined)))
         fail("corrupt JPEG: scan uses an undefined Huffman table");
+      // jdhuff.c: jpeg_make_d_derived_tbl's check of a DC table
+      const Huffman& h = dc[c->td];
+      if (!arith && need_dc &&
+          std::any_of(h.vals, h.vals + h.count, [](int v) { return v > 15; }))
+        fail("corrupt JPEG: a DC Huffman table's category above 15");
       if (!c->latched) {
         if (!quant_defined[c->tq])
           fail("corrupt JPEG: undefined quantization table");
@@ -733,7 +1158,10 @@ struct Decoder {
     }
     pos = seg_end;
     for (auto* c : in_scan) c->dc_pred = 0;
-    BitReader br{d, n, pos};
+    HuffBits br{d, n, pos};
+    ArithReader ar{d, n, pos};
+    if (arith) arith_reset(in_scan, ss, ah);
+    bool arith_ok = true;
     int next_rst = 0, eobrun = 0;
     int64_t todo = 0;
     int units_x, units_y;
@@ -758,47 +1186,187 @@ struct Decoder {
       else
         ac_refine(br, ac[c.ta], blk, ss, se, al, eobrun);
     };
+    Mcu mcu;
     for (int uy = 0; uy < units_y; ++uy) {
       for (int ux = 0; ux < units_x; ++ux) {
         if (restart_interval && todo == restart_interval) {
-          br.reset();
-          if (br.pos + 1 >= n || d[br.pos + 1] != 0xD0 + next_rst)
-            fail("corrupt JPEG: missing restart marker");
-          br.pos += 2;
-          next_rst = (next_rst + 1) & 7;
+          if (arith) {
+            ar.to_marker();
+            restart_marker(ar.pos, next_rst);
+            ar.pos += 2;
+            ar.restart();
+            arith_reset(in_scan, ss, ah);
+            arith_ok = true;
+          } else {
+            restart_marker(br.to_marker(), next_rst);
+            br.pos += 2;
+            eobrun = 0;
+            for (auto* c : in_scan) c->dc_pred = 0;
+          }
           todo = 0;
-          eobrun = 0;
-          for (auto* c : in_scan) c->dc_pred = 0;
         }
         ++todo;
+        mcu.clear();
         if (ns == 1) {
           Component& c = *in_scan[0];
-          block(c, c.coef.data() + (static_cast<size_t>(uy) * c.bw + ux) * 64);
-          continue;
+          mcu.emplace_back(&c, c.coef.data() +
+                                   (static_cast<size_t>(uy) * c.bw + ux) * 64);
+        } else {
+          for (auto* c : in_scan)
+            for (int by = 0; by < c->v; ++by)
+              for (int bx = 0; bx < c->h; ++bx) {
+                const size_t row = static_cast<size_t>(uy) * c->v + by;
+                const size_t col = static_cast<size_t>(ux) * c->h + bx;
+                mcu.emplace_back(c, c->coef.data() + (row * c->bw + col) * 64);
+              }
         }
-        for (auto* cp : in_scan) {
-          Component& c = *cp;
-          for (int by = 0; by < c.v; ++by)
-            for (int bx = 0; bx < c.h; ++bx) {
-              const size_t row = static_cast<size_t>(uy) * c.v + by;
-              const size_t col = static_cast<size_t>(ux) * c.h + bx;
-              block(c, c.coef.data() + (row * c.bw + col) * 64);
-            }
+        if (arith) {
+          if (arith_ok) arith_ok = arith_mcu(ar, mcu, ss, se, ah, al);
+        } else if (!br.insufficient) {
+          // past a marker libjpeg leaves the MCUs as they are
+          for (const auto& [c, blk] : mcu) block(*c, blk);
         }
       }
     }
-    br.reset();
-    pos = br.pos;
+    if (arith) {
+      ar.to_marker();
+      pos = ar.pos;
+    } else {
+      pos = br.to_marker();
+    }
     ++scans;
   }
 
-  // Every scan up to the first EOI (or the end of the data, as libjpeg
-  // takes a file without one).
+  // One lossless scan (jddiffct.c, jdlhuff.c, jdlossls.c): the Huffman-
+  // coded differences of an iMCU row (v sample rows of each component),
+  // then each of its rows undifferenced with the prediction of selection
+  // value ss and shifted left by al. MCUs are one sample of a single-
+  // component scan, else h x v samples of each component in turn. Once a
+  // marker has cut the data, each later row of MCUs is zero differences
+  // from restarted predictors, as jdlhuff.c's decode_mcus gives it.
+  void lossless_scan(const std::vector<Component*>& in_scan, int ss, int se,
+                     int ah, int al) {
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7)
+      fail("corrupt JPEG: bad lossless scan parameters");
+    const int ns = static_cast<int>(in_scan.size());
+    for (auto* c : in_scan) {
+      const Huffman& h = dc[c->td];
+      if (!h.defined)
+        fail("corrupt JPEG: scan uses an undefined Huffman table");
+      if (std::any_of(h.vals, h.vals + h.count, [](int v) { return v > 16; }))
+        fail("corrupt JPEG: a lossless Huffman table's category above 16");
+      c->latched = true;                  // a lossless file has no tables
+    }
+    const int per_row = ns == 1 ? in_scan[0]->ds_w : mcus_x;
+    if (restart_interval % per_row)
+      fail("lossless JPEG whose restart interval (" +
+           std::to_string(restart_interval) + " MCUs) splits a row of " +
+           std::to_string(per_row) + " MCUs is not supported");
+    HuffBits br{d, n, pos};
+    int next_rst = 0;
+    int rows_to_go = restart_interval / per_row;
+    // every component's predictor restarts from its first-row form at the
+    // scan's start and at each restart (jdlossls.c: start_pass_lossless)
+    std::vector<bool> first_row(ns, true);
+    std::vector<std::vector<int>> diff(ns);
+    for (int i = 0; i < ns; ++i)
+      diff[i].assign(static_cast<size_t>(in_scan[i]->v) * in_scan[i]->bw, 0);
+    auto difference = [&](const Component& c) {
+      const int s = br.decode(dc[c.td]);
+      if (s == 0 || s == 16) return s == 16 ? 32768 : 0;
+      br.check(s);
+      return extend(br.get(s), s);
+    };
+    const int init = 1 << (8 - al - 1);
+    for (int r = 0; r < mcus_y; ++r) {
+      const Component& c0 = *in_scan[0];
+      int mcu_rows = 1;
+      if (ns == 1) {
+        const int last = c0.ds_h - r * c0.v;
+        mcu_rows = std::min(c0.v, last);
+      }
+      for (int yoff = 0; yoff < mcu_rows; ++yoff) {
+        if (restart_interval && rows_to_go == 0) {
+          restart_marker(br.to_marker(), next_rst);
+          br.pos += 2;
+          std::fill(first_row.begin(), first_row.end(), true);
+          rows_to_go = restart_interval / per_row;
+        }
+        if (br.insufficient) {
+          for (int i = 0; i < ns; ++i) {
+            const int rows = ns == 1 ? 1 : in_scan[i]->v;
+            const size_t row0 = ns == 1 ? yoff : 0;
+            std::fill_n(diff[i].begin() + row0 * in_scan[i]->bw,
+                        static_cast<size_t>(rows) * in_scan[i]->bw, 0);
+          }
+          std::fill(first_row.begin(), first_row.end(), true);
+        } else if (ns == 1) {
+          int* out = diff[0].data() + static_cast<size_t>(yoff) * c0.bw;
+          for (int x = 0; x < per_row; ++x) out[x] = difference(c0);
+        } else {
+          for (int mx = 0; mx < per_row; ++mx)
+            for (int i = 0; i < ns; ++i) {
+              const Component& c = *in_scan[i];
+              for (int by = 0; by < c.v; ++by)
+                for (int bx = 0; bx < c.h; ++bx)
+                  diff[i][static_cast<size_t>(by) * c.bw + mx * c.h + bx] =
+                      difference(c);
+            }
+        }
+        if (restart_interval) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *in_scan[i];
+        for (int row = 0; row < c.v; ++row) {
+          const int y = r * c.v + row;
+          if (y >= c.ds_h) break;
+          const int* df = diff[i].data() + static_cast<size_t>(row) * c.bw;
+          int32_t* cur = c.value.data() + static_cast<size_t>(y) * c.bw;
+          const int32_t* up = cur - c.bw;
+          if (first_row[i]) {
+            int ra = (df[0] + init) & 0xFFFF;
+            cur[0] = ra;
+            for (int x = 1; x < c.ds_w; ++x) cur[x] = ra = (df[x] + ra) & 0xFFFF;
+            first_row[i] = false;
+          } else {
+            int rb = up[0], ra = (df[0] + rb) & 0xFFFF, rc;
+            cur[0] = ra;
+            for (int x = 1; x < c.ds_w; ++x) {
+              rc = rb;
+              rb = up[x];
+              int pred;
+              switch (ss) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              cur[x] = ra = (df[x] + pred) & 0xFFFF;
+            }
+          }
+          uint8_t* smp = c.samples.data() + static_cast<size_t>(y) * c.bw;
+          for (int x = 0; x < c.ds_w; ++x)
+            smp[x] = static_cast<uint8_t>(cur[x] << al);
+        }
+      }
+    }
+    pos = br.to_marker();
+  }
+
+  // Every scan up to the first EOI. A file of one scan ends with it (as
+  // Pillow stops once libjpeg has given every row); a progressive file, or
+  // one whose first scan leaves out a component, is read to its EOI first
+  // (jdapistd.c: jpeg_start_decompress), so data that ends before the EOI
+  // is a truncated file there.
   void decode_scans() {
+    bool multi_scan = false;
     while (true) {
       const int m = next_marker();
       if (m < 0) {
-        if (scans) return;
+        if (scans) fail("truncated JPEG: the data ends before its EOI");
         fail("truncated JPEG: no scan");
       }
       if (m == 0xD9) return;
@@ -807,7 +1375,10 @@ struct Decoder {
         const int len = u16();
         if (len < 2 || start + len > n)
           fail("truncated JPEG: ends inside a marker segment");
+        if (scans == 0)
+          multi_scan = progressive || d[pos] < static_cast<int>(comps.size());
         scan(start + len);
+        if (!multi_scan) return;
       } else {
         segment(m);
       }
@@ -961,18 +1532,19 @@ struct Decoder {
 
   // The component's samples at full size: plane (ds_h x ds_w) -> out
   // (height x width), libjpeg-turbo's upsampling.
-  static void upsample(const std::vector<uint8_t>& plane, int stride,
-                       const Component& c, int hf, int vf, int width,
-                       int height, std::vector<uint8_t>& out) {
+  // (jdsample.c; fancy only when `fancy`: libjpeg's needs DCT blocks)
+  static void upsample(const uint8_t* plane, int stride, const Component& c,
+                       int hf, int vf, int width, int height, bool fancy,
+                       std::vector<uint8_t>& out) {
     out.assign(static_cast<size_t>(width) * height, 0);
     const int W = c.ds_w, H = c.ds_h;
     auto at = [&](int y, int x) -> int {
       y = y < 0 ? 0 : (y >= H ? H - 1 : y);
       return plane[static_cast<size_t>(y) * stride + x];
     };
-    const bool h2v1 = hf == 2 && vf == 1 && W > 2;
-    const bool h2v2 = hf == 2 && vf == 2 && W > 2;
-    const bool h1v2 = hf == 1 && vf == 2;
+    const bool h2v1 = fancy && hf == 2 && vf == 1 && W > 2;
+    const bool h2v2 = fancy && hf == 2 && vf == 2 && W > 2;
+    const bool h1v2 = fancy && hf == 1 && vf == 2;
     for (int y = 0; y < height; ++y) {
       uint8_t* o = out.data() + static_cast<size_t>(y) * width;
       const int iy = y / vf;
@@ -1015,24 +1587,53 @@ struct Decoder {
     }
   }
 
+  // jdapimin.c's default_decompress_parms: whether the file's colour is
+  // YCbCr (or YCCK). Three components are YCbCr under a JFIF marker or an
+  // Adobe transform other than 0, RGB under transform 0; without either
+  // marker, RGB if the ids are 'R', 'G', 'B' or the file is lossless, else
+  // YCbCr. Four are YCCK under an Adobe transform other than 0, else CMYK.
+  bool ycc_colour() const {
+    const int nc = static_cast<int>(comps.size());
+    if (nc == 1) return false;
+    if (nc == 4) return saw_adobe && adobe_transform != 0;
+    if (saw_jfif) return true;
+    if (saw_adobe) return adobe_transform != 0;
+    if (lossless) return false;
+    return !(comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66);
+  }
+
+  // Before any scan is decoded, as libjpeg fails in jpeg_start_decompress.
+  void check_output() const {
+    if (lossless && ycc_colour())
+      fail("lossless JPEG marked YCbCr or YCCK (a JFIF marker or an Adobe "
+           "transform other than 0) is not supported: libjpeg-turbo does "
+           "no colour conversion of lossless data");
+  }
+
   void output(uint8_t* out) {
     const int nc = static_cast<int>(comps.size());
     const bool smooth = smoothing_ok();
     std::vector<std::vector<uint8_t>> full(nc);
-    std::vector<uint8_t> plane;
+    std::vector<uint8_t> idct_plane;
     for (int ci = 0; ci < nc; ++ci) {
       Component& c = comps[ci];
       if (!c.latched) fail("corrupt JPEG: a component in no scan");
-      component_plane(c, smooth, plane);
-      const int stride = c.bw * 8;
+      const uint8_t* plane = c.samples.data();
+      int stride = c.bw;
+      if (!lossless) {
+        component_plane(c, smooth, idct_plane);
+        plane = idct_plane.data();
+        stride = c.bw * 8;
+      }
       const int hf = hmax / c.h, vf = vmax / c.v;
       if (hf == 1 && vf == 1) {
         full[ci].resize(static_cast<size_t>(width) * height);
         for (int y = 0; y < height; ++y)
           std::memcpy(full[ci].data() + static_cast<size_t>(y) * width,
-                      plane.data() + static_cast<size_t>(y) * stride, width);
+                      plane + static_cast<size_t>(y) * stride, width);
       } else {
-        upsample(plane, stride, c, hf, vf, width, height, full[ci]);
+        upsample(plane, stride, c, hf, vf, width, height, !lossless,
+                 full[ci]);
       }
     }
     const size_t npix = static_cast<size_t>(width) * height;
@@ -1040,20 +1641,8 @@ struct Decoder {
       std::memcpy(out, full[0].data(), npix);
       return;
     }
-    // jdcolor.c: YCbCr unless the file says RGB (an Adobe transform of 0,
-    // or component ids 'R', 'G', 'B' without a JFIF or Adobe marker); a
-    // four-component file is YCCK under an Adobe transform other than 0,
-    // else CMYK
-    bool ycc = true;
-    if (nc == 4) {
-      ycc = saw_adobe && adobe_transform != 0;
-    } else if (saw_jfif) {
-      ycc = true;
-    } else if (saw_adobe) {
-      ycc = adobe_transform != 0;
-    } else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) {
-      ycc = false;
-    }
+    // jdcolor.c: YCbCr->RGB, YCCK->CMYK, or the samples as stored
+    const bool ycc = ycc_colour();
     const uint8_t *P0 = full[0].data(), *P1 = full[1].data(),
                   *P2 = full[2].data();
     if (!ycc) {
@@ -1144,6 +1733,7 @@ int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, char* err,
   try {
     Decoder dec(data, size);
     dec.parse_header();
+    dec.check_output();
     dec.decode_scans();
     dec.output(out);
     return 0;

@@ -27,13 +27,16 @@ tries. The arithmetic is Pillow's:
   * rotate(BILINEAR, fillcolor=(1, 1, 1)): Pillow's affine matrix, pixel
     centres, double-precision bilinear taps truncated to uint8, and the
     fill where the source point leaves the image;
-  * the crop: the integer box, resized by the JAX package's native
-    bilinear resize (native/imageproc.cpp: float32 taps, a float32
-    intermediate, + 0.5 and truncation), with the multiply-adds fused as
-    its -march=native build contracts them.
+  * the crop: the integer box, resized by the port's compiled copy of
+    the JAX package's native bilinear resize (csrc/bilinear_resize.cpp,
+    native/imageproc.cpp's arithmetic: float32 taps, a float32
+    intermediate, + 0.5 and truncation), built with native/Makefile's
+    flags, so that its multiply-adds contract into FMAs as that build's
+    do on the same machine.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from typing import Callable, List, Sequence, Tuple
@@ -254,11 +257,9 @@ def rotate(img: np.ndarray, angle: float, fill: int = 1) -> np.ndarray:
 
 
 def _fma(a, b, c) -> np.ndarray:
-    """float32 a * b + c with one rounding, as the compiled native resize
-    contracts it (built with -march=native on a machine with FMA): the
-    float32 product is exact in float64, the sum rounds there and then to
-    float32 (a double rounding that a single FMA can differ from only at
-    ties)."""
+    """float32 a * b + c with one rounding: the float32 product is exact
+    in float64, the sum rounds there and then to float32 (a double
+    rounding that a single FMA can differ from only at ties)."""
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
             + np.asarray(c, np.float64)).astype(F32)
 
@@ -287,11 +288,16 @@ def _native_taps(sn: int, dn: int):
     return x0, w
 
 
-def native_bilinear_resize(img: np.ndarray, out_h: int, out_w: int
-                           ) -> np.ndarray:
-    """native.resize(img, out_h, out_w, "bilinear") of the JAX package:
-    a float32 horizontal pass, a float32 vertical pass, each tap added in
-    order, then + 0.5, clipped and truncated."""
+def native_bilinear_resize_plain(img: np.ndarray, out_h: int, out_w: int
+                                 ) -> np.ndarray:
+    """The plain numpy version of native_bilinear_resize: a float32
+    horizontal pass, a float32 vertical pass, each tap added in order,
+    then + 0.5, clipped and truncated, with every multiply-add of the
+    tap centres and of both passes fused. It cannot know which
+    multiply-adds a given build of the native library contracts (that
+    is the compiler's choice, per machine), so it can differ from the
+    compiled resize by a level where a sum rounds across a .5; nothing on
+    the crop's path calls it."""
     sh, sw = img.shape[:2]
     x0, wx = _native_taps(sw, out_w)
     y0, wy = _native_taps(sh, out_h)
@@ -305,6 +311,27 @@ def native_bilinear_resize(img: np.ndarray, out_h: int, out_w: int
         rows = np.minimum(y0 + k, sh - 1)
         acc = _fma(wy[:, k, None, None], tmp[rows], acc)
     return np.clip(acc + F32(0.5), 0, 255).astype(np.uint8)
+
+
+def native_bilinear_resize(img: np.ndarray, out_h: int, out_w: int
+                           ) -> np.ndarray:
+    """native.resize(img, out_h, out_w, "bilinear") of the JAX package,
+    uint8 (H, W, C) -> (out_h, out_w, C), by the compiled helper
+    csrc/bilinear_resize.cpp (built on first use with -march=native;
+    raises if the build fails)."""
+    from view_neti_tpu_torch.ops import build
+    fn = build.host_library("bilinear_resize").bilinear_resize_u8
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = None
+    src = np.ascontiguousarray(img, np.uint8)
+    h, w, c = src.shape
+    if min(h, w, c, out_h, out_w) < 1:
+        raise ValueError(f"cannot resize a {h}x{w}x{c} image to "
+                         f"{out_h}x{out_w}")
+    out = np.empty((out_h, out_w, c), np.uint8)
+    fn(src.ctypes.data, h, w, c, out.ctypes.data, out_h, out_w)
+    return out
 
 
 # ---- the random ops (the JAX package's, draw for draw) ----------------------

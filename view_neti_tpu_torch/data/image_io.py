@@ -13,12 +13,14 @@ Image.open(p).convert("RGB") gives it, bit for bit:
     (csrc/png_unfilter.cpp). `unfilter_plain` is the same unfilter in
     numpy, the reference the tests hold the helper to; the decode never
     falls back to it.
-  * JPEG: baseline, extended-sequential and progressive Huffman files
-    with 8-bit samples, gray, YCbCr, RGB, CMYK or YCCK at any integral
-    sampling, decoded by a compiled host helper (csrc/jpeg_decode.cpp)
-    with libjpeg-turbo's arithmetic, its block smoothing of unrefined
+  * JPEG: baseline, extended-sequential and progressive files, Huffman-
+    or arithmetic-coded, and lossless Huffman-coded files, with 8-bit
+    samples, gray, YCbCr, RGB, CMYK or YCCK at any integral sampling,
+    decoded by a compiled host helper (csrc/jpeg_decode.cpp) with
+    libjpeg-turbo's arithmetic, its block smoothing of unrefined
     progressive files and Pillow's CMYK->RGB, up to the first EOI.
-    Arithmetic-coded, lossless, hierarchical and 12-bit files raise.
+    Lossless arithmetic-coded, hierarchical and 12-bit files raise, as do
+    lossless files marked YCbCr (Pillow's libjpeg-turbo refuses them).
 Both helpers are built with the host compiler at first use. Every reading
 error is an ImageError that names the file.
 

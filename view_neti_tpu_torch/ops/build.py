@@ -9,9 +9,10 @@ build. `build()` starts one nvcc process per missing library, all at once,
 and waits for them together.
 
 `host_library` builds a host C++ helper of the same directory (the PNG
-unfilter and the JPEG decoder of data/image_io.py) with the host compiler,
-the same way. Host helpers are not CUDA kernels and stay out of
-KERNEL_SOURCES.
+unfilter and the JPEG decoder of data/image_io.py, the crop's bilinear
+resize of data/augment.py) with the host compiler, the same way, with
+HOST_CXX_FLAGS or the helper's own entry in HOST_FLAGS. Host helpers are
+not CUDA kernels and stay out of KERNEL_SOURCES.
 """
 from __future__ import annotations
 
@@ -33,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# helpers built with other flags: the crop's resize with native/Makefile's,
+# so that its float32 sums contract into FMAs as the JAX package's do
+HOST_FLAGS = {"bilinear_resize": ("-O3", "-march=native", "-fPIC",
+                                  "-std=c++17", "-shared")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -149,24 +154,40 @@ def _host_cxx() -> str:
                        "first use")
 
 
+def _cpu_identity() -> bytes:
+    """The CPU's model name and feature flags (Linux's /proc/cpuinfo), for
+    the hash of a -march=native build: such a library runs only on the
+    kind of CPU that built it."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return b""
+    keep = [ln for ln in lines if ln.split(":")[0].strip() in
+            ("model name", "flags", "Features", "CPU part")]
+    return "\n".join(dict.fromkeys(keep)).encode()
+
+
 def host_library(name: str) -> ctypes.CDLL:
     """The loaded host helper csrc/<name>.cpp, compiled first if need be
     into build/kernels/lib<name>-<hash>.so (the hash covers the source and
-    the flags; the file is renamed into place once complete)."""
+    the flags, and the CPU for a -march=native build; the file is renamed
+    into place once complete). Raises if the build fails."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cpp"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(
-            HOST_CXX_FLAGS).encode()).hexdigest()[:12]
+        flags = HOST_FLAGS.get(name, HOST_CXX_FLAGS)
+        key = src.read_bytes() + " ".join(flags).encode()
+        if "-march=native" in flags:
+            key += _cpu_identity()
+        digest = hashlib.sha256(key).hexdigest()[:12]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([_host_cxx(), *HOST_CXX_FLAGS, "-o",
-                                   str(tmp), str(src)], capture_output=True,
-                                  text=True)
+            proc = subprocess.run([_host_cxx(), *flags, "-o", str(tmp),
+                                   str(src)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"building {src.name} failed:\n"
                                    f"{proc.stdout}{proc.stderr}")
