@@ -32,11 +32,16 @@ Phases; any failure ends the run with a non-zero exit:
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
                 3 seeds at 768x576, fused VAE decode to uint8; checks the
                 output and that every UNet attention went through K1 and
-                every decoder conv section through K4; times sec/image
-                over three more rounds of generate as bench.py does, splits
-                one run by stage, holds the fused decode against the same
-                weights decoded unfused, and profiles one CFG denoise step
-                and one decode (device time by kernel group, idle share);
+                every decoder conv section through K4; the second run
+                captures the denoise loop and the decode as CUDA graphs
+                (their launch records checked); times sec/image over three
+                more rounds of generate as bench.py does, graphed and
+                eager, which must give the same images bit for bit (a
+                replay with stale inputs is the control), splits one run
+                by stage, holds the fused decode against the same weights
+                decoded unfused, and profiles one CFG denoise step graphed
+                and eager and one decode (device time by kernel group,
+                idle share);
   5. train   -- the mode-2 train step of bench.py:main on the same stack:
                 B = 9 (3 x 3 accumulation, fused), 384x512 pixels uniform in
                 [-1, 1], the fused VAE encode, DDPM noise, nested dropout,
@@ -52,10 +57,16 @@ Phases; any failure ends the run with a non-zero exit:
                 the config of the bench (mode 2, arch 15, SD-1.5, preset 7,
                 DTU preprocess 1, fused batch 9, bf16), the uint8 base cache
                 on the card and the preset-7 augmentation there, 2 warm-up
-                and --coach-steps timed steps, the final msgpack
-                checkpoint; prints imgs/sec (the median over the tail half
-                of the per-step rates, and wall time over the timed steps)
-                beside the train phase's raw step, the cache fill, the
+                and --coach-steps timed steps in its default 4-step
+                dispatch windows (CUDA graph replays; a save at step 10
+                shrinks one, train states on), the msgpack checkpoints;
+                then the same run with optim.steps_per_dispatch 1 (eager)
+                must give the same losses, mappers, counts and files; the
+                `coach window` line has both runs' ms/step, imgs/sec and
+                one step's idle share, the capture's seconds and pool;
+                prints imgs/sec and ms/step (the host clock from a
+                synchronize after the warm-up to the loop's end, over the
+                timed steps) beside the train phase's raw step, the cache fill, the
                 decode and resize per image, peak memory, the augmentation's
                 device time and launches, and one profiled Coach step;
                 checks the losses, the launches of K1-K4 per step against
@@ -97,7 +108,10 @@ Phases; any failure ends the run with a non-zero exit:
                 card, the object-token renders; prints the sweep's seconds
                 and sec/image, the metric means, peak memory, and the
                 launches and idle share of one CFG denoise step at the
-                sweep's shapes; checks K1-K4's launches;
+                sweep's shapes (graphed and eager); checks K1-K4's
+                launches; the sweep's first SWEEP_CHECK_CAMS (2) cameras
+                again through its graphs and eagerly, bit for bit, for
+                both sec/image;
  10. inference -- python -m view_neti_tpu_torch.inference on that run with
                 --debug 1: its predictions equal the sweep's for the first
                 two cameras bit for bit; then python -m
@@ -249,6 +263,7 @@ VAL_DENOISE = 30
 VAL_TRAIN_STEPS = 3      # the validate phase's Coach steps ...
 VAL_EVERY = 2            # ... with a checkpoint and a validation at step 2
 EVAL_CAMS = 34           # the DTU eval cameras of inference_dtu.get_cam_idxs
+SWEEP_CHECK_CAMS = 2     # the sweep graphed against eager on these cameras
 INFER_CAMS = 2           # offline inference with --debug 1
 # the acceptance phase: python -m view_neti_tpu_torch.acceptance on the eval
 # scan and the weights phase's stack, cut for time to ACC_STEPS steps and
@@ -264,7 +279,7 @@ ACC_KEYS = {"metrics", "assets", "manifest", "all_assets_real",
 # eval tokens; cut for time: the sweeps to the first 4 eval cameras
 M3_CONFIG = os.path.join("input_configs", "train_m3.yaml")
 M3_WARM = 2              # warm-up steps, then a checkpoint and train state
-M3_STEPS = 8             # timed steps of the straight run after the warm-up
+M3_STEPS = 4             # timed steps of the straight run after the warm-up
 M3_TOKENS = 3            # eval.eval_placeholder_object_tokens of the recipe
 M3_SWEEP_CAMS = 4
 # the folders phase: input_configs/train_mode0.yaml on a folder of the
@@ -283,7 +298,7 @@ FIXTURE_DIRS = (os.path.join("tests", "data", "jpeg"),
                 os.path.join("tests", "data", "formats"))
 DECODE_REPS = 5          # decodes of each fixture for its ms per megapixel
 FOLDERS_WARM = 2         # warm-up steps, then the validation round
-FOLDERS_STEPS = 6        # timed steps of each run after the warm-up
+FOLDERS_STEPS = 3        # timed steps of each run after the warm-up
 FOLDERS_SIZE = 512
 FOLDERS_PROMPTS = 2      # eval.validation_prompts cut to the first 2
 FOLDERS_SHEET_TOKENS = 3  # the prompt sheet's view tokens (and one without)
@@ -425,17 +440,39 @@ def check_path_spills(usage):
 
 
 def launch_counts(reset: bool = False):
-    """Each kernel wrapper's launch count, {"K1": n, ...}; reset sets them
-    all to 0 first."""
-    from view_neti_tpu_torch.ops import flash_attention as fa
-    from view_neti_tpu_torch.ops import fused_conv as fc
-    wrappers = {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_dq,
-                "K3": fa.flash_attention_bwd_dkv,
-                "K4": fc.fused_affine_silu_conv3x3}
+    """Each kernel wrapper's launch count, {"K1": n, ...}, the launches
+    inside CUDA graph replays included (each replay adds its graph's
+    record, utils/graphs.py); reset sets them all to 0 first."""
+    from view_neti_tpu_torch.utils.graphs import kernel_wrappers
+    wrappers = kernel_wrappers()
     if reset:
         for fn in wrappers.values():
             fn.launches = 0
     return {key: fn.launches for key, fn in wrappers.items()}
+
+
+class SyncAfter:
+    """A Coach's window_step with one synchronize after the optimizer step
+    that reaches `step`: the card is idle there, so the host clock from
+    that moment (`at`) to the loop's end times all the work of the steps
+    after it, whatever the windows queue ahead of the host. Everything
+    else is the wrapped step's."""
+
+    def __init__(self, torch, coach, step):
+        self.torch, self.inner = torch, coach.window_step
+        self.left, self.at = step - coach.global_step, None
+        coach.window_step = self
+
+    def __call__(self, *args):
+        out = self.inner(*args)
+        self.left -= 1
+        if self.left == 0:
+            self.torch.cuda.synchronize()
+            self.at = time.perf_counter()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
 
 def device_profile(torch, fn, ranges=()):
@@ -951,64 +988,115 @@ def phase_slice(torch, dev, card, steps):
         ctx, ctx_b = pm.embed_prompt(prompt)
         return ctx, ctx_b, pipeline.encode_uncond(built.text.clip, tok)
 
-    # the counted run: the user's entry points, counts from 0
+    # the counted run: the user's entry points, counts from 0. The denoise
+    # loop and the decode are kept across runs, so that the second run of
+    # their shapes captures each in a CUDA graph and later runs replay it
     launch_counts(reset=True)
     t0 = time.perf_counter()
     ctx, ctx_b, uncond = condition()
 
-    def run(seed_offset):
+    def sampler(graph):
+        return (pipeline.make_denoise_fn(built.unet, sched, steps, 7.5,
+                                         torch.bfloat16, graph=graph),
+                pipeline.make_decode_fn(vae, graph=graph))
+
+    graphed, eager = sampler(True), sampler(False)
+
+    def run(seed_offset, fns=graphed):
         return pipeline.generate(built.unet, vae, sched, ctx, ctx_b, uncond,
                                  HEIGHT, WIDTH,
                                  [s + seed_offset for s in seeds],
                                  num_inference_steps=steps,
                                  guidance_scale=7.5,
-                                 compute_dtype=torch.bfloat16, device=dev)
+                                 compute_dtype=torch.bfloat16, device=dev,
+                                 denoise_fn=fns[0], decode_fn=fns[1])
 
     imgs = run(0)
     first_s = time.perf_counter() - t0
+    # the second run captures the loop and the decode, then replays them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(1)
+    capture_run_s = time.perf_counter() - t0
     launches = launch_counts()
     check(imgs.shape == (3, HEIGHT, WIDTH, 3) and imgs.dtype == np.uint8,
           f"images {imgs.shape} {imgs.dtype}")
     check(imgs.min() != imgs.max(), "images are constant")
-    check(launches["K1"] == 32 * steps,
-          f"K1 launched {launches['K1']} times, want {32 * steps}")
-    check(launches["K4"] == 29,
-          f"K4 launched {launches['K4']} times, want 29")
+    check(launches["K1"] == 2 * 32 * steps,
+          f"K1 launched {launches['K1']} times in 2 runs, want "
+          f"{2 * 32 * steps}")
+    check(launches["K4"] == 2 * 29,
+          f"K4 launched {launches['K4']} times in 2 runs, want {2 * 29}")
     check(launches["K2"] == launches["K3"] == 0,
           f"the serving path ran the backward: {launches}")
-    print(f"slice: first run {first_s:.2f} s, launches {launches}",
-          flush=True)
+    (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
+    check(loop_cap.launches == {"K1": 32 * steps} and loop_cap.replays == 1,
+          f"the denoise graph's launches {loop_cap.launches}, replays "
+          f"{loop_cap.replays}")
+    check(dec_cap.launches == {"K4": 29} and dec_cap.replays == 1,
+          f"the decode graph's launches {dec_cap.launches}")
+    print(f"slice: first run {first_s:.2f} s, capture run "
+          f"{capture_run_s:.2f} s, launches {launches}", flush=True)
 
     # sec/image as bench.py:_bench_infer counts it: three more rounds of
     # generate (new seeds, uint8 images copied to the host), over the
-    # rounds times the seeds; the conditioning is outside the rounds
+    # rounds times the seeds; the conditioning is outside the rounds. The
+    # graphed rounds replay the two graphs; the eager ones launch every
+    # kernel from the host (the kernels' libraries loaded in the graphed
+    # warm-up above), and must give the same images bit for bit
     rounds = 3
-    t0 = time.perf_counter()
-    for r in range(1, rounds + 1):
-        run(r)
-    sec_per_image = (time.perf_counter() - t0) / (rounds * len(seeds))
+    per_image, outs = {}, {}
+    for name, fns in (("graphed", graphed), ("eager", eager)):
+        outs[name] = []
+        t0 = time.perf_counter()
+        for r in range(2, rounds + 2):
+            outs[name].append(run(r, fns))
+        per_image[name] = (time.perf_counter() - t0) / (rounds * len(seeds))
+    sec_per_image = per_image["graphed"]
+    equal = all(np.array_equal(a, b)
+                for a, b in zip(outs["graphed"], outs["eager"]))
+    check(equal, "the graphed sampling runs differ from the eager ones")
+    # the control: a replay whose inputs were not copied into the graph's
+    # buffers gives an earlier call's images (here the last graphed
+    # round's), which the check must tell from the first round's
+    graphed[0].replay(loop_cap)
+    stale = pipeline.decode_to_uint8(
+        vae, loop_cap.out_tensors[0].to(torch.bfloat16)).cpu().numpy()
+    stale_levels = float(np.abs(stale.astype(np.int32)
+                                - outs["eager"][0].astype(np.int32)).mean())
+    check(stale_levels > 1.0, f"a stale-buffer replay is within "
+                              f"{stale_levels} mean levels of the eager run")
+    graph_stats = dict(
+        sec_per_image_graphed=per_image["graphed"],
+        sec_per_image_eager=per_image["eager"],
+        graphed_equals_eager=equal, stale_replay_mean_levels=stale_levels,
+        loop_capture_s=loop_cap.capture_s,
+        loop_pool_gib=loop_cap.pool_bytes / 2 ** 30,
+        decode_capture_s=dec_cap.capture_s,
+        decode_pool_gib=dec_cap.pool_bytes / 2 ** 30)
+    print(f"slice graphs [{card}]: {json.dumps(graph_stats)}", flush=True)
 
-    # one more run split by stage, with the final latents checked
+    # one more run split by stage (the graphs' replays), with the final
+    # latents checked
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ctx, ctx_b, uncond = condition()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    denoise = pipeline.make_denoise_fn(built.unet, sched, steps, 7.5,
-                                       torch.bfloat16)
+    denoise, decode = graphed
     lat0 = pipeline.initial_latents(seeds, HEIGHT // 8, WIDTH // 8, dev)
     lat = denoise(lat0, ctx, ctx_b, uncond)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    imgs2 = pipeline.decode_to_uint8(vae, lat.to(torch.bfloat16))
+    imgs2 = decode(lat.to(torch.bfloat16))
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     check(bool(torch.isfinite(lat).all()), "final latents are not finite")
     check(tuple(imgs2.shape) == (3, HEIGHT, WIDTH, 3), "decode shape")
     stages = dict(steps=steps, conditioning_s=t1 - t0, denoise_s=t2 - t1,
                   decode_s=t3 - t2, sec_per_image=sec_per_image,
-                  first_run_s=first_s,
-                  latents_abs_max=lat.abs().max().item())
+                  first_run_s=first_s, capture_run_s=capture_run_s,
+                  latents_abs_max=lat.abs().max().item(), **graph_stats)
     print(f"slice [{card}]: {json.dumps(stages)}", flush=True)
 
     # the decode against the same weights built unfused (GroupNorm, SiLU
@@ -1026,14 +1114,22 @@ def phase_slice(torch, dev, card, steps):
     stages["decode_within_2_of_unfused"] = within2
 
     # where the device time goes: one CFG denoise step (one UNet forward
-    # at B = 6 and the solver update) and one decode, under the profiler
+    # at B = 6 and the solver update) as a graph replay and eagerly, and
+    # one decode, under the profiler
     step1 = pipeline.make_denoise_fn(built.unet, sched, 1, 7.5,
                                      torch.bfloat16)
+    step1_eager = pipeline.make_denoise_fn(built.unet, sched, 1, 7.5,
+                                           torch.bfloat16, graph=False)
+    for _ in range(2):      # the warm-up, then the capture
+        step1(lat0, ctx, ctx_b, uncond)
     for what, fn in (
-            ("denoise step", lambda: step1(lat0, ctx, ctx_b, uncond)),
+            ("denoise step graphed", lambda: step1(lat0, ctx, ctx_b, uncond)),
+            ("denoise step", lambda: step1_eager(lat0, ctx, ctx_b, uncond)),
             ("decode", lambda: pipeline.decode_to_uint8(
                 vae, lat.to(torch.bfloat16)))):
         prof = device_profile(torch, fn)
+        stages[f"{what.replace(' ', '_')}_idle_share"] = (
+            prof["idle_share"] if prof else None)
         print(f"profile {what} [{card}]: "
               f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
     return launches, stages, built, tok
@@ -1260,9 +1356,37 @@ def mode2_config(rect, exp_dir, **changes):
     return decode(RunConfig, data)
 
 
+COACH_SAVE_STEPS = 10    # a save boundary that cuts the third 4-step window
+COACH_WINDOW = 4         # optim.steps_per_dispatch 0 with the base cache
+
+
+def coach_files(run_dir):
+    """{relative path: bytes} of a run's checkpoints and train states; a
+    mapper file's bytes without its saved config, which names the run's
+    directory and its dispatch window."""
+    from view_neti_tpu_torch.utils import msgpack_codec
+    out = {}
+    for base, _, names in os.walk(run_dir):
+        for name in names:
+            if name.endswith(".msgpack"):
+                path = os.path.join(base, name)
+                with open(path, "rb") as f:
+                    data = f.read()
+                payload = msgpack_codec.unpackb(data)
+                if isinstance(payload, dict) and "cfg" in payload:
+                    data = msgpack_codec.packb(
+                        {k: v for k, v in payload.items() if k != "cfg"})
+                out[os.path.relpath(path, run_dir)] = data
+    return out
+
+
 def phase_coach(torch, dev, card, train_result, steps):
     """The Coach of view_neti_tpu_torch.train on the recipe of
-    bench.py:_bench_e2e (bench.py:394-432), at full width."""
+    bench.py:_bench_e2e (bench.py:394-432), at full width: its default
+    dispatch windows (4 optimizer steps, each a CUDA graph replay) with a
+    save boundary inside a window and the train state requested, then the
+    same run with optim.steps_per_dispatch 1 (every step eager), which must
+    give the same losses, mappers, optimizer counts and checkpoint bytes."""
     import numpy as np
     from view_neti_tpu_torch import weight_port
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
@@ -1276,7 +1400,9 @@ def phase_coach(torch, dev, card, train_result, steps):
         t0 = time.perf_counter()
         rect, cal, _, paths = write_scan(root, image_io, dtu, np)
         write_s = time.perf_counter() - t0
-        cfg = mode2_config(rect, os.path.join(root, "run"),
+        log = {"save_steps": COACH_SAVE_STEPS,
+               "checkpoint_backend": "orbax"}
+        cfg = mode2_config(rect, os.path.join(root, "run"), log=log,
                            optim={"max_train_steps": warm + steps})
         t0 = time.perf_counter()
         coach = Coach(cfg, calibration_dir=cal, device=dev)
@@ -1285,8 +1411,13 @@ def phase_coach(torch, dev, card, train_result, steps):
         check(coach.micro_batch_size == B and coach.use_pixel_cache
               and coach.augment_spec == da.from_augmentation_key(7),
               "the Coach did not take the fused, cached, preset-7 path")
+        check(coach.steps_per_dispatch == COACH_WINDOW
+              and coach.window_step.enabled,
+              f"the Coach's window is {coach.steps_per_dispatch} steps, "
+              f"graphed: {coach.window_step.enabled}")
 
         # the counted run: the user's entry point, counts from 0
+        timed = SyncAfter(torch, coach, warm)
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         t0 = time.perf_counter()
@@ -1294,6 +1425,8 @@ def phase_coach(torch, dev, card, train_result, steps):
         train_s = time.perf_counter() - t0
         launches = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the graphs' private pools are reserved, not allocated
+        reserved_gb = torch.cuda.max_memory_reserved() / 2 ** 30
         n = coach.global_step
         per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
         check(n == warm + steps, f"the Coach ran {n} steps")
@@ -1306,11 +1439,16 @@ def phase_coach(torch, dev, card, train_result, steps):
         losses = coach.losses
         check(len(losses) == n and all(math.isfinite(x) for x in losses),
               f"coach losses {losses}")
-        marks = coach.step_marks
-        rates = [B / (b - a) for a, b in zip(marks[:-1], marks[1:])]
-        tail = rates[len(rates) // 2:]
-        ms_step = (coach.loop_end_s - marks[warm - 1]) * 1e3 / steps
+        (cap,) = coach.window_step.captures.values()
+        check(cap.launches == per_step and cap.replays == n - 1,
+              f"the train step's graph launches {cap.launches} over "
+              f"{cap.replays} replays, want {per_step} over {n - 1}")
+        ms_step = (coach.loop_end_s - timed.at) * 1e3 / steps
+        del timed   # it holds the Coach, which is freed below
         raw_ms = train_result["ms_per_step"]
+        graphed = dict(losses=list(losses), counts=coach.optimizer.counts,
+                       mappers=mapper_state(coach),
+                       files=coach_files(cfg.log.exp_dir))
 
         # the bases on the card against a fresh decode and resize on the CPU
         ds = coach.train_dataset
@@ -1368,15 +1506,83 @@ def phase_coach(torch, dev, card, train_result, steps):
             coach.train_step(coach.built, batch,
                              coach._step_draws(10 ** 6, batch))
 
+        def one_replay():
+            coach.window_step([batch], [coach._step_draws(10 ** 6, batch)])
+
         prof = device_profile(torch, one_step, ranges=("device_augment",))
+        prof_graphed = device_profile(torch, one_replay)
+        capture = dict(capture_s=cap.capture_s,
+                       pool_gib=cap.pool_bytes / 2 ** 30)
+        cache_fill_s = coach.cache_fill_s
+        timer_rejected = coach.last_step_timer.rejected_total
+        del coach, batch, cap
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the same run with every step eager: the same losses, mappers,
+        # counts and files, bit for bit
+        cfg_eager = mode2_config(
+            rect, os.path.join(root, "run_eager"), log=log,
+            optim={"max_train_steps": warm + steps, "steps_per_dispatch": 1})
+        eager = Coach(cfg_eager, calibration_dir=cal, device=dev)
+        check(eager.steps_per_dispatch == 1 and not eager.window_step.enabled,
+              "the eager Coach took a window")
+        etimed = SyncAfter(torch, eager, warm)
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        eager.train()
+        eager_launches = launch_counts()
+        eager_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        eager_reserved_gb = torch.cuda.max_memory_reserved() / 2 ** 30
+        check(eager_launches == launches, f"eager launches {eager_launches}")
+        eager_ms = (eager.loop_end_s - etimed.at) * 1e3 / steps
+        del etimed
+        efiles = coach_files(cfg_eager.log.exp_dir)
+        emappers = mapper_state(eager)
+        check(eager.losses == graphed["losses"],
+              f"graphed losses {graphed['losses']} != eager {eager.losses}")
+        check(eager.optimizer.counts == graphed["counts"],
+              f"counts {graphed['counts']} != {eager.optimizer.counts}")
+        mapper_diff = max((emappers[k].float() - v.float()).abs().max().item()
+                          for k, v in graphed["mappers"].items())
+        check(emappers.keys() == graphed["mappers"].keys()
+              and mapper_diff == 0, f"mappers differ by {mapper_diff}")
+        check(sorted(efiles) == sorted(graphed["files"])
+              and all(efiles[k] == v for k, v in graphed["files"].items()),
+              f"checkpoint files differ: {sorted(graphed['files'])} / "
+              f"{[k for k in efiles if efiles[k] != graphed['files'].get(k)]}")
+        ebatch = eager._build_batch(next(iter(DataLoader(
+            eager.train_dataset, B))))
+        prof_eager = device_profile(torch, lambda: eager.train_step(
+            eager.built, ebatch, eager._step_draws(10 ** 6, ebatch)))
+        del eager, ebatch
+        gc.collect()
+        torch.cuda.empty_cache()
+        window = dict(
+            steps_per_dispatch=COACH_WINDOW, save_steps=COACH_SAVE_STEPS,
+            graphed_ms_per_step=ms_step, eager_ms_per_step=eager_ms,
+            graphed_imgs_per_sec=B * 1e3 / ms_step,
+            eager_imgs_per_sec=B * 1e3 / eager_ms,
+            graphed_idle_share=(prof_graphed["idle_share"]
+                                if prof_graphed else None),
+            eager_idle_share=prof_eager["idle_share"] if prof_eager else None,
+            graphed_step_kernels=(prof_graphed["kernels"]
+                                  if prof_graphed else None),
+            graphed_peak_memory_gib=peak_gb,
+            eager_peak_memory_gib=eager_peak_gb,
+            graphed_peak_reserved_gib=reserved_gb,
+            eager_peak_reserved_gib=eager_reserved_gb,
+            checkpoint_files=sorted(efiles), losses_equal=True,
+            mapper_max_abs_diff=mapper_diff, **capture)
+        print(f"coach window [{card}]: {json.dumps(window)}", flush=True)
     stats = dict(
         batch=B, height=TRAIN_HEIGHT, width=TRAIN_WIDTH, warmup_steps=warm, timed_steps=steps,
-        imgs_per_sec=float(np.median(tail)),
-        imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
+        imgs_per_sec=B * 1e3 / ms_step, ms_per_step=ms_step,
         raw_step_ms_per_step=raw_ms, ms_ratio_to_raw_step=ms_step / raw_ms,
-        rates_tail=tail, peak_memory_gib=peak_gb,
+        peak_memory_gib=peak_gb,
         write_scan_s=write_s, build_s=build_s, train_s=train_s,
-        cache_fill_s=coach.cache_fill_s,
+        cache_fill_s=cache_fill_s,
         decode_ms_per_image=float(np.median(decode_ms)),
         resize_ms_per_image=float(np.median(resize_ms)),
         augment_ms=aug_ms,
@@ -1385,7 +1591,7 @@ def phase_coach(torch, dev, card, train_result, steps):
         augment_max_abs_err_card_vs_cpu=aug_err,
         launches_per_step={k: v / n for k, v in launches.items()},
         losses=losses, final_loss=result["final_loss"],
-        timer_rejected=coach.last_step_timer.rejected_total)
+        timer_rejected=timer_rejected, window=window)
     print(f"coach [{card}]: {json.dumps(stats)}", flush=True)
     print(f"profile coach step [{card}]: "
           f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
@@ -1726,6 +1932,41 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
     want = {"K1": 32 * (n + VAL_DENOISE * (EVAL_CAMS + 1)), "K2": 30 * n,
             "K3": 31 * n, "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
     check(launches == want, f"validate launches {launches}, want {want}")
+    (loop_cap,) = [c for f, _ in coach._sampling.values()
+                   for c in f.captures.values()
+                   if c.static_args[0].shape[1:3] == (HEIGHT // 8,
+                                                      WIDTH // 8)]
+    check(loop_cap.replays == EVAL_CAMS - 1,
+          f"the sweep's denoise graph replayed {loop_cap.replays} times, "
+          f"want {EVAL_CAMS - 1}")
+
+    # the sweep graphed (the round captured its shapes: replays only) and
+    # eager on its first cameras: the same images bit for bit
+    from view_neti_tpu_torch.training import inference_dtu
+    check_cams = res["cam_idxs"][:SWEEP_CHECK_CAMS]
+
+    def eager_sampling(schedule, num_steps, guidance_scale):
+        unet, vae = coach.infer_frozen()
+        return (pipeline.make_denoise_fn(unet, schedule, num_steps,
+                                         guidance_scale, coach.compute_dtype,
+                                         graph=False),
+                pipeline.make_decode_fn(vae, graph=False))
+
+    sweeps = {}
+    for name, fns in (("graphed", None), ("eager", eager_sampling)):
+        if fns is not None:     # the Coach's own, or eager ones
+            coach.sampling_fns = fns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inference_dtu.render_cameras(
+            coach, check_cams, VAL_EVERY, VAL_DENOISE, VAL_SEEDS,
+            calibration_dir=cal)
+        sweeps[name] = (out, (time.perf_counter() - t0)
+                        / (len(check_cams) * len(VAL_SEEDS)))
+    del coach.sampling_fns
+    check(all(np.array_equal(sweeps["graphed"][0][c], sweeps["eager"][0][c])
+              for c in check_cams),
+          "the graphed sweep differs from the eager one")
 
     # one CFG denoise step at the sweep's shapes (B = 4, 72x96 latents)
     # under the profiler
@@ -1744,16 +1985,28 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
                                         coach.tokenizer)
     lat0 = pipeline.initial_latents(VAL_SEEDS, HEIGHT // 8, WIDTH // 8, dev)
     step1 = pipeline.make_denoise_fn(unet, sched, 1, 7.5, torch.bfloat16)
-    step1(lat0, ctx, ctx_b, uncond)
+    step1_eager = pipeline.make_denoise_fn(unet, sched, 1, 7.5,
+                                           torch.bfloat16, graph=False)
+    for _ in range(2):      # the warm-up, then the capture
+        step1(lat0, ctx, ctx_b, uncond)
     prof = device_profile(torch, lambda: step1(lat0, ctx, ctx_b, uncond))
+    prof_eager = device_profile(torch, lambda: step1_eager(lat0, ctx, ctx_b,
+                                                           uncond))
     sweep_s = coach.validator.sweep_s
     stats = dict(
         cams=EVAL_CAMS, seeds=VAL_SEEDS, denoising_steps=VAL_DENOISE,
         train_steps=n, coach_train_s=train_s, sweep_s=sweep_s,
         sec_per_image=sweep_s / (EVAL_CAMS * len(VAL_SEEDS)),
+        check_cams=len(check_cams),
+        sec_per_image_graphed=sweeps["graphed"][1],
+        sec_per_image_eager=sweeps["eager"][1], graphed_equals_eager=True,
+        sweep_capture_s=loop_cap.capture_s,
+        sweep_pool_gib=loop_cap.pool_bytes / 2 ** 30,
         metrics=means, peak_memory_gib=peak_gb, launches=launches,
         denoise_step_launches=prof["kernels"] if prof else None,
-        denoise_step_idle_share=prof["idle_share"] if prof else None)
+        denoise_step_idle_share=prof["idle_share"] if prof else None,
+        eager_denoise_step_idle_share=(prof_eager["idle_share"]
+                                       if prof_eager else None))
     print(f"validate [{card}]: {json.dumps(stats)}", flush=True)
     print(f"profile sweep denoise step [{card}]: "
           f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
@@ -1960,6 +2213,7 @@ def phase_mode3(torch, dev, card, coach_stats):
               and len(coach.built.text.obj_mappers) == 4,
               "the Coach did not take SD-2.1's fused, grouped, preset-5 "
               "mode-3 path")
+        timed = SyncAfter(torch, coach, M3_WARM)
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         t0 = time.perf_counter()
@@ -1977,10 +2231,8 @@ def phase_mode3(torch, dev, card, coach_stats):
         check(len(losses_a) == n and all(math.isfinite(x)
                                          for x in losses_a),
               f"mode-3 losses {losses_a}")
-        marks = coach.step_marks
-        rates = [B / (b - a) for a, b in zip(marks[:-1], marks[1:])]
-        tail = rates[len(rates) // 2:]
-        ms_step = (coach.loop_end_s - marks[M3_WARM - 1]) * 1e3 / M3_STEPS
+        ms_step = (coach.loop_end_s - timed.at) * 1e3 / M3_STEPS
+        del timed
         final_a = mapper_state(coach)
 
         # grouped conditioning against one call per group on its own
@@ -2184,7 +2436,8 @@ def phase_mode3(torch, dev, card, coach_stats):
               "the v-prediction denoise is not finite or its decode is "
               "constant")
         step1, ctx1, ctx1_b = denoiser(1)
-        step1(lat0, ctx1, ctx1_b, uncond)
+        for _ in range(2):      # the warm-up, then the capture
+            step1(lat0, ctx1, ctx1_b, uncond)
         prof = device_profile(torch, lambda: step1(lat0, ctx1, ctx1_b,
                                                    uncond))
         del coach, unet, vae, ctx, ctx_b, lat
@@ -2238,12 +2491,12 @@ def phase_mode3(torch, dev, card, coach_stats):
         model="SD-2.1 (stabilityai/stable-diffusion-2-1, seeded weights)",
         scans=n_images // 34, images=n_images, batch=B, groups=3,
         height=TRAIN_HEIGHT, width=TRAIN_WIDTH, warmup_steps=M3_WARM,
-        timed_steps=M3_STEPS, imgs_per_sec=float(np.median(tail)),
-        imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
+        timed_steps=M3_STEPS, imgs_per_sec=B * 1e3 / ms_step,
+        ms_per_step=ms_step,
         sd15_coach_imgs_per_sec=coach_stats["imgs_per_sec"],
         sd15_coach_ms_per_step=coach_stats["ms_per_step"],
         sd15_raw_step_ms_per_step=coach_stats["raw_step_ms_per_step"],
-        rates_tail=tail, peak_memory_gib=peak_gb, write_scans_s=write_s,
+        peak_memory_gib=peak_gb, write_scans_s=write_s,
         build_s=build_s, train_s=train_s, resumed_run_s=resumed_s,
         offline_s=infer_s,
         launches_per_step={k: v / n for k, v in launches_a.items()},
@@ -2456,10 +2709,6 @@ def phase_folders(torch, dev, card):
         check(len(losses) == n and all(math.isfinite(x) for x in losses),
               f"{name} losses {losses}")
         # the timed steps start after the validation round
-        marks = coach.step_marks
-        rates = [B / (b - a) for a, b in zip(marks[FOLDERS_WARM:-1],
-                                             marks[FOLDERS_WARM + 1:])]
-        tail = rates[len(rates) // 2:]
         ms_step = ((coach.loop_end_s - rounds[0]["end"]) * 1e3
                    / FOLDERS_STEPS)
         batch = coach._build_batch(next(iter(DataLoader(
@@ -2474,9 +2723,8 @@ def phase_folders(torch, dev, card):
         # time (the batch is on the card: no loader in it)
         step_ms = time_ms(torch, one_step, 1500.0)
         stats = dict(
-            imgs_per_sec=float(np.median(tail)),
-            imgs_per_sec_wall=B * 1e3 / ms_step, ms_per_step=ms_step,
-            rates_tail=tail, peak_memory_gib=peak_gb, build_s=build_s,
+            imgs_per_sec=B * 1e3 / ms_step, ms_per_step=ms_step,
+            peak_memory_gib=peak_gb, build_s=build_s,
             train_s=train_s, validation_s=rounds[0]["s"], renders=renders,
             losses=losses,
             launches_per_step={
@@ -2694,7 +2942,7 @@ def phase_folders(torch, dev, card):
 # its last checkpoint: the six scan cameras cut to DDP_DENOISE steps
 DDP_WORLD = 3
 DDP_WARM = 2             # warm-up steps, then DDP_STEPS timed ones
-DDP_STEPS = 4
+DDP_STEPS = 2
 DDP_DENOISE = 5
 DDP_VAL_CAMS = 2         # the validation round's cameras (cfg.debug) ...
 DDP_VAL_DENOISE = 2      # ... and its denoising steps (ValidationHandler)
@@ -3195,7 +3443,7 @@ def phase_ddp(torch, dev, card):
 # shapes cut to TP_DENOISE steps; one SD-2.1 UNet forward
 TP_WORLD = 2
 TP_WARM = 2              # warm-up steps, then TP_STEPS timed ones
-TP_STEPS = 3
+TP_STEPS = 2
 TP_DENOISE = 5
 # the ranks against one process computing the split (tp_emulate_): each
 # step's loss (relative) and the mappers (tests/test_parallel.py); the
@@ -3745,6 +3993,18 @@ def kernel_report(kernels, launches, card):
     return report
 
 
+PHASE_S = {}
+
+
+def timed(name, fn, *args):
+    """fn(*args), its seconds printed and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=30,
@@ -3787,18 +4047,18 @@ def main() -> int:
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 
-    kernels = phase_kernels(torch, dev, card, args.steps)
-    serve_launches, _, built, tok = phase_slice(torch, dev, card,
-                                                args.steps)
-    train_launches, train_result = phase_train(torch, dev, card, built, tok,
-                                               args.train_steps)
+    kernels = timed("kernels", phase_kernels, torch, dev, card, args.steps)
+    serve_launches, _, built, tok = timed("slice", phase_slice, torch, dev,
+                                          card, args.steps)
+    train_launches, train_result = timed("train", phase_train, torch, dev,
+                                         card, built, tok, args.train_steps)
     # the Coach builds its own stack: free the slice's and train phase's
     del built, tok
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    coach_launches, coach_stats = phase_coach(torch, dev, card,
-                                              train_result, args.coach_steps)
+    coach_launches, coach_stats = timed("coach", phase_coach, torch, dev,
+                                        card, train_result, args.coach_steps)
     gc.collect()
     torch.cuda.empty_cache()
     import numpy as np
@@ -3812,37 +4072,41 @@ def main() -> int:
                                               cams=cams, masks=True)
         print(f"eval scan: {len(cams)} images and masks in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        weights_launches, weights = phase_weights(torch, dev, card, rect,
-                                                  cal)
+        weights_launches, weights = timed("weights", phase_weights, torch,
+                                          dev, card, rect, cal)
         gc.collect()
         torch.cuda.empty_cache()
         try:
-            acceptance_launches, _ = phase_acceptance(
-                torch, dev, card, root, weights, cal, masks_root)
+            acceptance_launches, _ = timed(
+                "acceptance", phase_acceptance, torch, dev, card, root,
+                weights, cal, masks_root)
         finally:
             shutil.rmtree(weights)
         gc.collect()
         torch.cuda.empty_cache()
         run_dir = os.path.join(root, "run")
-        validate_launches, val = phase_validate(torch, dev, card, rect, cal,
-                                                masks_root, run_dir)
+        validate_launches, val = timed("validate", phase_validate, torch,
+                                       dev, card, rect, cal, masks_root,
+                                       run_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        inference_launches, _ = phase_inference(torch, dev, card, cal,
-                                                masks_root, run_dir, val)
+        inference_launches, _ = timed("inference", phase_inference, torch,
+                                      dev, card, cal, masks_root, run_dir,
+                                      val)
     del val
     gc.collect()
     torch.cuda.empty_cache()
-    mode3_launches, _ = phase_mode3(torch, dev, card, coach_stats)
+    mode3_launches, _ = timed("mode3", phase_mode3, torch, dev, card,
+                              coach_stats)
     gc.collect()
     torch.cuda.empty_cache()
-    folders_launches, _ = phase_folders(torch, dev, card)
+    folders_launches, _ = timed("folders", phase_folders, torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_ddp(torch, dev, card)
+    timed("ddp", phase_ddp, torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_launches = phase_tp(torch, dev, card)["launches"]
+    tp_launches = timed("tp", phase_tp, torch, dev, card)["launches"]
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
@@ -3853,6 +4117,7 @@ def main() -> int:
                                      "mode3": mode3_launches,
                                      "folders": folders_launches,
                                      "tp": tp_launches}, card)
+    print(f"phases [{card}]: {json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -383,3 +383,213 @@ def test_fused_conv_refuses_what_the_kernel_does_not_take(dev):
                 (x.transpose(1, 2), a, b, w), (x, a, b, w[:, :, :8])):
         with pytest.raises(ValueError):
             tfc.fused_affine_silu_conv3x3(*bad)
+
+
+# --------------------------------------------------------- CUDA graphs ----
+# The denoise loop and the train window as CUDA graph replays
+# (utils/graphs.py) against the same work launched eagerly, on a tiny
+# bf16 stack: bit for bit, the graphs' launch records equal to the eager
+# launches, no host sync inside a capture, and a capture that fails
+# raises instead of running eagerly.
+
+def _tiny_serving(dev):
+    from view_neti_tpu_torch.models.unet import (UNet2DCondition,
+                                                 tiny_unet_config)
+    from view_neti_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+    from view_neti_tpu_torch.training import builder
+    g = torch.Generator(dev).manual_seed(0)
+    unet = builder._make(UNet2DCondition, tiny_unet_config(), dev, g,
+                         torch.bfloat16)
+    vae = builder.fuse_for_inference(builder._make(
+        AutoencoderKL, tiny_vae_config(), dev, g, torch.bfloat16))
+    ctx = _randn((3, 16, 1, 16, 32), 4, dev)
+    return unet, vae, ctx, _randn((1, 16, 32), 5, dev)
+
+
+def _launches():
+    from view_neti_tpu_torch.utils.graphs import kernel_wrappers
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def test_graphed_denoise_loop_equals_eager(dev):
+    """Three 3-step CFG loops and decodes of new latents through one
+    captured graph each, against the eager loop: bit for bit; the loop's
+    graph launches K1 32 times a step, the decode's K4 as eagerly."""
+    from view_neti_tpu_torch.inference import pipeline
+    from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
+    unet, vae, ctx, uncond = _tiny_serving(dev)
+    sched = DPMSolverSchedule()
+    graphed = (pipeline.make_denoise_fn(unet, sched, 3, 7.5, torch.bfloat16),
+               pipeline.make_decode_fn(vae))
+    eager = (pipeline.make_denoise_fn(unet, sched, 3, 7.5, torch.bfloat16,
+                                      graph=False),
+             pipeline.make_decode_fn(vae, graph=False))
+    for seed in range(3):
+        lat0 = _randn((2, 16, 16, 4), 10 + seed, dev)
+        outs = []
+        for denoise, decode in (graphed, eager):
+            before = _launches()
+            lat = denoise(lat0, ctx, ctx, uncond)
+            imgs = decode(lat.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            outs.append((lat, imgs, {k: v - before[k]
+                                     for k, v in _launches().items()}))
+        (lat_g, img_g, n_g), (lat_e, img_e, n_e) = outs
+        assert torch.equal(lat_g, lat_e) and torch.equal(img_g, img_e)
+        assert n_g == n_e and n_e["K1"] == 32 * 3 and n_e["K4"] > 0
+    (loop,), (dec,) = (list(f.captures.values()) for f in graphed)
+    assert loop.replays == dec.replays == 2
+    assert loop.launches == {"K1": 32 * 3}
+    assert dec.launches == {"K4": n_e["K4"]}
+
+
+def _tiny_tree(root):
+    """A DTU scan of the six dtu_subset-6 cameras (64x48 PNGs) and its
+    calibration, as tests/test_torch_port_coach.py writes it."""
+    from view_neti_tpu_torch.data import image_io
+    from view_neti_tpu_torch.data.dtu import dtu_get_train_idxs
+    rect = root / "dtu" / "Rectified" / "scan114"
+    cal = root / "dtu" / "Calibration" / "cal18"
+    rect.mkdir(parents=True)
+    cal.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    for i in range(1, 65):
+        (cal / f"pos_{i:03d}.txt").write_text(
+            "\n".join(" ".join(f"{x:.4f}" for x in r)
+                      for r in rng.randn(3, 4) * 100))
+    for i in dtu_get_train_idxs(6):
+        image_io.write_png(rect / f"rect_{i + 1:03d}_3_r5000.png",
+                           rng.randint(0, 255, (48, 64, 3), np.uint8))
+    return rect, cal
+
+
+def _tiny_coach(tmp_path, name, spd, steps=3):
+    from view_neti_tpu_torch.config import RunConfig, decode
+    from view_neti_tpu_torch.training import builder
+    from view_neti_tpu_torch.training.coach import Coach
+    root = tmp_path / "tree"
+    if not root.exists():
+        _tiny_tree(root)
+    rect = root / "dtu" / "Rectified" / "scan114"
+    cal = root / "dtu" / "Calibration" / "cal18"
+    data = {
+        "learnable_mode": 2,
+        "model": {"arch_view_net": 15, "arch_view_disable_tl": False,
+                  "word_embedding_dim": 32,
+                  "normalize_view_mapper_output": True,
+                  "output_bypass_alpha_view": 5.0, "pe_sigma_exp_key": 2},
+        "data": {"camera_representation": "dtu-12d", "dtu_subset": 6,
+                 "dtu_preprocess_key": -1, "repeats": 100,
+                 "train_data_dir": str(rect), "augmentation_key": 7,
+                 "resolution": 16},
+        "log": {"exp_dir": str(tmp_path / name),
+                "save_dataset_images": False, "report_to": "none",
+                "save_steps": 10 ** 9},
+        "eval": {"validation_prompts": None},
+        "optim": {"mixed_precision": "bf16", "max_train_steps": steps,
+                  "steps_per_dispatch": spd}}
+    return Coach(decode(RunConfig, data), arch=builder.tiny_arch(),
+                 calibration_dir=str(cal), device="cuda")
+
+
+def _mappers(coach):
+    text = coach.built.text
+    return [p.detach().clone() for m in (text.obj_mappers[0],
+                                         text.view_mapper)
+            for p in m.parameters()]
+
+
+def test_graphed_train_window_equals_eager_steps(dev, tmp_path):
+    """A tiny bf16 Coach with the base cache and preset 7 on the card: one
+    3-step window (the first step eager, the second captured, each a
+    replay of K1-K4 with the augmentation and the optimizer) against
+    three eager steps: the losses, the mappers and the counts bit for bit;
+    the graph's launch record equals an eager step's launches."""
+    runs = {}
+    for name, spd in (("graphed", 3), ("eager", 1)):
+        coach = _tiny_coach(tmp_path, name, spd)
+        assert coach.window_step.enabled == (spd > 1)
+        before = _launches()
+        coach.train()
+        runs[name] = (coach, {k: v - before[k]
+                              for k, v in _launches().items()})
+    (g, n_g), (e, n_e) = runs["graphed"], runs["eager"]
+    assert g.losses == e.losses and len(e.losses) == 3
+    assert all(torch.equal(a, b) for a, b in zip(_mappers(g), _mappers(e)))
+    assert g.optimizer.counts == e.optimizer.counts
+    (cap,) = g.window_step.captures.values()
+    assert cap.replays == 2
+    assert n_g == n_e and all(n_e[k] > 0 for k in ("K1", "K2", "K3", "K4"))
+    assert {k: 3 * v for k, v in cap.launches.items()} == n_e
+
+
+def test_capture_syncs_nothing(dev, tmp_path, monkeypatch):
+    """The denoise loop and the train step captured with
+    torch.cuda.set_sync_debug_mode("error") on inside the capture (after
+    torch.cuda.graph's own synchronize on entry): nothing inside them
+    waits for the card."""
+    from view_neti_tpu_torch.inference import pipeline
+    from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
+
+    class strict_graph(torch.cuda.graph):
+        def __enter__(self):
+            super().__enter__()
+            torch.cuda.set_sync_debug_mode("error")
+
+        def __exit__(self, *exc):
+            torch.cuda.set_sync_debug_mode("default")
+            return super().__exit__(*exc)
+
+    monkeypatch.setattr(torch.cuda, "graph", strict_graph)
+    unet, vae, ctx, uncond = _tiny_serving(dev)
+    denoise = pipeline.make_denoise_fn(unet, DPMSolverSchedule(), 2, 7.5,
+                                       torch.bfloat16)
+    lat0 = _randn((2, 16, 16, 4), 3, dev)
+    for _ in range(2):
+        denoise(lat0, ctx, ctx, uncond)
+    assert len(denoise.captures) == 1
+    coach = _tiny_coach(tmp_path, "strict", 2, steps=2)
+    coach.train()
+    assert len(coach.window_step.captures) == 1
+
+
+def test_failed_capture_raises(dev):
+    """A function that reads the card to the host captures with an error:
+    the call raises CaptureError naming the op and gives no eager result."""
+    from view_neti_tpu_torch.utils.graphs import CaptureError, Graphed
+    calls = []
+
+    def reads_back(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    fn = Graphed(reads_back, "reads back")
+    x = torch.ones(4, device=dev)
+    assert torch.equal(fn(x), x * 4)            # the eager warm-up
+    with pytest.raises(CaptureError, match="reads back.*float"):
+        fn(x)
+    assert len(calls) == 2 and not fn.captures
+
+
+def test_checkpoint_stash_captures(dev):
+    """torch.utils.checkpoint's RNG-state stash (preserve_rng_state, the
+    default that the UNet's and CLIP's gradient checkpointing keep) is
+    allowed inside a capture: a checkpointed forward and backward captures
+    and replays to the eager gradient."""
+    lin = torch.nn.Linear(64, 64).to(dev)
+    x = _randn((8, 64), 6, dev).requires_grad_(True)
+
+    def step():
+        y = torch.utils.checkpoint.checkpoint(lin, x, use_reentrant=False)
+        y.square().sum().backward()
+
+    step()
+    want = x.grad.clone()
+    x.grad = None
+    lin.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, want)

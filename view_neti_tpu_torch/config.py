@@ -10,9 +10,11 @@ and writer, since the machine with the card has no PyYAML.
 (parallel/dist.py resolve and with_layout; parallel/tensor.py for
 tensor_parallel): the port's counterpart of the JAX mesh's dp and tp
 axes.
-`optim.steps_per_dispatch` (a TPU dispatch window) is accepted, so every
-config of the JAX package decodes, and the Coach says in one log line that
-it ignores it. `log.checkpoint_backend:
+`optim.steps_per_dispatch` is the dispatch window of the JAX package
+(0: 4 optimizer steps with a cache on the card, else 1): on the card the
+Coach replays each of a window's steps as a CUDA graph and reads the
+window's losses once (training/coach.py); 1 runs every step eagerly.
+`log.checkpoint_backend:
 orbax` asks for a resumable train state, which the port writes in its own
 format (train_state.py). `optim.fuse_conv: null` means: fuse the frozen VAE
 encode when the run is on the card.

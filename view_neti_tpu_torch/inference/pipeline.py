@@ -3,35 +3,51 @@
 
 CFG runs fused into the batch (the unconditional half first), contexts are
 stacked (T, 16, B, L, D) and indexed by step, DPM-Solver++ steps the
-latents, and the VAE decodes straight to uint8. PyTorch runs eagerly, so
-the denoise loop is a Python loop over host step indices.
+latents, and the VAE decodes straight to uint8. The denoise loop is a
+Python loop over host step indices; on the card the whole loop is one CUDA
+graph per input signature (utils/graphs.py), the counterpart of the JAX
+package's jitted fori_loop, and so is the decode (its `_decode_jit`):
+a sampling run replays two graphs. The scheduler's coefficients are host
+floats fixed by the step count, so the graph holds them as constants.
 
 Entry points (`generate`, `generate_batch`) run on the card: with
 device=None they use CUDA and raise if no card is present.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 
 from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.utils.device import resolve_device
+from view_neti_tpu_torch.utils.graphs import Graphed
 
 
 def make_denoise_fn(unet, schedule: DPMSolverSchedule,
                     num_inference_steps: int, guidance_scale: float = 7.5,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    graph: bool = True, log=None):
     """Returns fn(latents0, context, context_bypass, uncond_ctx) -> latents.
 
       latents0: (N, h, w, 4) initial noise
       context / context_bypass: (T, 16, C, L, D) per-step conditioning for
         C prompts; the N latents are cam-major, N // C seeds per prompt
       uncond_ctx: (1, L, D) negative-prompt hidden states
+
+    On the card, with graph on (the default), the loop of every call after
+    the first with the same signature is one CUDA graph replay
+    (utils/graphs.Graphed, `fn.captures`); log(message) hears of each
+    graph after the first, a ragged last batch's. graph=False, or CPU
+    tensors, run the loop eagerly.
     """
     timesteps = schedule.set_timesteps(num_inference_steps)
     coeffs = schedule.coefficients(timesteps)
     ts = torch.as_tensor(timesteps.astype("float32"))
+    # the timesteps on each device, staged before any capture: a copy from
+    # pageable host memory cannot be captured
+    staged = {}
     do_cfg = guidance_scale > 1.0
 
     @torch.no_grad()
@@ -45,8 +61,11 @@ def make_denoise_fn(unet, schedule: DPMSolverSchedule,
             (n_layers, N) + tuple(uncond_ctx.shape[1:]))
         lat = latents.float()
         x0_prev = torch.zeros_like(lat)
+        if lat.device not in staged:
+            staged[lat.device] = ts.to(lat.device)
+        ts_dev = staged[lat.device]
         for i in range(num_inference_steps):
-            t = ts[i].to(lat.device).expand(N)
+            t = ts_dev[i].expand(N)
             # cam-major batch layout: [cam0 x reps, cam1 x reps, ...]
             ctx = context[i].repeat_interleave(reps, dim=1).to(compute_dtype)
             ctx_b = context_bypass[i].repeat_interleave(reps, dim=1).to(
@@ -63,7 +82,16 @@ def make_denoise_fn(unet, schedule: DPMSolverSchedule,
                                          num_inference_steps)
         return lat
 
-    return denoise
+    return Graphed(denoise, f"denoise loop ({num_inference_steps} steps)",
+                   enabled=graph, log=log)
+
+
+def make_decode_fn(vae, graph: bool = True, log=None):
+    """fn(latents) -> uint8 images, decode_to_uint8 as one CUDA graph
+    replay per call on the card after the first with the same shape (the
+    JAX package's _decode_jit); eager with graph=False or on the CPU."""
+    return Graphed(lambda latents: decode_to_uint8(vae, latents), "decode",
+                   enabled=graph, log=log)
 
 
 @torch.no_grad()
@@ -89,14 +117,15 @@ def generate(unet, vae, schedule: DPMSolverSchedule, context, context_bypass,
              uncond_ctx, height: int, width: int, seeds,
              num_inference_steps: int = 30, guidance_scale: float = 7.5,
              compute_dtype: torch.dtype = torch.float32, denoise_fn=None,
-             as_numpy: bool = True, device=None):
+             as_numpy: bool = True, device=None, decode_fn=None):
     """Text-to-image generation for one prompt: (S, H, W, 3) uint8 images,
     one per seed (a numpy array, or the device tensor with
     as_numpy=False)."""
     out = generate_batch(unet, vae, schedule, context, context_bypass,
                          uncond_ctx, height, width, seeds,
                          num_inference_steps, guidance_scale, compute_dtype,
-                         denoise_fn, as_numpy=False, device=device)[0]
+                         denoise_fn, as_numpy=False, device=device,
+                         decode_fn=decode_fn)[0]
     return out.cpu().numpy() if as_numpy else out
 
 
@@ -105,11 +134,15 @@ def generate_batch(unet, vae, schedule: DPMSolverSchedule, contexts,
                    seeds, num_inference_steps: int = 30,
                    guidance_scale: float = 7.5,
                    compute_dtype: torch.dtype = torch.float32,
-                   denoise_fn=None, as_numpy: bool = True, device=None):
+                   denoise_fn=None, as_numpy: bool = True, device=None,
+                   decode_fn=None):
     """Batched multi-prompt generation: contexts (T, 16, C, L, D) carry C
     prompts; all C x len(seeds) images denoise in one loop. Returns
     (C, S, H, W, 3) uint8. Seed s gives the same initial latents for every
-    prompt (the reference's per-view reseeding)."""
+    prompt (the reference's per-view reseeding). A caller that generates
+    more than once passes the denoise_fn and decode_fn it keeps
+    (make_denoise_fn, make_decode_fn), so that their graphs are captured
+    once and replayed."""
     device = resolve_device(device)
     if denoise_fn is None:
         denoise_fn = make_denoise_fn(unet, schedule, num_inference_steps,
@@ -120,7 +153,8 @@ def generate_batch(unet, vae, schedule: DPMSolverSchedule, contexts,
     lat0 = lat0.repeat(C, 1, 1, 1)          # cam-major: [c0s0, c0s1, ...]
     latents = denoise_fn(lat0, contexts.to(device), contexts_bypass.to(device),
                          uncond_ctx.to(device))
-    imgs = decode_to_uint8(vae, latents.to(compute_dtype))
+    imgs = (decode_fn or functools.partial(decode_to_uint8, vae))(
+        latents.to(compute_dtype))
     imgs = imgs.reshape((C, S) + tuple(imgs.shape[1:]))
     return imgs.cpu().numpy() if as_numpy else imgs
 

@@ -15,6 +15,14 @@ per-row logsumexp lse (B, H, Lq) in fp32, which the backward reads back to
 recompute the probabilities. The TPU wrapper's padding of q and kv to
 128-multiples and its (B, L, H, d) -> (B*H, L, d) transposes become strides
 and bounds checks in the kernels.
+
+Each wrapper launches on the current stream and counts its launch in
+`<wrapper>.launches`. Under a CUDA graph's capture (utils/graphs.py) the
+launch goes into the graph: the first-launch work (the library's load and
+K3's tile check here, the kernels' shared-memory attribute in
+csrc/mma_tiles.cuh) has run in the eager warm-up before, K3's split
+scratch comes from the graph's memory pool, and the graph keeps the
+counts and adds them on every replay.
 """
 from __future__ import annotations
 

@@ -14,6 +14,11 @@ per-sample affine from ops.norm.group_norm_fold; kernel (3, 3, Cin, Cout)
 HWIO in the compute dtype; bias (Cout,); add_bc (B, Cout) broadcast over H
 and W (the UNet time-embedding add); residual (B, H, W, Cout). Stride 1,
 zero padding 1, applied to the post-SiLU tensor.
+
+The wrapper launches on the current stream, so a CUDA graph's capture
+(utils/graphs.py) records the launch; its first-launch work runs in the
+eager warm-up before, and the graph adds its launches to `launches` on
+every replay.
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ scaled_linear betas 0.00085 -> 0.012, epsilon or v prediction. The
 coefficient tables are float64 cast to float32, and every scalar
 coefficient is formed in float32 in the JAX package's order. The step
 index is a host integer, so the first/second-order choice is a Python
-branch.
+branch. Nothing here reads the card: the coefficients are host floats
+fixed by the step count, which a CUDA graph of the denoise loop holds as
+constants (inference/pipeline.py).
 """
 from __future__ import annotations
 

@@ -4,6 +4,8 @@ checkouts run alternately in one machine session.
 
     python3 view_neti_tpu_torch/tools/ab_times.py --root DIR attention
     python3 view_neti_tpu_torch/tools/ab_times.py --root DIR train [--steps N]
+    python3 view_neti_tpu_torch/tools/ab_times.py --root DIR optim \
+        [--steps N] [--mappers M]
 
 DIR is the root of a checkout (its view_neti_tpu_torch is imported, its
 kernels are built under DIR/build/kernels). Each mode prints the card's
@@ -17,7 +19,16 @@ name and power limit, then one JSON line:
   train     -- the mode-2 train step of chip_smoke.py's train phase (B 9,
                384x512, SD-1.5 at full width, seeded random weights): 2
                warm-up steps, then --steps steps each timed on the host's
-               clock between synchronizes.
+               clock between synchronizes;
+  optim     -- SlicedAdamW.step of a mode-3 run (input_configs/train_m3.yaml:
+               SD-2.1's 1024-wide mappers) with an object bank of --mappers
+               mappers (88: one per DTU training scan) and the view mapper;
+               each step gives gradients to the view mapper and to the
+               object mappers of a batch's 3 groups (3 distinct scans),
+               the others have none, as in the train step. 3 warm-up
+               steps, then --steps steps each timed on the host's clock
+               between synchronizes, and the kernels one step launches
+               (torch.profiler).
 """
 from __future__ import annotations
 
@@ -29,6 +40,10 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# the checkout that holds this script (its input_configs)
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 ATTENTION_SHAPES = (  # (B, Lq, Lk, H, d)
     (6, 6912, 77, 8, 40), (6, 1728, 77, 8, 80), (6, 432, 77, 8, 160),
@@ -147,13 +162,69 @@ def train(torch, steps: int):
                 max_ms=max(ms))
 
 
+def optim_step(torch, dev, steps: int, mappers: int):
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from view_neti_tpu_torch.config import load_config
+    from view_neti_tpu_torch.training import builder, optim
+
+    cfg = load_config(os.path.join(REPO, "input_configs", "train_m3.yaml"))
+    m = cfg.model
+    g = torch.Generator(dev).manual_seed(0)
+    bank = [builder._init_mapper(
+        cfg, "object", 0, normalize=m.normalize_object_mapper_output,
+        output_bypass=m.output_bypass_object,
+        bypass_unconstrained=m.bypass_unconstrained_object,
+        alpha=m.output_bypass_alpha_object, generator=g, device=dev)
+        for _ in range(mappers)]
+    view = builder._init_mapper(
+        cfg, "view", 12, normalize=m.normalize_view_mapper_output,
+        output_bypass=m.output_bypass_view,
+        bypass_unconstrained=m.bypass_unconstrained_view,
+        alpha=m.output_bypass_alpha_view, generator=g, device=dev)
+    groups = {"object": [list(x.requires_grad_(True).parameters())
+                         for x in bank],
+              "view": [list(view.requires_grad_(True).parameters())]}
+    opt = optim.make_optimizer(groups, cfg.optim, mode=3)
+    rng = np.random.RandomState(0)
+
+    def one_step():
+        opt.zero_grad()
+        chosen = [groups["object"][i]
+                  for i in rng.choice(mappers, 3, replace=False)]
+        for params in chosen + groups["view"]:
+            for p in params:
+                p.grad = torch.randn(p.shape, generator=g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        one_step()
+    ms = [one_step() for _ in range(steps)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_step()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return dict(mode="optim", mappers=mappers, steps=steps,
+                parameters=sum(p.numel() for x in groups.values()
+                               for s in x for p in s),
+                ms_per_step=ms, median_ms=statistics.median(ms),
+                min_ms=min(ms), max_ms=max(ms),
+                kernels_per_step=kernels or None)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", required=True,
                         help="root of the checkout to time")
-    parser.add_argument("mode", choices=("attention", "train"))
+    parser.add_argument("mode", choices=("attention", "train", "optim"))
     parser.add_argument("--launches", type=int, default=200)
     parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--mappers", type=int, default=88)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -161,8 +232,13 @@ def main() -> int:
         print("ab_times: no CUDA device", file=sys.stderr)
         return 1
     print(card_line(), flush=True)
-    out = (attention(torch, args.launches) if args.mode == "attention"
-           else train(torch, args.steps))
+    if args.mode == "attention":
+        out = attention(torch, args.launches)
+    elif args.mode == "train":
+        out = train(torch, args.steps)
+    else:
+        out = optim_step(torch, torch.device("cuda"), args.steps,
+                         args.mappers)
     out["root"] = args.root
     print(json.dumps(out), flush=True)
     return 0

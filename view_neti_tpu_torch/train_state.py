@@ -25,7 +25,6 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from view_neti_tpu_torch import weight_port
 from view_neti_tpu_torch.utils import msgpack_codec
@@ -48,10 +47,11 @@ def latest_state(exp_dir) -> Path:
 
 
 def _adamw_state(optimizer) -> List[List[Dict]]:
-    """AdamW's per-parameter state, one list per parameter group."""
+    """AdamW's per-parameter state, one list per parameter group; {} for a
+    parameter whose slice never ran (step 0)."""
     def entry(p):
         state = optimizer.state.get(p)
-        if not state:
+        if not state or float(state["step"]) == 0:
             return {}
         return {"exp_avg": state["exp_avg"].detach().cpu().numpy(),
                 "exp_avg_sq": state["exp_avg_sq"].detach().cpu().numpy(),
@@ -94,7 +94,6 @@ def restore(coach, state: Dict) -> int:
     text, opt = coach.built.text, coach.optimizer
     obj_c, view_c = state.get("obj_constants"), state.get("view_constants")
     sds = weight_port.from_jax_trainable(state["trainable"], obj_c, view_c)
-    device = coach.device
     if "object" in sds:
         for mapper, sd in zip(text.obj_mappers, sds["object"]):
             mapper.load_state_dict(sd, strict=True)
@@ -106,23 +105,7 @@ def restore(coach, state: Dict) -> int:
     if set(counts) != set(opt.counts):
         raise ValueError(f"train state optimizes {sorted(counts)}, the run "
                          f"{sorted(opt.counts)}")
-    groups = opt.optimizer.param_groups
-    saved = opt_state["adamw"]
-    if [len(g) for g in saved] != [len(g["params"]) for g in groups]:
-        raise ValueError("train state's optimizer groups do not match the "
-                         "run's")
-    params = [p for g in groups for p in g["params"]]
-    entries = [e for g in saved for e in g]
-    torch_state = opt.optimizer.state_dict()
-    torch_state["state"] = {
-        i: {"step": torch.tensor(float(e["step"])),
-            "exp_avg": torch.tensor(e["exp_avg"], dtype=p.dtype,
-                                    device=device),
-            "exp_avg_sq": torch.tensor(e["exp_avg_sq"], dtype=p.dtype,
-                                       device=device)}
-        for i, (p, e) in enumerate(zip(params, entries)) if e}
-    opt.optimizer.load_state_dict(torch_state)
-    opt.counts = counts
+    opt.load_state(opt_state["adamw"], counts)
     return int(np.asarray(state["step"]))
 
 

@@ -30,8 +30,21 @@ What it runs, as the JAX Coach runs it:
   * the random numbers of micro-step m come from a generator on the card
     seeded with a fixed mix of (seed, m), the counterpart of JAX's
     fold_in(base, m): they depend on the position alone;
-  * losses are read one step behind, from a pinned copy, so the loop never
-    waits for the step it has just launched;
+  * optim.steps_per_dispatch (0: 4 with a cache on the card, else 1; the
+    JAX Coach's rule) optimizer steps run as one dispatch window, shrunk
+    to land on save, validation and end boundaries (`dispatch_window`,
+    JAX's _dispatch_window), the counterpart of make_multi_step's W-step
+    scan: on the card each optimizer step (its k micro-batches) is one
+    replay of a CUDA graph captured once (utils/graphs.py), its batch
+    and draws copied into the graph's buffers before the replay, and the
+    window's W losses land in one device tensor read once. Under
+    torch.distributed (the step all-reduces its gradients) and in mode 3
+    (each group's object mapper is chosen on the host) the window's steps
+    run eagerly, back to back, and the Coach says so once;
+    steps_per_dispatch 1 makes every window one optimizer step, run
+    eagerly;
+  * losses are read one window behind, from a pinned copy, so the loop
+    never waits for the work it has just launched;
   * a checkpoint every log.save_steps (pruned to
     log.checkpoints_total_limit) and a final one, in the JAX package's
     files (checkpoint.py); with log.checkpoint_backend "orbax" (the
@@ -66,8 +79,7 @@ What it runs, as the JAX Coach runs it:
     _place_frozen_on_mesh); the ranks of a group then render rank 0's
     prompt sheets together with it (inference_dtu.render_prompt_rows).
 
-Not ported, as they are TPU machinery: steps_per_dispatch and the W-step
-scan (make_multi_step), the XLA cost hook, the orbax format
+Not ported: the XLA cost hook (TPU tooling) and the orbax format
 (train_state.py writes the port's own).
 """
 from __future__ import annotations
@@ -90,6 +102,8 @@ from view_neti_tpu_torch.data import image_io
 from view_neti_tpu_torch.data.dataset import (DataLoader,
                                               TextualInversionDataset)
 from view_neti_tpu_torch.data.loader import PrefetchLoader
+from view_neti_tpu_torch.inference.pipeline import (make_decode_fn,
+                                                    make_denoise_fn)
 from view_neti_tpu_torch.ops import device_augment
 from view_neti_tpu_torch.parallel import dist as dist_lib
 from view_neti_tpu_torch.parallel import tensor as tensor_lib
@@ -104,6 +118,7 @@ from view_neti_tpu_torch.training.train_step import (TrainBatch,
                                                      make_train_step,
                                                      sample_step_draws)
 from view_neti_tpu_torch.utils.device import resolve_device
+from view_neti_tpu_torch.utils.graphs import Graphed
 from view_neti_tpu_torch.utils.misc import fixseed
 from view_neti_tpu_torch.utils.profiling import StepTimer
 from view_neti_tpu_torch.utils.vis import downsample_image, get_image_grid
@@ -119,6 +134,36 @@ def step_seed(seed: int, micro_step: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
+
+
+def resolve_steps_per_dispatch(steps_per_dispatch: int,
+                               use_pixel_cache: bool) -> int:
+    """optim.steps_per_dispatch, with 0 resolved as the JAX Coach resolves
+    it (view_neti_tpu/training/coach.py:180-183): 4 when the batch is
+    indices into a cache on the card, else 1."""
+    if steps_per_dispatch == 0:
+        return 4 if use_pixel_cache else 1
+    return steps_per_dispatch
+
+
+def dispatch_window(cfg: RunConfig, steps_per_dispatch: int,
+                    global_step: int, has_validator: bool,
+                    accum_k: int) -> int:
+    """The micro-steps of the next dispatch window, as the JAX Coach's
+    _dispatch_window computes them: steps_per_dispatch optimizer steps,
+    shrunk to land exactly on the save, validation and end boundaries,
+    times the accumulation factor (a window holds whole k-micro-batch
+    groups); 1 when steps_per_dispatch <= 1."""
+    if steps_per_dispatch <= 1:
+        return 1
+    w_opt = min(steps_per_dispatch,
+                cfg.optim.max_train_steps - global_step)
+    s = cfg.log.save_steps
+    w_opt = min(w_opt, s - (global_step % s))
+    if has_validator and cfg.eval.validation_prompts is not None:
+        v = cfg.eval.validation_steps
+        w_opt = min(w_opt, v - (global_step % v))
+    return max(1, w_opt) * accum_k
 
 
 class Coach:
@@ -164,8 +209,6 @@ class Coach:
             self.logger.log_message(
                 f"device mesh: dp={n_dp} tp={self.dist.tp_world} "
                 f"(tensor_parallel={cfg.parallel.tensor_parallel})")
-        self.logger.log_message(
-            "TPU-only settings are ignored: optim.steps_per_dispatch")
         mp = cfg.optim.mixed_precision
         if mp is False:  # YAML 1.1 reads a bare `no` as False
             mp = "no"
@@ -233,7 +276,8 @@ class Coach:
         self.optimizer = SlicedAdamW(
             builder.trainable_groups(self.built), self.lr_schedule,
             o.adam_beta1, o.adam_beta2, o.adam_epsilon, o.adam_weight_decay,
-            frozen_keys=trainable_mask_keys(cfg.learnable_mode)[1])
+            frozen_keys=trainable_mask_keys(cfg.learnable_mode)[1],
+            schedule_steps=o.max_train_steps)
 
         # ---- caches on the card and the augmentation ---------------------
         ds = self.train_dataset
@@ -260,6 +304,31 @@ class Coach:
                                       self.optimizer)
                     if self.dist.active else None))
 
+        # ---- the dispatch window -----------------------------------------
+        self.steps_per_dispatch = resolve_steps_per_dispatch(
+            o.steps_per_dispatch, self.use_pixel_cache)
+        eager = None
+        if self.dist.active:
+            eager = (f"the step all-reduces its gradients over "
+                     f"torch.distributed ({self.dist.backend})")
+        elif cfg.learnable_mode == 3:
+            eager = ("mode 3 chooses each group's object mapper on the "
+                     "host")
+        if self.steps_per_dispatch > 1 and eager:
+            self.logger.log_message(
+                f"the {self.steps_per_dispatch}-step dispatch windows run "
+                f"eagerly, back to back without a host read: {eager}")
+        # one optimizer step (k micro-batches) of a window: a CUDA graph
+        # replay on the card, the step itself on the CPU or where eager
+        self.window_step = Graphed(
+            self._optimizer_step, "train step",
+            enabled=self.steps_per_dispatch > 1 and eager is None,
+            log=self.logger.log_message)
+        self._window_sizes = set()
+        # the sweeps' and renders' denoise and decode functions, kept
+        # across validation rounds so that each shape is captured once
+        self._sampling = {}
+
         self.checkpoint_handler = CheckpointHandler(
             cfg=cfg,
             placeholder_view_tokens=self.placeholder_view_tokens,
@@ -273,7 +342,8 @@ class Coach:
         seed = cfg.optim.seed if cfg.optim.seed is not None else cfg.seed
         self._base_seed = int(seed)
         self._generator = torch.Generator(self.device)
-        # what the loop measured: the host clock after each step's launch,
+        # what the loop measured: the host clock after each micro-step's
+        # launch (a window's k-micro-batch group launches at once),
         # the end of the loop (after the last step's loss was read), the
         # logged losses and the cache fill's seconds
         self.step_marks = []
@@ -438,19 +508,17 @@ class Coach:
         timer = StepTimer()
         t0 = time.time()
         while self.global_step < cfg.optim.max_train_steps:
-            batch = self._to_device(next(batches))
-            draws = self._step_draws(micro_step, batch)
-            metrics = self.train_step(self.built, batch, draws)
-            self.step_marks.append(time.perf_counter())
-            micro_step += 1
+            # a window holds whole k-micro-batch groups: one optimizer
+            # step with steps_per_dispatch 1
+            w = max(self._dispatch_window(), k)
+            losses = self._run_window(w, batches, micro_step)
+            micro_step += w
             timer.tick()
-            if micro_step % k:
-                continue
-            self.global_step += 1
-            # read the PREVIOUS step's loss: this step is still running
+            self.global_step += w // k
+            # read the PREVIOUS window's losses: this one is still running
             prev = pending
-            pending = (self.global_step,
-                       self._stage(metrics["total_loss"]))
+            pending = (self.global_step, self._stage(losses),
+                       self.micro_batch_size * w)
             if prev is not None:
                 last_loss = self._log_step_metrics(prev, timer)
             self.logger.update_step(self.global_step)
@@ -473,6 +541,41 @@ class Coach:
         self.logger.close()
         return {"steps": self.global_step, "wall_s": wall,
                 "final_loss": last_loss}
+
+    def _dispatch_window(self) -> int:
+        return dispatch_window(self.cfg, self.steps_per_dispatch,
+                               self.global_step, self.validator is not None,
+                               self.accum_k)
+
+    def _optimizer_step(self, batches, draws) -> torch.Tensor:
+        """One optimizer step: the train step over its k micro-batches;
+        the last one's loss (the loss the Coach logs for the step)."""
+        for batch, d in zip(batches, draws):
+            loss = self.train_step(self.built, batch, d)["total_loss"]
+        return loss
+
+    def _run_window(self, w: int, batches, micro_step: int) -> torch.Tensor:
+        """w micro-steps from micro_step on, w // k optimizer steps back to
+        back through window_step, with no host read: each step's batch is
+        copied to the card and its draws made there first. Returns the
+        steps' losses, one (w // k,) device tensor."""
+        if w not in self._window_sizes:
+            if self._window_sizes:
+                # the JAX Coach's words; here every window replays the one
+                # step's graph, so a new size captures nothing
+                self.logger.log_message(
+                    f"running an additional {w}-microbatch dispatch window "
+                    f"(shrunk at a save/validation/end boundary); it "
+                    f"replays the same one-step graph, so nothing new is "
+                    f"captured for it")
+            self._window_sizes.add(w)
+        k, losses = self.accum_k, []
+        for m in range(micro_step, micro_step + w, k):
+            group = [self._to_device(next(batches)) for _ in range(k)]
+            draws = [self._step_draws(m + i, b) for i, b in enumerate(group)]
+            losses.append(self.window_step(group, draws))
+            self.step_marks += [time.perf_counter()] * k
+        return torch.stack(losses)
 
     def _should_eval(self) -> bool:
         return (self.cfg.eval.validation_prompts is not None
@@ -525,6 +628,21 @@ class Coach:
             vae = builder.fuse_for_inference(vae)
         return self.built.unet, vae
 
+    def sampling_fns(self, schedule, num_steps: int, guidance_scale: float):
+        """(denoise_fn, decode_fn) of inference_dtu's sweeps and renders at
+        these settings: kept on the Coach, so that a shape is captured once
+        for every view, seed and round; eager under a process group (a tp
+        split's collectives cross the host)."""
+        key = (schedule.prediction_type, num_steps, guidance_scale)
+        if key not in self._sampling:
+            unet, vae = self.infer_frozen()
+            graph, log = not self.dist.active, self.logger.log_message
+            self._sampling[key] = (
+                make_denoise_fn(unet, schedule, num_steps, guidance_scale,
+                                self.compute_dtype, graph=graph, log=log),
+                make_decode_fn(vae, graph=graph, log=log))
+        return self._sampling[key]
+
     def save_dataset_images(self) -> None:
         """A contact sheet of the first (at most 100) training images,
         scaled by 0.2, at startup."""
@@ -541,33 +659,37 @@ class Coach:
         self.logger.log_message(f"saved dataset contact sheet {out}")
 
     def _stage(self, loss: torch.Tensor):
-        """Start the loss's copy to the host without waiting for it: a
+        """Start the losses' copy to the host without waiting for it: a
         pinned buffer and an event on the card, a plain tensor on the
         CPU."""
         if loss.device.type != "cuda":
             return loss, None
-        host = torch.empty((), dtype=loss.dtype, pin_memory=True)
+        host = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
         host.copy_(loss, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return host, done
 
     def _log_step_metrics(self, pending, timer) -> float:
-        step, (loss, done) = pending
+        """Log a window's optimizer steps, each with its loss and learning
+        rate, the window's rate beside the last; returns the last loss."""
+        end_step, (losses, done), imgs_per_tick = pending
         if done is not None:
             done.synchronize()
-        value = float(loss)
-        self.losses.append(value)
-        logs = {"total_loss": value,
-                "lr": float(self._lr_host[min(step,
-                                              len(self._lr_host) - 1)])}
-        ips = timer.imgs_per_sec(self.micro_batch_size)
-        if ips:
-            logs["imgs_per_sec"] = ips
-        self.logger.log_metrics(logs, step=step)
-        if not math.isfinite(value):
-            self.logger.log_message(f"step {step}: loss {value}")
-        return value
+        values = losses.tolist()
+        ips = timer.imgs_per_sec(imgs_per_tick)
+        for idx, value in enumerate(values):
+            step = end_step - (len(values) - 1 - idx)
+            self.losses.append(value)
+            logs = {"total_loss": value,
+                    "lr": float(self._lr_host[min(step,
+                                                  len(self._lr_host) - 1)])}
+            if ips and idx == len(values) - 1:
+                logs["imgs_per_sec"] = ips
+            self.logger.log_metrics(logs, step=step)
+            if not math.isfinite(value):
+                self.logger.log_message(f"step {step}: loss {value}")
+        return values[-1]
 
     def _step_draws(self, micro_step: int, batch: TrainBatch):
         """The micro-step's draws: the whole fused batch's, of which a rank

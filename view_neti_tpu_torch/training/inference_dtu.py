@@ -47,8 +47,7 @@ from view_neti_tpu_torch.constants import DTU_MASKS, DTU_SPLIT_IDXS
 from view_neti_tpu_torch.data import dtu as dtu_mod
 from view_neti_tpu_torch.data import image_io
 from view_neti_tpu_torch.inference.pipeline import (encode_uncond, generate,
-                                                    generate_batch,
-                                                    make_denoise_fn)
+                                                    generate_batch)
 from view_neti_tpu_torch.inference.prompt_manager import PromptManager
 from view_neti_tpu_torch.ops import metrics as metrics_ops
 from view_neti_tpu_torch.parallel import dist
@@ -356,8 +355,7 @@ def _prompt_rows(coach, prompts: Sequence[str], num_steps: int, res: int,
         placeholder_object_token_ids=coach.built.placeholder_object_token_ids,
         dtype=coach.compute_dtype)
     uncond = encode_uncond(text.clip, coach.tokenizer)
-    denoise = make_denoise_fn(unet, schedule, num_steps, 7.5,
-                              coach.compute_dtype)
+    denoise, decode = coach.sampling_fns(schedule, num_steps, 7.5)
     rows, pending = [], None
     for prompt in prompts:
         prompt_ids = set(int(x) for x in np.asarray(coach.tokenizer(
@@ -372,7 +370,7 @@ def _prompt_rows(coach, prompts: Sequence[str], num_steps: int, res: int,
         dev = generate(unet, vae, schedule, ctx, ctx_b, uncond, res, res,
                        seeds, num_steps, 7.5, coach.compute_dtype,
                        denoise_fn=denoise, as_numpy=False,
-                       device=coach.device)
+                       device=coach.device, decode_fn=decode)
         if pending is not None:
             rows.append(np.concatenate(list(pending.cpu().numpy()), axis=1))
         pending = dev
@@ -485,8 +483,10 @@ def render_cameras(
     unet, vae = coach.infer_frozen()
     uncond = encode_uncond(text.clip, coach.tokenizer)
     vb = int(os.environ.get("VIEW_NETI_VIEW_BATCH") or 1)
-    denoise = make_denoise_fn(unet, schedule, num_denoising_steps,
-                              guidance_scale, coach.compute_dtype)
+    # one graph per shape across the sweep's views and seeds (and the
+    # Coach's later rounds); a ragged last chunk is captured apart, logged
+    denoise, decode = coach.sampling_fns(schedule, num_denoising_steps,
+                                         guidance_scale)
     out: Dict[int, np.ndarray] = {}
     camidx_to_token = dict(lookup_tok)
     # one chunk deep: the next chunk's conditioning and denoise are
@@ -507,7 +507,8 @@ def render_cameras(
         imgs = generate_batch(
             unet, vae, schedule, contexts, contexts_b, uncond, height, width,
             seeds, num_denoising_steps, guidance_scale, coach.compute_dtype,
-            denoise_fn=denoise, as_numpy=False, device=device)
+            denoise_fn=denoise, as_numpy=False, device=device,
+            decode_fn=decode)
         if pending is not None:
             drain(pending)
         pending = (chunk, imgs)
