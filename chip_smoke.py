@@ -133,7 +133,7 @@ Phases; any failure ends the run with a non-zero exit:
                 mappers bit for bit, then runs the mode-3 validation round
                 (a DTU
                 sweep per eval token against its own scan, 30 steps, CFG
-                7.5, seeds [0, 1], cut to the first 4 eval cameras, and the
+                7.5, seeds [0, 1], cut to the first 2 eval cameras, and the
                 object renders); offline inference on that run (--debug 1)
                 equals its sweeps, summarize_dtu reads one bundle per
                 token; grouped conditioning equals per-group calls exactly;
@@ -230,7 +230,18 @@ Phases; any failure ends the run with a non-zero exit:
                 and ms/step beside one process's, the all-gathers' count,
                 bytes and host ms a step, each rank's frozen-parameter
                 bytes beside one process's, each rank's peak memory;
- 15. report  -- one JSON line of per-kernel results, then the result line.
+ 15. bench  -- python -m view_neti_tpu_torch.bench in its five modes at
+                full width, each in a process of its own: the raw train
+                step (BENCH_STEPS 8), the mode-2 Coach (16 steps), the
+                mode-3 Coach (8), serving (30 steps) and the 34-view DTU
+                sweep (5 steps); each must exit 0 with one JSON line, a
+                finite positive value, 0 < mfu <= 1 and this card as its
+                device, and launch its path's kernels; serving's sec/image
+                and the mode-2 Coach's imgs/sec must lie within 0.67-1.5x
+                of the slice and coach phases' graphed rates; BENCH_FLASH=0
+                must be refused with the error line and a failed exit;
+                prints a `bench [...]` line with the five records;
+ 16. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
 published dense-bf16 and memory peaks of an H100 SXM at 700 W.
 """
@@ -276,12 +287,13 @@ ACC_KEYS = {"metrics", "assets", "manifest", "all_assets_real",
             "meaningful_for_quality", "train_wall_s", "eval_wall_s",
             "steps", "seeds", "denoise_steps", "acceptance"}
 # the mode3 phase: input_configs/train_m3.yaml, its four scans and three
-# eval tokens; cut for time: the sweeps to the first 4 eval cameras
+# eval tokens; cut for time: the sweeps to the first M3_SWEEP_CAMS eval
+# cameras (2; INFER_CAMS of them are held to offline inference)
 M3_CONFIG = os.path.join("input_configs", "train_m3.yaml")
 M3_WARM = 2              # warm-up steps, then a checkpoint and train state
 M3_STEPS = 4             # timed steps of the straight run after the warm-up
 M3_TOKENS = 3            # eval.eval_placeholder_object_tokens of the recipe
-M3_SWEEP_CAMS = 4
+M3_SWEEP_CAMS = 2
 # the folders phase: input_configs/train_mode0.yaml on a folder of the
 # committed image fixtures, then a spherical mode-2 run with host
 # augmentation on an llff folder of two image sizes; both at 512x512, fused
@@ -440,39 +452,10 @@ def check_path_spills(usage):
 
 
 def launch_counts(reset: bool = False):
-    """Each kernel wrapper's launch count, {"K1": n, ...}, the launches
-    inside CUDA graph replays included (each replay adds its graph's
-    record, utils/graphs.py); reset sets them all to 0 first."""
-    from view_neti_tpu_torch.utils.graphs import kernel_wrappers
-    wrappers = kernel_wrappers()
-    if reset:
-        for fn in wrappers.values():
-            fn.launches = 0
-    return {key: fn.launches for key, fn in wrappers.items()}
-
-
-class SyncAfter:
-    """A Coach's window_step with one synchronize after the optimizer step
-    that reaches `step`: the card is idle there, so the host clock from
-    that moment (`at`) to the loop's end times all the work of the steps
-    after it, whatever the windows queue ahead of the host. Everything
-    else is the wrapped step's."""
-
-    def __init__(self, torch, coach, step):
-        self.torch, self.inner = torch, coach.window_step
-        self.left, self.at = step - coach.global_step, None
-        coach.window_step = self
-
-    def __call__(self, *args):
-        out = self.inner(*args)
-        self.left -= 1
-        if self.left == 0:
-            self.torch.cuda.synchronize()
-            self.at = time.perf_counter()
-        return out
-
-    def __getattr__(self, name):
-        return getattr(self.inner, name)
+    """Each kernel wrapper's launch count, {"K1": n, ...}, graph replays
+    included (utils/graphs.py); reset sets them all to 0 first."""
+    from view_neti_tpu_torch.utils.graphs import launch_counts as counts
+    return counts(reset)
 
 
 def device_profile(torch, fn, ranges=()):
@@ -1389,6 +1372,7 @@ def phase_coach(torch, dev, card, train_result, steps):
     give the same losses, mappers, optimizer counts and checkpoint bytes."""
     import numpy as np
     from view_neti_tpu_torch import weight_port
+    from view_neti_tpu_torch.bench import SyncAfter
     from view_neti_tpu_torch.checkpoint import CheckpointHandler
     from view_neti_tpu_torch.data import dtu, image_io
     from view_neti_tpu_torch.data.dataset import DataLoader
@@ -1417,7 +1401,7 @@ def phase_coach(torch, dev, card, train_result, steps):
               f"graphed: {coach.window_step.enabled}")
 
         # the counted run: the user's entry point, counts from 0
-        timed = SyncAfter(torch, coach, warm)
+        timed = SyncAfter(coach, warm)
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         t0 = time.perf_counter()
@@ -1528,7 +1512,7 @@ def phase_coach(torch, dev, card, train_result, steps):
         eager = Coach(cfg_eager, calibration_dir=cal, device=dev)
         check(eager.steps_per_dispatch == 1 and not eager.window_step.enabled,
               "the eager Coach took a window")
-        etimed = SyncAfter(torch, eager, warm)
+        etimed = SyncAfter(eager, warm)
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         eager.train()
@@ -2144,6 +2128,7 @@ def phase_mode3(torch, dev, card, coach_stats):
     import gc
     import numpy as np
     from view_neti_tpu_torch import summarize_dtu
+    from view_neti_tpu_torch.bench import SyncAfter
     from view_neti_tpu_torch.data import dtu, image_io
     from view_neti_tpu_torch.data.dataset import DataLoader
     from view_neti_tpu_torch.inference import offline, pipeline
@@ -2213,7 +2198,7 @@ def phase_mode3(torch, dev, card, coach_stats):
               and len(coach.built.text.obj_mappers) == 4,
               "the Coach did not take SD-2.1's fused, grouped, preset-5 "
               "mode-3 path")
-        timed = SyncAfter(torch, coach, M3_WARM)
+        timed = SyncAfter(coach, M3_WARM)
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         t0 = time.perf_counter()
@@ -3939,6 +3924,93 @@ def phase_tp(torch, dev, card):
                                  for k, v in main["launches"].items()})
 
 
+# the bench phase: python -m view_neti_tpu_torch.bench in each mode, with
+# its depth cut (BENCH_STEPS, BENCH_INFER_STEPS), and the kernels each
+# mode's path launches
+BENCH_RUNS = (
+    ("raw", {"BENCH_E2E": "0", "BENCH_STEPS": "8"}, "K1 K2 K3 K4"),
+    ("coach_mode2", {"BENCH_STEPS": "16"}, "K1 K2 K3 K4"),
+    ("coach_mode3", {"BENCH_MODE": "3", "BENCH_STEPS": "8"}, "K1 K2 K3 K4"),
+    ("serving", {"BENCH_INFER": "1"}, "K1 K4"),
+    ("sweep", {"BENCH_VAL": "1", "BENCH_INFER_STEPS": "5"}, "K1 K4"),
+)
+BENCH_RATIO = (0.67, 1.5)   # a bench rate over the same rate of a phase
+BENCH_TIMEOUT_S = 300
+
+
+def run_bench(env):
+    """python -m view_neti_tpu_torch.bench from this checkout with the
+    BENCH_* variables env: (exit code, stdout lines, stderr, seconds)."""
+    full = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    full.update(env)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "view_neti_tpu_torch.bench"], env=full,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    return (proc.returncode, proc.stdout.splitlines(), proc.stderr,
+            time.perf_counter() - t0)
+
+
+def phase_bench(card, slice_stats, coach_stats):
+    """python -m view_neti_tpu_torch.bench in its five modes at full width,
+    each in a process of its own (the kernels built above): exit 0 and one
+    line each, a finite positive value, 0 < mfu <= 1, the device this card;
+    the launches of each mode's kernels; serving's sec/image and the mode-2
+    Coach's imgs/sec within BENCH_RATIO of the slice and coach phases'
+    graphed rates in this run. The control: BENCH_FLASH=0 is refused with
+    the error line and a failed exit."""
+    records, launches = {}, {}
+    for name, env, kernels in BENCH_RUNS:
+        rc, lines, err, secs = run_bench(env)
+        tail = "\n".join(err.splitlines()[-15:])
+        check(rc == 0 and len(lines) == 1,
+              f"bench {name}: exit {rc}, stdout {lines}, stderr:\n{tail}")
+        rec = json.loads(lines[0])
+        check(rec.get("unit") != "error" and math.isfinite(rec["value"])
+              and rec["value"] > 0, f"bench {name}: {rec}")
+        check(0 < rec.get("mfu", 0) <= 1, f"bench {name}: mfu {rec}")
+        check(rec["device"] == card, f"bench {name}: device "
+                                     f"{rec['device']!r}, not {card!r}")
+        notes = {key: [json.loads(line[len(f"# {key} "):])
+                       for line in err.splitlines()
+                       if line.startswith(f"# {key} ")]
+                 for key in ("launches", "flops per image by source")}
+        counts, flops = (notes[k][0] if len(notes[k]) == 1 else {}
+                         for k in notes)
+        check(all(counts.get(k, 0) > 0 for k in kernels.split())
+              and all(v == 0 for k, v in counts.items()
+                      if k not in kernels.split()),
+              f"bench {name}: launches {counts}, want {kernels} only")
+        # each launching kernel's wrapper added its FLOPs to the count
+        check(sorted(flops) == sorted(["aten"] + kernels.split())
+              and all(v > 0 for v in flops.values()),
+              f"bench {name}: FLOPs by source {flops}")
+        launches[name] = counts
+        records[name] = dict(rec, launches=counts, flops_by_source=flops,
+                             process_s=secs)
+    serve = records["serving"]["value"] / slice_stats["sec_per_image_graphed"]
+    coach = records["coach_mode2"]["value"] / coach_stats["imgs_per_sec"]
+    for what, ratio in (("serving sec/image over the slice phase's", serve),
+                        ("Coach mode 2 imgs/sec over the coach phase's",
+                         coach)):
+        check(BENCH_RATIO[0] <= ratio <= BENCH_RATIO[1],
+              f"bench {what}: {ratio}, outside {BENCH_RATIO}")
+    rc, lines, err, secs = run_bench({"BENCH_FLASH": "0",
+                                      "BENCH_INFER": "1"})
+    control = json.loads(lines[0]) if len(lines) == 1 else None
+    check(rc != 0 and control is not None and control["unit"] == "error"
+          and "BENCH_FLASH" in control["error"],
+          f"bench control BENCH_FLASH=0: exit {rc}, stdout {lines}")
+    summary = dict(records=records,
+                   serving_over_slice_sec_per_image=serve,
+                   coach_mode2_over_coach_imgs_per_sec=coach,
+                   control=dict(exit=rc, line=control, process_s=secs))
+    print(f"bench [{card}]: {json.dumps(summary)}", flush=True)
+    return {k: sum(n[k] for n in launches.values())
+            for k in ("K1", "K2", "K3", "K4")}
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
     library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
@@ -4048,8 +4120,8 @@ def main() -> int:
                      f"logs, want {want}")
 
     kernels = timed("kernels", phase_kernels, torch, dev, card, args.steps)
-    serve_launches, _, built, tok = timed("slice", phase_slice, torch, dev,
-                                          card, args.steps)
+    serve_launches, slice_stats, built, tok = timed(
+        "slice", phase_slice, torch, dev, card, args.steps)
     train_launches, train_result = timed("train", phase_train, torch, dev,
                                          card, built, tok, args.train_steps)
     # the Coach builds its own stack: free the slice's and train phase's
@@ -4107,6 +4179,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = timed("tp", phase_tp, torch, dev, card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_launches = timed("bench", phase_bench, card, slice_stats,
+                           coach_stats)
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
@@ -4116,7 +4192,8 @@ def main() -> int:
                                      "inference": inference_launches,
                                      "mode3": mode3_launches,
                                      "folders": folders_launches,
-                                     "tp": tp_launches}, card)
+                                     "tp": tp_launches,
+                                     "bench": bench_launches}, card)
     print(f"phases [{card}]: {json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,9 @@ from view_neti_tpu.data.dataset import DataLoader as JDataLoader
 from view_neti_tpu.data.dataset import \
     TextualInversionDataset as JDataset
 from view_neti_tpu.tokenizer import FallbackTokenizer as JTok
+from view_neti_tpu.training import builder as jbuilder
 from view_neti_tpu.training import optim as joptim
+from view_neti_tpu.training.coach import Coach as JCoach
 from view_neti_tpu.training.text_forward import \
     neti_text_conditioning as j_conditioning
 from view_neti_tpu.training.train_step import TrainBatch as JBatch
@@ -556,3 +558,45 @@ def test_four_object_bank_rows_and_checkpoint(tree, tmp_path):
             assert torch.equal(sd[k], v), (tokn, k)
 
 
+
+
+def test_pretrained_object_mapper_refused_in_mode3(tree, tmp_path):
+    """A pretrained object mapper in mode 3: data.fixed_object_token_or_path
+    names an object checkpoint that the JAX CheckpointHandler wrote from a
+    four-scan run. The JAX dataset then names one object token, the cfg's
+    placeholder_object_token, so the JAX Coach loads that token's mapper
+    into a bank of one; its dataset has no token for a scan, and its first
+    example raises, so the run cannot train. The port refuses the
+    configuration when the Coach is built, naming the option."""
+    rect, cal = tree
+    src = _coach(tree, tmp_path / "src")
+    trainable, obj_c, view_c = src.jax_trainable()
+    handler = JCheckpoint(
+        jdecode(JRunConfig, config(rect, tmp_path / "src")),
+        src.placeholder_view_tokens, src.built.placeholder_view_token_ids,
+        list(TOKENS), src.built.placeholder_object_token_ids,
+        tmp_path / "pretrained")
+    obj_path = handler.save_mapper(trainable, obj_c, view_c, None,
+                                   "mapper-pre.msgpack")[0]
+    data = config(rect, tmp_path / "run",
+                  data={"fixed_object_token_or_path": str(obj_path),
+                        "placeholder_object_token": "<statue>"})
+
+    jc = JCoach(jdecode(JRunConfig, data), arch=jbuilder.tiny_arch(),
+                calibration_dir=str(cal))
+    assert jc.placeholder_object_tokens == ["<statue>"]
+    bank = jax.tree_util.tree_map(np.asarray, jc.built.trainable["object"])
+    assert jax.tree_util.tree_leaves(bank)[0].shape[0] == 1
+    _, payload = TCheckpoint.load_mapper(obj_path)
+    loaded = twp.from_jax_mapper(
+        jax.tree_util.tree_map(lambda a: a[0], bank),
+        payload["mappers"]["<statue>"]["constants"])
+    for k, v in src.built.text.obj_mappers[1].state_dict().items():
+        assert torch.equal(loaded[k], v), k
+    with pytest.raises(AttributeError,
+                       match="lookup_object_to_placeholder_object_token"):
+        jc.train_dataset[0]
+
+    with pytest.raises(ValueError, match="data.fixed_object_token_or_path"):
+        Coach(decode(RunConfig, data), arch=tbuilder.tiny_arch(),
+              calibration_dir=str(cal), device="cpu")

@@ -71,6 +71,16 @@ class TextualInversionDataset:
         if learnable_mode in (3, 4, 5) and camera_representation != "dtu-12d":
             raise ValueError(f"mode {learnable_mode} runs on DTU scans "
                              "only (camera_representation dtu-12d)")
+        if (learnable_mode == 3 and fixed_object_token_or_path is not None
+                and str(fixed_object_token_or_path).endswith(
+                    (".pt", ".msgpack"))):
+            # the JAX dataset takes the mapper's one token here and then
+            # cannot name a scan's token: its first example raises
+            raise ValueError(
+                f"data.fixed_object_token_or_path "
+                f"{fixed_object_token_or_path!r}: a pretrained object mapper "
+                f"is for modes 1 and 2; mode 3 trains one object mapper per "
+                f"scan of data.train_data_subsets")
         self.learnable_mode = learnable_mode
         self.data_root = Path(data_root)
         self.tokenizer = tokenizer

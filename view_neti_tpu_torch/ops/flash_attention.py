@@ -17,7 +17,8 @@ recompute the probabilities. The TPU wrapper's padding of q and kv to
 and bounds checks in the kernels.
 
 Each wrapper launches on the current stream and counts its launch in
-`<wrapper>.launches`. Under a CUDA graph's capture (utils/graphs.py) the
+`<wrapper>.launches`, and its model FLOPs where a count is open
+(ops/flop_count.py). Under a CUDA graph's capture (utils/graphs.py) the
 launch goes into the graph: the first-launch work (the library's load and
 K3's tile check here, the kernels' shared-memory attribute in
 csrc/mma_tiles.cuh) has run in the eager warm-up before, K3's split
@@ -33,6 +34,7 @@ import math
 import torch
 
 from view_neti_tpu_torch.ops import build
+from view_neti_tpu_torch.ops.flop_count import KernelFlops, attention_flops
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -200,6 +202,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
              d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_fwd", err, "flash_attention_fwd_bf16")
     flash_attention.launches += 1
+    if KernelFlops.active is not None:
+        KernelFlops.active.add("K1", attention_flops(B, H, Lq, Lk, d))
     return o, lse
 
 
@@ -239,6 +243,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_bwd_dq", err, "flash_attention_bwd_dq_bf16")
     flash_attention_bwd_dq.launches += 1
+    if KernelFlops.active is not None:
+        KernelFlops.active.add("K2", attention_flops(B, H, Lq, k.shape[1],
+                                                     d))
     return dq
 
 
@@ -275,6 +282,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     build.check("flash_attention_bwd_dkv", err,
                 "flash_attention_bwd_dkv_bf16")
     flash_attention_bwd_dkv.launches += 1
+    if KernelFlops.active is not None:
+        KernelFlops.active.add("K3", attention_flops(B, H, Lq, Lk, d))
     return dk, dv
 
 

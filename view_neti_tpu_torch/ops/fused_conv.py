@@ -18,7 +18,8 @@ zero padding 1, applied to the post-SiLU tensor.
 The wrapper launches on the current stream, so a CUDA graph's capture
 (utils/graphs.py) records the launch; its first-launch work runs in the
 eager warm-up before, and the graph adds its launches to `launches` on
-every replay.
+every replay. Where a count is open it adds its model FLOPs
+(ops/flop_count.py).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from view_neti_tpu_torch.ops import build
+from view_neti_tpu_torch.ops.flop_count import KernelFlops, conv3x3_flops
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -159,6 +161,8 @@ def fused_affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("fused_conv", err, "fused_affine_silu_conv3x3_bf16")
     fused_affine_silu_conv3x3.launches += 1
+    if KernelFlops.active is not None:
+        KernelFlops.active.add("K4", conv3x3_flops(B, H, W, Cin, Cout))
     return out
 
 

@@ -420,8 +420,9 @@ class Coach:
 
     def _maybe_load_pretrained_mappers(self) -> None:
         """Modes 4/5: the pretrained view mapper; modes 1/2 with an object
-        mapper checkpoint: that mapper. Both from the msgpack files of
-        checkpoint.py (the JAX package's or the port's)."""
+        mapper checkpoint: that mapper (mode 3 refuses one: the dataset
+        raises). Both from the msgpack files of checkpoint.py (the JAX
+        package's or the port's)."""
         cfg = self.cfg
         text = self.built.text
         if cfg.learnable_mode in (4, 5) and cfg.model.pretrained_view_mapper:

@@ -49,8 +49,14 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "K4": fc.fused_affine_silu_conv3x3}
 
 
-def _counts() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+def launch_counts(reset: bool = False) -> Dict[str, int]:
+    """Each kernel wrapper's launch count, {"K1": n, ...}, the launches
+    inside CUDA graph replays included; reset sets them all to 0 first."""
+    wrappers = kernel_wrappers()
+    if reset:
+        for fn in wrappers.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in wrappers.items()}
 
 
 # ------------------------------------------------------------- trees ----
@@ -199,7 +205,7 @@ class Graphed:
         device = tensors[0].device
         static = [t.detach().clone() for t in tensors]
         graph = torch.cuda.CUDAGraph()
-        before = _counts()
+        before = launch_counts()
         # torch.cuda.graph empties the allocator's cache on entry: empty it
         # first, so that the growth of reserved memory is the graph's pool
         torch.cuda.synchronize(device)
@@ -214,7 +220,7 @@ class Graphed:
                                f"{_where(e)}: {e}") from e
         finally:
             # the capture launched nothing: take its counts back
-            after = _counts()
+            after = launch_counts()
             for k, fn in kernel_wrappers().items():
                 fn.launches = before[k]
         capture_s = time.perf_counter() - t0
