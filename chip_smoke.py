@@ -64,6 +64,12 @@ Phases; any failure ends the run with a non-zero exit:
                 must give the same losses, mappers, counts and files; the
                 `coach window` line has both runs' ms/step, imgs/sec and
                 one step's idle share, the capture's seconds and pool;
+                then the graphed run again with VIEW_NETI_TRACE_DIR set
+                (torch.profiler around the train loop, the window graph
+                captured under it): the same losses, mappers, counts and
+                files, one trace file that parses and names K1-K4; the
+                `coach trace` line has its ms/step beside the untraced
+                run's, the trace's MB and the kernels it holds;
                 prints imgs/sec and ms/step (the host clock from a
                 synchronize after the warm-up to the loop's end, over the
                 timed steps) beside the train phase's raw step, the cache fill, the
@@ -1363,6 +1369,106 @@ def coach_files(run_dir):
     return out
 
 
+def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
+                untraced):
+    """The coach phase's graphed run again, under the Coach's
+    VIEW_NETI_TRACE_DIR (utils/profiling.trace: torch.profiler around the
+    train loop, the window's graph captured under it): the losses,
+    optimizer counts, mappers, launches and checkpoint files must equal the
+    untraced run's bit for bit, and the one trace file must parse and hold
+    kernels of K1, K2, K3 and K4. Returns the `coach trace` line's stats:
+    ms a step beside the untraced run's (the loop up to its last metrics;
+    the trace's write after it is write_s), the file's MB, and the kernels
+    of each group in the trace against the run's launches (a graph replay
+    whose kernels the profiler records one by one adds its whole record)."""
+    import contextlib
+    import glob
+    from view_neti_tpu_torch.bench import SyncAfter
+    from view_neti_tpu_torch.training import coach as coach_lib
+
+    t_run = time.perf_counter()
+    coach = coach_lib.Coach(cfg, calibration_dir=cal, device=dev)
+    timed = SyncAfter(coach, warm)
+    marks, real_trace = {}, coach_lib.trace
+
+    @contextlib.contextmanager
+    def marked(logdir):
+        check(logdir == trace_dir, f"the Coach traced into {logdir}")
+        with real_trace(logdir):
+            yield
+            marks["loop_end"] = time.perf_counter()
+        marks["written"] = time.perf_counter()
+
+    launch_counts(reset=True)
+    coach_lib.trace = marked
+    os.environ["VIEW_NETI_TRACE_DIR"] = trace_dir
+    try:
+        coach.train()
+    finally:
+        del os.environ["VIEW_NETI_TRACE_DIR"]
+        coach_lib.trace = real_trace
+    launches = launch_counts()
+    check(not torch.autograd.profiler._is_profiler_enabled,
+          "the Coach left its profiler open")
+    traced_ms = (marks["loop_end"] - timed.at) * 1e3 / steps
+    del timed
+    check(launches == untraced["launches"],
+          f"traced launches {launches} != {untraced['launches']}")
+    check(coach.losses == untraced["losses"],
+          f"traced losses {coach.losses} != {untraced['losses']}")
+    check(coach.optimizer.counts == untraced["counts"],
+          f"traced counts {coach.optimizer.counts}")
+    mappers = mapper_state(coach)
+    mapper_diff = max((mappers[k].float() - v.float()).abs().max().item()
+                      for k, v in untraced["mappers"].items())
+    check(mappers.keys() == untraced["mappers"].keys() and mapper_diff == 0,
+          f"traced mappers differ by {mapper_diff}")
+    files = coach_files(cfg.log.exp_dir)
+    check(sorted(files) == sorted(untraced["files"]) and all(
+        files[k] == v for k, v in untraced["files"].items()),
+        "the traced run's checkpoint files differ")
+    del coach
+    paths = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(paths) == 1 and os.listdir(trace_dir) == [
+        os.path.basename(p) for p in paths],
+        f"trace files {os.listdir(trace_dir)}")
+    t0 = time.perf_counter()
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    kernels, graph_launches = {}, 0
+    for e in events:
+        if e.get("cat") == "kernel":
+            g = kernel_group(e.get("name", ""))
+            kernels[g] = kernels.get(g, 0) + 1
+        elif e.get("name") == "cudaGraphLaunch":
+            graph_launches += 1
+    in_trace = {k: kernels.get(kernel_group(name), 0) for k, name in (
+        ("K1", "flash_fwd_kernel"), ("K2", "flash_bwd_dq_kernel"),
+        ("K3", "flash_bwd_dkv"), ("K4", "fused_conv_kernel"))}
+    n = len(untraced["losses"])
+    per_step = {k: v // n for k, v in launches.items()}
+    # the warm-up step runs eagerly under the trace: at least its kernels.
+    # K3's group holds its split reduction's launches too
+    check(all(in_trace[k] >= per_step[k] for k in per_step),
+          f"the trace holds {in_trace} kernels of K1-K4, want at least one "
+          f"step's {per_step}")
+    stats = dict(
+        steps=n, timed_steps=steps,
+        traced_ms_per_step=traced_ms, untraced_ms_per_step=untraced["ms"],
+        traced_over_untraced=traced_ms / untraced["ms"],
+        write_s=marks["written"] - marks["loop_end"], parse_s=parse_s,
+        trace_mb=os.path.getsize(paths[0]) / 2 ** 20, events=len(events),
+        kernels_in_trace=sum(kernels.values()), k1_k4_in_trace=in_trace,
+        launches=launches, graph_launches_in_trace=graph_launches,
+        replays_traced_kernel_by_kernel=all(
+            in_trace[k] >= launches[k] for k in ("K1", "K2", "K4")),
+        losses_equal=True, mapper_max_abs_diff=mapper_diff,
+        run_s=time.perf_counter() - t_run)
+    print(f"coach trace [{card}]: {json.dumps(stats)}", flush=True)
+    return stats
+
+
 def phase_coach(torch, dev, card, train_result, steps):
     """The Coach of view_neti_tpu_torch.train on the recipe of
     bench.py:_bench_e2e (bench.py:394-432), at full width: its default
@@ -1543,6 +1649,14 @@ def phase_coach(torch, dev, card, train_result, steps):
         del eager, ebatch
         gc.collect()
         torch.cuda.empty_cache()
+        cfg_traced = mode2_config(
+            rect, os.path.join(root, "run_traced"), log=log,
+            optim={"max_train_steps": warm + steps})
+        trace_stats = coach_trace(
+            torch, dev, card, cfg_traced, cal, os.path.join(root, "trace"),
+            warm, steps, dict(graphed, launches=launches, ms=ms_step))
+        gc.collect()
+        torch.cuda.empty_cache()
         window = dict(
             steps_per_dispatch=COACH_WINDOW, save_steps=COACH_SAVE_STEPS,
             graphed_ms_per_step=ms_step, eager_ms_per_step=eager_ms,
@@ -1575,7 +1689,7 @@ def phase_coach(torch, dev, card, train_result, steps):
         augment_max_abs_err_card_vs_cpu=aug_err,
         launches_per_step={k: v / n for k, v in launches.items()},
         losses=losses, final_loss=result["final_loss"],
-        timer_rejected=timer_rejected, window=window)
+        timer_rejected=timer_rejected, window=window, trace=trace_stats)
     print(f"coach [{card}]: {json.dumps(stats)}", flush=True)
     print(f"profile coach step [{card}]: "
           f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
@@ -4186,6 +4300,8 @@ def main() -> int:
     report = kernel_report(kernels, {"serve": serve_launches,
                                      "train": train_launches,
                                      "coach": coach_launches,
+                                     "coach_trace":
+                                         coach_stats["trace"]["launches"],
                                      "weights": weights_launches,
                                      "acceptance": acceptance_launches,
                                      "validate": validate_launches,

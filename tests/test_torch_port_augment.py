@@ -34,6 +34,17 @@ from view_neti_tpu_torch.training import train_step as tts
 import test_torch_port_train as base
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x, dtype=None):
     t = torch.from_numpy(np.asarray(x).copy())
     return t.to(dtype) if dtype is not None else t

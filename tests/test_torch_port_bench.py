@@ -45,6 +45,17 @@ UNITS = {"raw": "imgs/sec/chip", "coach_mode2": "imgs/sec/chip",
          "sweep": "seconds"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The tiny modes run thousands of small ops. Beside the other test
+    workers, torch's 8-thread parallel regions spend most of their time
+    waiting for cores; on one thread they do not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def no_bench_env(monkeypatch):
     """The JAX bench's _metric_name reads os.environ: start each test

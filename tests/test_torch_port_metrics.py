@@ -19,6 +19,17 @@ from view_neti_tpu_torch.ops import metrics as tm
 from view_neti_tpu_torch.utils import vis as tvis
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _images(seed, shape=(2, 3, 40, 48, 3)):
     """Ground truth in [0, 1], a prediction near it, a binary mask."""
     rng = np.random.RandomState(seed)

@@ -56,6 +56,17 @@ from view_neti_tpu_torch.utils.types import PESigmas
 INVENTORY = Path(__file__).parent / "fixtures" / "key_inventory"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_params(shapes, seed):
     """Fill a tree of ShapeDtypeStructs with numpy draws: kernels
     N(0, 1/fan_in), biases and norm offsets N(0, 0.1^2), norm scales

@@ -67,6 +67,34 @@ def test_multi_head_attention_on_cpu_is_the_plain_version():
                                rtol=0, atol=0)
 
 
+# ragged lengths (no 64- or 128-multiple) at both head dims of the path
+@pytest.mark.parametrize("Lq,Lk,d,dtype", [
+    (37, 77, 40, torch.float32), (200, 91, 40, torch.bfloat16),
+    (53, 53, 64, torch.float32), (75, 77, 64, torch.bfloat16)])
+def test_merged_cpu_backward_equals_dq_and_dkv_apart(Lq, Lk, d, dtype):
+    """On CPU tensors flash_attention_bwd makes one pass of the plain
+    arithmetic for dq, dk and dv: bit for bit the plain versions of K2
+    and K3 called apart, and with one side not needed the other alone."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(2, Lq, Lk, 3, d, seed=d + Lq))
+    do = torch.from_numpy(np.random.RandomState(Lk).randn(
+        2, Lq, 3, d).astype(np.float32)).to(dtype)
+    o, lse = tfa.flash_attention_ref(q, k, v)
+    delta = tfa.attention_delta(o, do)
+    apart = (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    merged = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    for got, want in zip(merged, apart):
+        assert got.dtype == want.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, need_dkv=False)
+    assert dk is None and dv is None
+    torch.testing.assert_close(dq, apart[0], rtol=0, atol=0)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, need_dq=False)
+    assert dq is None
+    torch.testing.assert_close((dk, dv), apart[1:], rtol=0, atol=0)
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
     """No silent fallback: a tensor that is neither on the CPU nor on a
     CUDA device is refused, never computed by the plain version."""

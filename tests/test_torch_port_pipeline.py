@@ -54,6 +54,17 @@ DATA = dict(camera_representation="dtu-12d", dtu_subset=6)
 STEPS, HEIGHT, WIDTH = 3, 48, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _calibration(tmp):
     rng = np.random.RandomState(0)
     for i in range(1, 65):

@@ -62,6 +62,17 @@ MODEL = dict(arch_view_net=15, arch_view_disable_tl=False,
 B, IMG, LR = 2, 16, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_arch():
     """The JAX side's arch; its UNet attends in plain jnp (the Pallas
     kernel's interpret mode only costs compile time here: its plain

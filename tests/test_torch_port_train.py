@@ -42,6 +42,17 @@ from view_neti_tpu_torch.training import optim as toptim
 from view_neti_tpu_torch.training import train_step as tts
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

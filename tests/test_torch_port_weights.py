@@ -47,6 +47,17 @@ FILES = {"unet": "unet/diffusion_pytorch_model.safetensors",
          "clip": "text_encoder/model.safetensors"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's 8-thread parallel regions
+    spend most of their time waiting for cores; on one thread they do
+    not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------- safetensors ----
 
 def _tensors():

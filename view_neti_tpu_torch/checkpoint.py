@@ -1,5 +1,5 @@
 """Checkpoint files: learned embeddings, mapper states and the config
-(view_neti_tpu/checkpoint.py:39-171).
+(view_neti_tpu/checkpoint.py:39-190).
 
 The port writes the JAX package's files, in its tree layout, through its
 own msgpack codec (utils/msgpack_codec.py), so each side reads the other's:
@@ -159,3 +159,25 @@ def clean_config_dict(cfg_dict: Dict[str, Any]) -> Dict[str, Any]:
             continue
         out[k] = clean_config_dict(v) if isinstance(v, dict) else v
     return out
+
+
+def apply_learned_embeds_to_table(token_table: np.ndarray,
+                                  embeds: Dict[str, np.ndarray],
+                                  tokenizer) -> Tuple[np.ndarray, List[int]]:
+    """Add each token of `embeds` (load_learned_embeds's dict) to the
+    tokenizer and write its row into a copy of the word-embedding table;
+    returns (the table, the tokens' ids in the dict's order). Raises
+    ValueError where an id falls outside the table
+    (view_neti_tpu/checkpoint.py:174-190; the reference's
+    load_learned_embed_in_clip)."""
+    table = np.array(token_table)
+    ids = []
+    for token, row in embeds.items():
+        tokenizer.add_tokens([token])
+        tid = tokenizer.convert_tokens_to_ids(token)
+        if tid >= table.shape[0]:
+            raise ValueError(f"vocab overflow loading {token}: id {tid} >= "
+                             f"{table.shape[0]}")
+        table[tid] = np.asarray(row, np.float32)
+        ids.append(tid)
+    return table, ids

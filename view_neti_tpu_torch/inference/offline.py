@@ -4,6 +4,11 @@ of the JAX package), run as a module through inference/__main__.py:
     python -m view_neti_tpu_torch.inference \
         --config_path input_configs/inference.yaml \
         [--input_dir results/exp --iteration 1500 --seeds "[0, 1]" ...]
+    python -m view_neti_tpu_torch.inference --exp_dir results/exp \
+        --iteration 1500 [--seeds 0 1 2 --save_dir DIR ...]
+
+The second form is the JAX script's legacy flags (parse_args), whose
+results go to --save_dir, else into the run directory itself.
 
 It reads an InferenceConfig (YAML and dot-overrides), rebuilds the Coach
 from the config embedded in the step's mapper checkpoint, runs the DTU
@@ -63,10 +68,36 @@ def split_parallel_args(argv: List[str]) -> Tuple[List[str], List[str]]:
     return rest, parallel
 
 
+def parse_args(argv: List[str]) -> InferenceConfig:
+    """The InferenceConfig of the arguments (scripts/inference.py:29-51):
+    YAML and dot-overrides, or, where an argument starts with --exp_dir or
+    --save_dir, the legacy flags, whose results go to --save_dir, else to
+    --exp_dir itself."""
+    if not any(a.startswith(("--exp_dir", "--save_dir")) for a in argv):
+        return parse_cli(argv, cls=InferenceConfig)
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--exp_dir", type=Path, required=True)
+    ap.add_argument("--iteration", type=int, required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--num_denoising_steps", type=int, default=30)
+    ap.add_argument("--calibration_dir", type=str, default=None)
+    ap.add_argument("--masks_root", type=str, default=None)
+    ap.add_argument("--save_dir", type=Path, default=None)
+    ap.add_argument("--lpips_weights", type=str, default=None)
+    a = ap.parse_args(argv)
+    return InferenceConfig(
+        iteration=a.iteration, input_dir=a.exp_dir,
+        inference_dir=a.save_dir or a.exp_dir, seeds=list(a.seeds),
+        num_denoising_steps=a.num_denoising_steps,
+        calibration_dir=a.calibration_dir, masks_root=a.masks_root,
+        lpips_weights=a.lpips_weights)
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> Optional[Dict]:
     argv, parallel_argv = split_parallel_args(
         list(sys.argv[1:] if argv is None else argv))
-    infer_cfg = parse_cli(argv, cls=InferenceConfig)
+    infer_cfg = parse_args(argv)
     if infer_cfg.input_dir is None or infer_cfg.iteration is None:
         raise SystemExit("input_dir and iteration are required (set them "
                          "in the YAML or pass --input_dir / --iteration)")

@@ -295,11 +295,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, need_dq: bool = True,
     """(dq, dk, dv) of flash attention from the forward's o and lse and the
     output gradient do; a gradient that is not needed comes back as None.
     delta = rowsum(do·o) is a PyTorch reduction, as in the JAX backward;
-    K2 computes dq and K3 dk and dv (their plain versions on the CPU)."""
+    K2 computes dq and K3 dk and dv. On CPU tensors one pass of the plain
+    arithmetic builds S, P and dP once for all three gradients, bit-equal
+    to the plain versions of K2 and K3 called apart."""
     if o.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} must be "
                          f"q's shape {tuple(q.shape)}")
     delta = attention_delta(o, do)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, need_dq, need_dkv)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta) if need_dq else None
     dk, dv = (flash_attention_bwd_dkv(q, k, v, do, lse, delta) if need_dkv
               else (None, None))

@@ -10,7 +10,10 @@ The four kernels are ctypes launches that it cannot see, so while a
 (the formulas below, the counterparts of the TPU kernels' pl.CostEstimate
 in view_neti_tpu/ops/flash_attention.py:148 and fused_conv.py:366). With no
 context open the wrappers pay one attribute test. A wrapper given CPU
-tensors runs its plain version, whose ops FlopCounterMode counts.
+tensors runs its plain version, whose ops FlopCounterMode counts: there
+the attention backward's one pass recomputes S from the log-sum-exp, so a
+CPU count holds that product (a fifth of the backward's) where the card's
+does not.
 
 `count_flops(fn, *args)` runs fn once, eagerly, under both.
 """

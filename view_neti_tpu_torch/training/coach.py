@@ -77,7 +77,11 @@ What it runs, as the JAX Coach runs it:
     projections and CLIP's MLP are split over the tp group after the
     weights are loaded (parallel/tensor.py shard_frozen_, the JAX Coach's
     _place_frozen_on_mesh); the ranks of a group then render rank 0's
-    prompt sheets together with it (inference_dtu.render_prompt_rows).
+    prompt sheets together with it (inference_dtu.render_prompt_rows);
+  * with VIEW_NETI_TRACE_DIR set, the train loop, from the first batch to
+    the last window's metrics, runs under torch.profiler
+    (utils/profiling.trace), which writes one trace file a process into
+    that directory before the final checkpoint, or when the loop raises.
 
 Not ported: the XLA cost hook (TPU tooling) and the orbax format
 (train_state.py writes the port's own).
@@ -120,7 +124,7 @@ from view_neti_tpu_torch.training.train_step import (TrainBatch,
 from view_neti_tpu_torch.utils.device import resolve_device
 from view_neti_tpu_torch.utils.graphs import Graphed
 from view_neti_tpu_torch.utils.misc import fixseed
-from view_neti_tpu_torch.utils.profiling import StepTimer
+from view_neti_tpu_torch.utils.profiling import StepTimer, trace
 from view_neti_tpu_torch.utils.vis import downsample_image, get_image_grid
 
 _MASK64 = (1 << 64) - 1
@@ -502,35 +506,40 @@ class Coach:
                 for b in loader:
                     yield prepare(b) if prepare else b
 
-        batches = stream()
         last_loss = float("nan")
         pending = None
         self._val_failures = 0
         timer = StepTimer()
         t0 = time.time()
-        while self.global_step < cfg.optim.max_train_steps:
-            # a window holds whole k-micro-batch groups: one optimizer
-            # step with steps_per_dispatch 1
-            w = max(self._dispatch_window(), k)
-            losses = self._run_window(w, batches, micro_step)
-            micro_step += w
-            timer.tick()
-            self.global_step += w // k
-            # read the PREVIOUS window's losses: this one is still running
-            prev = pending
-            pending = (self.global_step, self._stage(losses),
-                       self.micro_batch_size * w)
-            if prev is not None:
-                last_loss = self._log_step_metrics(prev, timer)
-            self.logger.update_step(self.global_step)
-            if self.global_step % cfg.log.save_steps == 0:
-                self._save(f"learned_embeds-steps-{self.global_step}"
-                           ".msgpack",
-                           f"mapper-steps-{self.global_step}.msgpack")
-            if self._should_eval() and self.validator is not None:
-                self._validate()
-        if pending is not None:
-            last_loss = self._log_step_metrics(pending, timer)
+        # the whole loop under torch.profiler where VIEW_NETI_TRACE_DIR is
+        # set (utils/profiling.py). Unlike the JAX Coach's, the trace is
+        # closed when the loop raises too: an open profiler would break
+        # every later one in the process.
+        with trace(os.environ.get("VIEW_NETI_TRACE_DIR")):
+            batches = stream()
+            while self.global_step < cfg.optim.max_train_steps:
+                # a window holds whole k-micro-batch groups: one optimizer
+                # step with steps_per_dispatch 1
+                w = max(self._dispatch_window(), k)
+                losses = self._run_window(w, batches, micro_step)
+                micro_step += w
+                timer.tick()
+                self.global_step += w // k
+                # read the PREVIOUS window's losses: this one still runs
+                prev = pending
+                pending = (self.global_step, self._stage(losses),
+                           self.micro_batch_size * w)
+                if prev is not None:
+                    last_loss = self._log_step_metrics(prev, timer)
+                self.logger.update_step(self.global_step)
+                if self.global_step % cfg.log.save_steps == 0:
+                    self._save(f"learned_embeds-steps-{self.global_step}"
+                               ".msgpack",
+                               f"mapper-steps-{self.global_step}.msgpack")
+                if self._should_eval() and self.validator is not None:
+                    self._validate()
+            if pending is not None:
+                last_loss = self._log_step_metrics(pending, timer)
         self.loop_end_s = time.perf_counter()
         self.last_step_timer = timer
         if isinstance(loader, PrefetchLoader):
