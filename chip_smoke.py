@@ -5,12 +5,17 @@
 
 Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the four kernel libraries from
+  2. build   -- nvcc builds the five kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
                 kernel's registers and spills; the instantiations the
-                paths run (K1, K2 and K3 at the head-dim buckets 48, 64,
-                80 and 160, and every K4 instantiation) must not spill;
-  3. kernels -- the flash-attention forward (K1), its backward (K2 dq, K3
+                paths run (K1's two designs, K2 and K3 at the head-dim
+                buckets 48, 64, 80 and 160, and every K4 instantiation)
+                must not spill;
+  3. kernels -- the flash-attention forward (K1: its Hopper design on
+                wgmma and TMA at the buckets 48 and 64 with more than 80
+                keys, its mma.sync design elsewhere; at the Hopper
+                design's shapes the mma.sync design is checked and timed
+                beside it), its backward (K2 dq, K3
                 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
@@ -26,7 +31,13 @@ Phases; any failure ends the run with a non-zero exit:
                 padded before the SiLU), and timed with CUDA events
                 beside the plain version, one PyTorch library call and
                 the card's bound (and the bound's share of the kernel's
-                time);
+                time); at the Hopper design's shapes, also both
+                designs' per-call time in a CUDA graph of 20 calls and
+                their host time a call; every path's counted run below
+                holds K1's launches by design (launch_counts' "K1 sm90"
+                and "K1 mma_sync"): 5 of an SD-1.5 UNet forward's 32 on
+                the Hopper design (its level-0 self-attentions), 15 or
+                16 of SD-2.1's (M3_SM90);
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -248,8 +259,11 @@ Phases; any failure ends the run with a non-zero exit:
                 must be refused with the error line and a failed exit;
                 prints a `bench [...]` line with the five records;
  16. report  -- one JSON line of per-kernel results, then the result line.
-The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), the
-published dense-bf16 and memory peaks of an H100 SXM at 700 W.
+The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s,
+exponentials / (16 a clock x the SMs x the card's clocks.max.sm)): the
+published dense-bf16 and memory peaks of an H100 SXM at 700 W, and the
+special-function units' rate for the attention kernels' one exponential
+per score.
 """
 from __future__ import annotations
 
@@ -268,6 +282,10 @@ import time
 
 PEAK_FLOPS = 989e12      # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+EXP_PER_SM_CLOCK = 16    # ex2 on the special-function units, sm_90
+# exponentials a second: main() sets it from the card (exp_rate); this is
+# an H100 SXM's 132 SMs at its 1980 MHz clocks.max.sm
+EXP_RATE = EXP_PER_SM_CLOCK * 132 * 1980e6
 BATCH = 6                # 3 seeds x CFG
 HEIGHT, WIDTH = 576, 768
 TRAIN_BATCH = 9          # train_batch_size 3 x gradient_accumulation 3
@@ -342,10 +360,19 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def exp_rate(sms: int, max_sm_mhz: float) -> float:
+    """The card's exponentials a second: 16 a clock on each SM."""
+    return EXP_PER_SM_CLOCK * sms * max_sm_mhz * 1e6
+
+
+def bound(flops: float, nbytes: float, exps: float = 0.0):
+    """(the least ms the card could take, what bounds it): the largest of
+    the tensor-core operations over the bf16 peak, the bytes over the
+    memory rate and the exponentials over EXP_RATE."""
+    times = {"operations": flops / PEAK_FLOPS, "bytes": nbytes / PEAK_BYTES,
+             "exponentials": exps / EXP_RATE}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def attention_tolerance(ref):
@@ -383,6 +410,45 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of fn, by CUDA events over `replays`
+    replays of a CUDA graph that holds `calls` calls: the host's launch
+    work, as on the graphed paths, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds of one eager call of fn: the calls are queued
+    without a wait, timed on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def kernel_group(name: str) -> str:
@@ -437,12 +503,12 @@ PATH_BUCKETS = (48, 64, 80, 160)   # SD-1.5's head dims 40/80/160, SD-2.1's 64
 
 
 def check_path_spills(usage):
-    """The instantiations of K1, K2 and K3 at the paths' head-dim buckets
-    (PATH_BUCKETS) and every K4 instantiation must spill nothing; prints
-    every instantiation of the four kernels."""
+    """The instantiations of K1 (both designs), K2 and K3 at the paths'
+    head-dim buckets (PATH_BUCKETS) and every K4 instantiation must spill
+    nothing; prints every instantiation of the kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
-        m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
+        m = re.search(r"(flash_fwd_kernel(?:_sm90)?|flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|fused_conv_kernel)I((?:Li\d+E)+)",
                       fn)
         if not m:
@@ -458,10 +524,41 @@ def check_path_spills(usage):
 
 
 def launch_counts(reset: bool = False):
-    """Each kernel wrapper's launch count, {"K1": n, ...}, graph replays
-    included (utils/graphs.py); reset sets them all to 0 first."""
+    """Each kernel wrapper's launch count, {"K1": n, ...}, and K1's by
+    design ("K1 sm90", "K1 mma_sync"), graph replays included
+    (utils/graphs.py); reset sets them all to 0 first."""
     from view_neti_tpu_torch.utils.graphs import launch_counts as counts
     return counts(reset)
+
+
+# K1's launches a UNet forward on its Hopper design (ops/flash_attention.py
+# ::fwd_design: head dim 40 or 64, more than 80 keys): SD-1.5's 5 level-0
+# self-attentions (d = 40, 3072 to 6912 keys); SD-2.1's 15 self-attentions
+# of its first three levels (d = 64), and its mid block's where it has 108
+# keys (the 768x576 sweep) rather than 48 (384x512 train) or 64 (512x512
+# render)
+SD15_SM90 = 5
+M3_SM90 = {"train": 15, "sweep": 16, "render": 15}
+
+
+def unet_k1(forwards: int, sm90: int = SD15_SM90):
+    """K1's launches in `forwards` UNet forwards as launch_counts keys
+    them: 32 a forward, `sm90` of them on the Hopper design."""
+    return {"K1": 32 * forwards, "K1 sm90": sm90 * forwards,
+            "K1 mma_sync": (32 - sm90) * forwards}
+
+
+def add_counts(*counts):
+    """The key-wise sum of launch counts."""
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# an SD-1.5 train step's launches
+SD15_STEP = {**unet_k1(1), "K2": 30, "K3": 31, "K4": 21}
 
 
 def device_profile(torch, fn, ranges=()):
@@ -628,6 +725,7 @@ def attention_rows(torch, F, fa, shape, g, dev):
     q = torch.randn(B, Lq, H, d, generator=g, device=dev).bfloat16()
     k = torch.randn(B, Lk, H, d, generator=g, device=dev).bfloat16()
     v = torch.randn(B, Lk, H, d, generator=g, device=dev).bfloat16()
+    design = fa.fwd_design(d, Lk)
     o, lse = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
 
@@ -650,23 +748,48 @@ def attention_rows(torch, F, fa, shape, g, dev):
     # fault of a wrong key mask or a lost tile in the online softmax
     control = of_limit(ref_fwd(Lk - drop)[0], ro, tol)
     check(ratio <= 1 and lse_err <= 1e-3,
-          f"K1 disagrees at {label}: {ratio:.3g} of the limit, "
+          f"K1 ({design}) disagrees at {label}: {ratio:.3g} of the limit, "
           f"lse {lse_err:.3g}")
     check(control > 1, f"K1's limit at {label} misses {drop} dropped keys "
                        f"({control:.3g} of the limit)")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # one exponential per score: the special-function units' share
     bms, by = bound(4.0 * B * H * Lq * Lk * d,
                     2.0 * (2 * q.numel() + k.numel() + v.numel())
-                    + 4.0 * lse.numel())
-    rows = {"K1": dict(
-        shape=label, per_run=shape["per_run"]["K1"],
+                    + 4.0 * lse.numel(), float(B * H * Lq * Lk))
+    row = dict(
+        shape=label, design=design, per_run=shape["per_run"]["K1"],
         max_abs_err=(o.float() - ro).abs().max().item(), lse_err=lse_err,
         err_of_limit=ratio, control_of_limit=control,
         ms=time_ms(torch, lambda: fa.flash_attention(q, k, v)),
         plain_ms=time_ms(torch, ref_fwd, 100.0),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt)),
-        bound_ms=bms, bound_by=by)}
+        bound_ms=bms, bound_by=by)
+    if design == "sm90":
+        # the mma.sync design at the same inputs, held to the same limit
+        # and timed in the same call
+        mo, mlse = fa._flash_attention_mma_sync(q, k, v)
+
+        def mma():
+            return fa._flash_attention_mma_sync(q, k, v)
+
+        def sm90():
+            return fa._launch_fwd(q, k, v, "sm90")
+
+        row.update(mma_sync_err_of_limit=of_limit(mo, ro, tol),
+                   mma_sync_lse_err=(mlse - rlse).abs().max().item(),
+                   mma_sync_ms=time_ms(torch, mma),
+                   graph_ms=graph_ms(torch, sm90),
+                   mma_sync_graph_ms=graph_ms(torch, mma),
+                   host_us=host_us(torch, sm90),
+                   mma_sync_host_us=host_us(torch, mma))
+        check(row["mma_sync_err_of_limit"] <= 1
+              and row["mma_sync_lse_err"] <= 1e-3,
+              f"K1 (mma_sync) disagrees at {label}: "
+              f"{row['mma_sync_err_of_limit']:.3g} of the limit")
+        del mo, mlse
+    rows = {"K1": row}
     del ro, rlse, tol
     if "K2" not in shape["per_run"]:
         return rows
@@ -719,6 +842,7 @@ def attention_rows(torch, F, fa, shape, g, dev):
         lo, (lq, lk, lv), ldo, retain_graph=True))
     del lo
     io_bytes = 8.0 * lse.numel()                 # lse and delta, fp32
+    exps = float(B * H * Lq * Lk)     # K2 and K3 recompute P
     for key, flops, nbytes, ratio, control, err, fn, plain in (
             ("K2", 6.0 * B * H * Lq * Lk * d,
              2.0 * (3 * q.numel() + k.numel() + v.numel()) + io_bytes,
@@ -730,7 +854,7 @@ def attention_rows(torch, F, fa, shape, g, dev):
              + io_bytes, max(ratios[1:]), min(ctl_dkv), max(errs[1:]),
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
              lambda: ref_bwd(need_dq=False))):
-        bms, by = bound(flops, nbytes)
+        bms, by = bound(flops, nbytes, exps)
         rows[key] = dict(shape=label, per_run=shape["per_run"][key],
                          max_abs_err=err, err_of_limit=ratio,
                          control_of_limit=control, ms=time_ms(torch, fn),
@@ -877,6 +1001,15 @@ def k4_row(torch, F, fc, shape, g, dev):
 
 def print_row(key, row, card):
     extra = (f", lse {row['lse_err']:.3g}" if "lse_err" in row else "")
+    if "design" in row:
+        key = f"{key} {row['design']}"
+    if "mma_sync_ms" in row:
+        extra += (f", mma_sync {row['mma_sync_ms']:.4f} ms "
+                  f"({row['mma_sync_err_of_limit']:.3g} of the limit); "
+                  f"graphed {row['graph_ms']:.4f} ms, mma_sync "
+                  f"{row['mma_sync_graph_ms']:.4f}; host "
+                  f"{row['host_us']:.1f} us a call, mma_sync "
+                  f"{row['mma_sync_host_us']:.1f}")
     if "controls" in row:
         extra += ", controls " + ", ".join(
             f"{k} {v:.3g}" for k, v in row["controls"].items())
@@ -1011,15 +1144,11 @@ def phase_slice(torch, dev, card, steps):
     check(imgs.shape == (3, HEIGHT, WIDTH, 3) and imgs.dtype == np.uint8,
           f"images {imgs.shape} {imgs.dtype}")
     check(imgs.min() != imgs.max(), "images are constant")
-    check(launches["K1"] == 2 * 32 * steps,
-          f"K1 launched {launches['K1']} times in 2 runs, want "
-          f"{2 * 32 * steps}")
-    check(launches["K4"] == 2 * 29,
-          f"K4 launched {launches['K4']} times in 2 runs, want {2 * 29}")
-    check(launches["K2"] == launches["K3"] == 0,
-          f"the serving path ran the backward: {launches}")
+    want = {**unet_k1(2 * steps), "K2": 0, "K3": 0, "K4": 2 * 29}
+    check(launches == want, f"serving launches in 2 runs {launches}, want "
+                            f"{want} (no backward)")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
-    check(loop_cap.launches == {"K1": 32 * steps} and loop_cap.replays == 1,
+    check(loop_cap.launches == unet_k1(steps) and loop_cap.replays == 1,
           f"the denoise graph's launches {loop_cap.launches}, replays "
           f"{loop_cap.replays}")
     check(dec_cap.launches == {"K4": 29} and dec_cap.replays == 1,
@@ -1179,7 +1308,7 @@ def phase_train(torch, dev, card, built, tok, steps):
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n = 2 + steps
-    want = {"K1": 32 * n, "K2": 30 * n, "K3": 31 * n, "K4": 21 * n}
+    want = {k: v * n for k, v in SD15_STEP.items()}
     check(launches == want, f"train launches {launches}, want {want}")
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
@@ -1436,16 +1565,18 @@ def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
     with open(paths[0]) as f:
         events = json.load(f)["traceEvents"]
     parse_s = time.perf_counter() - t0
-    kernels, graph_launches = {}, 0
+    kernels, graph_launches, sm90 = {}, 0, 0
     for e in events:
         if e.get("cat") == "kernel":
             g = kernel_group(e.get("name", ""))
             kernels[g] = kernels.get(g, 0) + 1
+            sm90 += "flash_fwd_kernel_sm90" in e.get("name", "")
         elif e.get("name") == "cudaGraphLaunch":
             graph_launches += 1
     in_trace = {k: kernels.get(kernel_group(name), 0) for k, name in (
         ("K1", "flash_fwd_kernel"), ("K2", "flash_bwd_dq_kernel"),
         ("K3", "flash_bwd_dkv"), ("K4", "fused_conv_kernel"))}
+    in_trace.update({"K1 sm90": sm90, "K1 mma_sync": in_trace["K1"] - sm90})
     n = len(untraced["losses"])
     per_step = {k: v // n for k, v in launches.items()}
     # the warm-up step runs eagerly under the trace: at least its kernels.
@@ -1518,7 +1649,7 @@ def phase_coach(torch, dev, card, train_result, steps):
         # the graphs' private pools are reserved, not allocated
         reserved_gb = torch.cuda.max_memory_reserved() / 2 ** 30
         n = coach.global_step
-        per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+        per_step = SD15_STEP
         check(n == warm + steps, f"the Coach ran {n} steps")
         check(launches == {k: v * n for k, v in per_step.items()},
               f"coach launches {launches} over {n} steps, want "
@@ -1794,7 +1925,7 @@ def phase_weights(torch, dev, card, rect, cal):
     check(torch.equal(out_loaded, out_mem),
           f"the loaded UNet's forward differs from the written stack's by "
           f"{(out_loaded.float() - out_mem.float()).abs().max().item()}")
-    check(launches == {"K1": 64, "K2": 0, "K3": 0, "K4": 0},
+    check(launches == {**unet_k1(2), "K2": 0, "K3": 0, "K4": 0},
           f"weights launches {launches}")
     stats = dict(gb_read=nbytes / 1e9, dtypes=dtypes, write_s=write_s,
                  coach_build_s=coach_s, load_s=load_s,
@@ -1947,7 +2078,7 @@ def phase_acceptance(torch, dev, card, root, weights, cal, masks_root):
           f"shapes that the kernels phase checks")
     check(fill is not None and loop is not None,
           "no cache fill or training line in the run's log")
-    want = {"K1": 32 * ACC_STEPS + 32 * ACC_DENOISE * EVAL_CAMS,
+    want = {**unet_k1(ACC_STEPS + ACC_DENOISE * EVAL_CAMS),
             "K2": 30 * ACC_STEPS, "K3": 31 * ACC_STEPS,
             "K4": 21 * ACC_STEPS + 29 * EVAL_CAMS}
     check(launches == want, f"acceptance launches {launches}, want {want}")
@@ -2027,7 +2158,7 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
                  f"_numseeds_{len(VAL_SEEDS)}.msgpack")
     check(os.path.exists(bundle), "no validation bundle")
     n = VAL_TRAIN_STEPS
-    want = {"K1": 32 * (n + VAL_DENOISE * (EVAL_CAMS + 1)), "K2": 30 * n,
+    want = {**unet_k1(n + VAL_DENOISE * (EVAL_CAMS + 1)), "K2": 30 * n,
             "K3": 31 * n, "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
     check(launches == want, f"validate launches {launches}, want {want}")
     (loop_cap,) = [c for f, _ in coach._sampling.values()
@@ -2141,7 +2272,7 @@ def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     launches = launch_counts()
-    want = {"K1": 32 * VAL_DENOISE * INFER_CAMS, "K2": 0, "K3": 0,
+    want = {**unet_k1(VAL_DENOISE * INFER_CAMS), "K2": 0, "K3": 0,
             "K4": 29 * INFER_CAMS}
     check(launches == want, f"inference launches {launches}, want {want}")
     check(res["cam_idxs"] == val["cam_idxs"][:INFER_CAMS],
@@ -2259,7 +2390,7 @@ def phase_mode3(torch, dev, card, coach_stats):
     from view_neti_tpu_torch.training.validate import ValidationHandler
 
     B, n = TRAIN_BATCH, M3_WARM + M3_STEPS
-    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    per_step = {**unet_k1(1, M3_SM90["train"]), "K2": 30, "K3": 31, "K4": 21}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_mode3")
     shutil.rmtree(root, ignore_errors=True)
@@ -2498,10 +2629,13 @@ def phase_mode3(torch, dev, card, coach_stats):
                 psnr_train_mean=res["psnr_train_mean"])
         check(os.path.exists(os.path.join(
             run_b, f"val-disentangled-step{n}.png")), "no object renders")
-        want_b = {k: v * M3_STEPS for k, v in per_step.items()}
-        renders = VAL_DENOISE * M3_TOKENS * (M3_SWEEP_CAMS + 1)
-        want_b["K1"] += 32 * renders
-        want_b["K4"] += 29 * M3_TOKENS * (M3_SWEEP_CAMS + 1)
+        # each eval token's sweep (768x576) and render (512x512)
+        want_b = add_counts(
+            {k: v * M3_STEPS for k, v in per_step.items()},
+            unet_k1(VAL_DENOISE * M3_TOKENS * M3_SWEEP_CAMS,
+                    M3_SM90["sweep"]),
+            unet_k1(VAL_DENOISE * M3_TOKENS, M3_SM90["render"]),
+            {"K4": 29 * M3_TOKENS * (M3_SWEEP_CAMS + 1)})
         check(launches_b == want_b, f"resumed run launches {launches_b}, "
                                     f"want {want_b}")
 
@@ -2557,7 +2691,8 @@ def phase_mode3(torch, dev, card, coach_stats):
         torch.cuda.synchronize()
         infer_s = time.perf_counter() - t0
         launches_c = launch_counts()
-        want_c = {"K1": 32 * VAL_DENOISE * INFER_CAMS * M3_TOKENS, "K2": 0,
+        want_c = {**unet_k1(VAL_DENOISE * INFER_CAMS * M3_TOKENS,
+                            M3_SM90["sweep"]), "K2": 0,
                   "K3": 0, "K4": 29 * INFER_CAMS * M3_TOKENS}
         check(launches_c == want_c, f"mode-3 inference launches "
                                     f"{launches_c}, want {want_c}")
@@ -2745,7 +2880,7 @@ def phase_folders(torch, dev, card):
     from view_neti_tpu_torch.training.validate import ValidationHandler
 
     B, n = TRAIN_BATCH, FOLDERS_WARM + FOLDERS_STEPS
-    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    per_step = SD15_STEP
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_folders")
     shutil.rmtree(root, ignore_errors=True)
@@ -2790,9 +2925,8 @@ def phase_folders(torch, dev, card):
               f"{name}: validation rounds {[r['step'] for r in rounds]}")
         renders = FOLDERS_PROMPTS if name == "mode0" else (
             1 + FOLDERS_SHEET_TOKENS)
-        want = {k: v * n for k, v in per_step.items()}
-        want["K1"] += 32 * VAL_DENOISE * renders
-        want["K4"] += 29 * renders
+        want = add_counts({k: v * n for k, v in per_step.items()},
+                          unet_k1(VAL_DENOISE * renders), {"K4": 29 * renders})
         check(launches == want, f"{name} launches {launches}, want {want}")
         # the mappers as the final checkpoint saved them (the profiled
         # step below moves them)
@@ -3320,7 +3454,7 @@ def phase_ddp(torch, dev, card):
     from view_neti_tpu_torch.utils import msgpack_codec
 
     steps = DDP_WARM + DDP_STEPS
-    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    per_step = SD15_STEP
     want_launches = {k: v * steps for k, v in per_step.items()}
     cams = dtu.dtu_get_train_idxs(6)
     val_cams = inference_dtu.get_cam_idxs(6)[0][:DDP_VAL_CAMS]
@@ -3434,8 +3568,9 @@ def phase_ddp(torch, dev, card):
     val_launches = [{k: n * (len(dist.split_items(val_cams, r["rank"],
                                                   DDP_WORLD))
                              + (r["rank"] == 0))
-                     for k, n in (("K1", 32 * DDP_VAL_DENOISE), ("K2", 0),
-                                  ("K3", 0), ("K4", 29))} for r in ranks]
+                     for k, n in {**unet_k1(DDP_VAL_DENOISE), "K2": 0,
+                                  "K3": 0, "K4": 29}.items()}
+                    for r in ranks]
     stats = dict(
         backend=main["backend"], world=DDP_WORLD,
         ranks_share_one_card=main["shared_card"],
@@ -3865,9 +4000,9 @@ def phase_tp(torch, dev, card):
     from view_neti_tpu_torch.training.coach import Coach
 
     steps = TP_WARM + TP_STEPS
-    per_step = {"K1": 32, "K2": 30, "K3": 31, "K4": 21}
+    per_step = SD15_STEP
     want_launches = {k: v * steps for k, v in per_step.items()}
-    want_render = {"K1": 32 * TP_DENOISE, "K2": 0, "K3": 0, "K4": 29}
+    want_render = {**unet_k1(TP_DENOISE), "K2": 0, "K3": 0, "K4": 29}
     unet_blocks, clip_layers = 16, 12
     want_gathers = tp_collectives_per_step(unet_blocks, clip_layers) * steps
     with tempfile.TemporaryDirectory() as root:
@@ -4092,9 +4227,12 @@ def phase_bench(card, slice_stats, coach_stats):
                  for key in ("launches", "flops per image by source")}
         counts, flops = (notes[k][0] if len(notes[k]) == 1 else {}
                          for k in notes)
+        # the kernels of the mode, and K1's launches split by design
         check(all(counts.get(k, 0) > 0 for k in kernels.split())
               and all(v == 0 for k, v in counts.items()
-                      if k not in kernels.split()),
+                      if k.split()[0] not in kernels.split())
+              and counts.get("K1 sm90", 0) + counts.get("K1 mma_sync", 0)
+              == counts.get("K1", 0),
               f"bench {name}: launches {counts}, want {kernels} only")
         # each launching kernel's wrapper added its FLOPs to the count
         check(sorted(flops) == sorted(["aten"] + kernels.split())
@@ -4121,36 +4259,44 @@ def phase_bench(card, slice_stats, coach_stats):
                    coach_mode2_over_coach_imgs_per_sec=coach,
                    control=dict(exit=rc, line=control, process_s=secs))
     print(f"bench [{card}]: {json.dumps(summary)}", flush=True)
-    return {k: sum(n[k] for n in launches.values())
-            for k in ("K1", "K2", "K3", "K4")}
+    return add_counts(*launches.values())
 
 
 def kernel_report(kernels, launches, card):
-    """The {"kernels": [...]} line: per kernel, ms / plain_ms / bound_ms /
-    library_ms and share_of_bound (bound_ms / ms) at its heaviest main-path
-    shape, and the same summed over one run of each path that launches it
-    (<path>_path_*: a serving run, a train step, the weights phase, the
-    acceptance phase, the validate phase, the inference phase, the mode3
-    phase, the folders phase, a tp rank's render and training), each
-    shape weighted by its launches there."""
+    """The {"kernels": [...]} line: per kernel (K1's two designs apart),
+    ms / plain_ms / bound_ms / library_ms and share_of_bound (bound_ms /
+    ms) at its heaviest main-path shape, and the same summed over one run
+    of each path that launches it (<path>_path_*: a serving run, a train
+    step, the weights phase, the acceptance phase, the validate phase, the
+    inference phase, the mode3 phase, the folders phase, a tp rank's
+    render and training), each shape weighted by its launches there; the
+    Hopper design's entry carries the mma.sync design's ms at its shape.
+    `launches` holds each path's counted run (launch_counts' keys): a
+    kernel's launches, by path, are those of its key there."""
     report = []
-    for key, name, source, replaces, tol in (
+    for key, name, source, replaces, tol, design in (
+            ("K1", "flash_attention_fwd_sm90",
+             "view_neti_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+             "view_neti_tpu/ops/flash_attention.py:83",
+             "o: 2^-8|o| + 2^-4 rms(o), lse: 1e-3", "sm90"),
             ("K1", "flash_attention_fwd",
              "view_neti_tpu_torch/csrc/flash_attention_fwd.cu",
              "view_neti_tpu/ops/flash_attention.py:83",
-             "o: 2^-8|o| + 2^-4 rms(o), lse: 1e-3"),
+             "o: 2^-8|o| + 2^-4 rms(o), lse: 1e-3", "mma_sync"),
             ("K2", "flash_attention_bwd_dq",
              "view_neti_tpu_torch/csrc/flash_attention_bwd_dq.cu",
              "view_neti_tpu/ops/flash_attention.py:160",
-             "dq: 2^-8|dq| + 2^-4 rms(dq)"),
+             "dq: 2^-8|dq| + 2^-4 rms(dq)", None),
             ("K3", "flash_attention_bwd_dkv",
              "view_neti_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
              "view_neti_tpu/ops/flash_attention.py:190",
-             "dk, dv: 2^-8|x| + 2^-4 rms(x)"),
+             "dk, dv: 2^-8|x| + 2^-4 rms(x)", None),
             ("K4", "fused_affine_silu_conv3x3",
              "view_neti_tpu_torch/csrc/fused_conv.cu",
-             "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|")):
-        rows = kernels[key]
+             "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|",
+             None)):
+        rows = [r for r in kernels[key]
+                if design is None or r["design"] == design]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
         paths = ("serve", "train", "weights", "acceptance", "validate",
                  "inference", "mode3", "folders", "tp")
@@ -4163,10 +4309,11 @@ def kernel_report(kernels, launches, card):
             if f"{p}_path_ms" in path:
                 path[f"{p}_path_share_of_bound"] = (
                     path[f"{p}_path_bound_ms"] / path[f"{p}_path_ms"])
-        report.append(dict(
+        count = f"{key} {design}" if design else key
+        by_path = {p: n.get(count, 0) for p, n in launches.items()}
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(n.get(key, 0) for n in launches.values()),
-            launches_by_path={p: n.get(key, 0) for p, n in launches.items()},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             checked=True, tolerance=tol,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             err_of_limit=max(r["err_of_limit"] for r in rows),
@@ -4175,7 +4322,11 @@ def kernel_report(kernels, launches, card):
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             share_of_bound=top["share_of_bound"],
             library_ms=top["library_ms"], shape=top["shape"], **path,
-            card=card))
+            card=card)
+        if "mma_sync_ms" in top:
+            # the mma.sync design at the same shape, in the same call
+            entry["mma_sync_ms"] = top["mma_sync_ms"]
+        report.append(entry)
     return report
 
 
@@ -4217,6 +4368,17 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    max_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    global EXP_RATE
+    EXP_RATE = exp_rate(torch.cuda.get_device_properties(0)
+                        .multi_processor_count, float(max_mhz))
+    print(f"exponentials: {EXP_RATE:.6g} a second (16 a clock x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+          f"x {max_mhz} MHz clocks.max.sm) [{card}]", flush=True)
+
     from view_neti_tpu_torch.ops import build
     t0 = time.perf_counter()
     logs = build.build()
@@ -4226,10 +4388,11 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
-    # run reads the four path buckets of K1 (in two key-tile widths, 64
-    # and 80), of K2 and of K3, and K4's two output-channel tiles
+    # run reads the four path buckets of K1's mma.sync design (in two
+    # key-tile widths, 64 and 80), of K2 and of K3, K1's Hopper design at
+    # 48 and 64, and K4's two output-channel tiles
     n = check_path_spills(ptxas_usage(logs))
-    want = 4 * len(PATH_BUCKETS) + 2
+    want = 4 * len(PATH_BUCKETS) + 2 + 2
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 

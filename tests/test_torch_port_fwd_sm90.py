@@ -1,0 +1,339 @@
+"""K1's Hopper design (csrc/flash_attention_fwd_sm90.cu) on the CPU: which
+shapes of the paths it takes (ops/flash_attention.py::fwd_design), the
+bound chip_smoke.py holds every attention kernel to (the exponentials
+counted), the report and launch checks that follow K1's two designs, and
+what the source holds. The kernel itself runs only on the card
+(tests/test_torch_port_kernels.py, chip_smoke.py); its plain version is
+held against the Pallas kernel in interpret mode here and in
+tests/test_torch_port_ops.py.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import chip_smoke
+from view_neti_tpu.ops import flash_attention as jfa
+
+from view_neti_tpu_torch.ops import build
+from view_neti_tpu_torch.ops import flash_attention as tfa
+from view_neti_tpu_torch.utils import graphs
+
+# the bound's exponential rate: an H100 SXM's 132 SMs at its 1980 MHz
+# clocks.max.sm, chip_smoke.py's default until it reads the card
+H100_EXP_RATE = 16 * 132 * 1980e6
+# a name ptxas reports for each bucket's instantiation
+SM90_SYMBOL = ("_ZN60_GLOBAL__N__ffcd4624_27_flash_attention_fwd_sm90_cu_"
+               "3b2fb43b21flash_fwd_kernel_sm90ILi{}EEEv14CUtensorMap_stS1_"
+               "S1_S1_Pfiiif")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's parallel regions spend most
+    of their time waiting for cores; on one thread they do not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+PATH_KINDS = ("serve", "train", "sweep", "m3 train", "m3 sweep", "m3 render",
+              "folders train", "tp serve", "tp train")
+
+
+def _kinds():
+    """chip_smoke.attention_shapes in its order, each with its kind."""
+    shapes = chip_smoke.attention_shapes(30)
+    kinds = [k for k in ("serve", "sweep", "render", "train", "m3 train",
+                         "m3 sweep", "m3 render", "folders train",
+                         "tp serve", "tp train") for _ in range(8)]
+    assert len(kinds) == len(shapes)
+    return list(zip(kinds, shapes))
+
+
+@pytest.mark.parametrize("kind", PATH_KINDS)
+def test_fwd_design_on_every_path_shape(kind):
+    """The self-attentions at head dims 40 and 64 with more than 80 keys
+    take the Hopper design; the 77-key cross-attentions, SD-2.1's 48- and
+    64-key mid-block attentions, and head dims 80 and 160 the mma.sync
+    design."""
+    rows = [s for k, s in _kinds() if k == kind]
+    assert rows
+    for s in rows:
+        want = ("sm90" if s["d"] in (40, 64) and s["Lk"] == s["Lq"]
+                and s["Lk"] > 80 else "mma_sync")
+        assert tfa.fwd_design(s["d"], s["Lk"]) == want, s
+        if s["Lk"] == 77 or s["d"] in (80, 160):
+            assert want == "mma_sync"
+
+
+# each kind's UNet forward and the Hopper design's launches in it that
+# chip_smoke.py's launch checks expect
+FORWARD_SM90 = {"serve": chip_smoke.SD15_SM90,
+                "sweep": chip_smoke.SD15_SM90,
+                "render": chip_smoke.SD15_SM90,
+                "train": chip_smoke.SD15_SM90,
+                "m3 train": chip_smoke.M3_SM90["train"],
+                "m3 sweep": chip_smoke.M3_SM90["sweep"],
+                "m3 render": chip_smoke.M3_SM90["render"],
+                "folders train": chip_smoke.SD15_SM90,
+                "tp serve": chip_smoke.SD15_SM90,
+                "tp train": chip_smoke.SD15_SM90}
+
+
+@pytest.mark.parametrize("kind", list(FORWARD_SM90))
+def test_forward_split_is_fwd_designs(kind):
+    """A UNet forward's 32 K1 launches at a kind's shapes (each level's
+    self-attention and 77-key cross-attention, 5 of each at the first
+    three levels and 1 at the mid block), split by fwd_design: the split
+    chip_smoke.py's launch checks hold every path's counted run to (5 of
+    32 for SD-1.5, 15 or 16 for SD-2.1)."""
+    rows = [s for k, s in _kinds() if k == kind]
+    per_design = {"sm90": 0, "mma_sync": 0}
+    for i, s in enumerate(rows):
+        per_design[tfa.fwd_design(s["d"], s["Lk"])] += (5, 5, 5, 1)[i // 2]
+    sm90 = FORWARD_SM90[kind]
+    assert per_design == {"sm90": sm90, "mma_sync": 32 - sm90}
+    assert chip_smoke.unet_k1(3, sm90) == {
+        "K1": 96, "K1 sm90": 3 * sm90, "K1 mma_sync": 3 * (32 - sm90)}
+
+
+def test_unet_k1_and_add_counts_build_the_launch_checks():
+    """An SD-1.5 train step's expected launches, and a resumed mode-3
+    run's: train steps, sweeps and renders at their own splits."""
+    assert chip_smoke.SD15_STEP == {"K1": 32, "K1 sm90": 5,
+                                    "K1 mma_sync": 27, "K2": 30, "K3": 31,
+                                    "K4": 21}
+    got = chip_smoke.add_counts(
+        {"K1": 32, "K1 sm90": 15, "K1 mma_sync": 17, "K4": 21},
+        chip_smoke.unet_k1(2, 16), {"K4": 29})
+    assert got == {"K1": 96, "K1 sm90": 47, "K1 mma_sync": 49, "K4": 50}
+
+
+@pytest.mark.parametrize("d,Lk,want", [
+    (40, 81, "sm90"), (40, 80, "mma_sync"), (33, 6912, "sm90"),
+    (48, 129, "sm90"), (56, 108, "sm90"), (64, 6912, "sm90"),
+    (32, 6912, "mma_sync"), (72, 6912, "mma_sync"), (8, 4096, "mma_sync"),
+    (160, 432, "mma_sync"), (256, 300, "mma_sync"), (264, 300, "mma_sync")])
+def test_fwd_design_at_the_bucket_and_key_edges(d, Lk, want):
+    assert tfa.fwd_design(d, Lk) == want
+
+
+def test_the_sm90_source_is_built_with_wgmma_and_tma_and_no_cutlass():
+    """The library is one of the kernel sources; the source and the csrc
+    headers it includes hold the warpgroup product and the TMA copies,
+    and no CUTLASS or CuTe header."""
+    assert "flash_attention_fwd_sm90" in build.KERNEL_SOURCES
+    assert "-gencode" in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    sources = build._sources("flash_attention_fwd_sm90")
+    assert {p.name for p in sources} == {"flash_attention_fwd_sm90.cu",
+                                          "sm90_tiles.cuh", "mma_tiles.cuh"}
+    text = "".join(p.read_text() for p in sources)
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
+                "setmaxnreg", "wgmma.fence", "bar.sync"):
+        assert ptx in text, ptx
+    assert not re.search(r"#include\s*[<\"](cutlass|cute)", text)
+    cu = sources[0].read_text()
+    assert "__grid_constant__ const CUtensorMap" in cu
+    assert "cudaGetDriverEntryPoint" in cu
+    assert "-lcuda" not in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("B,H,d,L,ms,by", [
+    # SD-1.5 serving's heaviest K1: the exponentials bind
+    (6, 8, 40, 6912, 0.548, "exponentials"),
+    # SD-2.1 at mode 3: the tensor cores bind
+    (4, 5, 64, 6912, 0.2473, "operations")])
+def test_bound_counts_the_exponentials(B, H, d, L, ms, by):
+    """K1's bound: max(4 B H L^2 d / 989 TFLOP/s, its bytes / 3.35 TB/s,
+    B H L^2 exponentials / (16 x 132 SMs x 1980 MHz))."""
+    nbytes = 2.0 * 4 * B * L * H * d + 4.0 * B * H * L
+    assert chip_smoke.EXP_RATE == H100_EXP_RATE
+    got, got_by = chip_smoke.bound(4.0 * B * H * L * L * d, nbytes,
+                                   float(B * H * L * L))
+    assert got_by == by
+    assert got == pytest.approx(ms, rel=2e-3)
+    # without the exponentials, d = 40 falls back to its operations
+    assert chip_smoke.bound(4.0 * B * H * L * L * d, nbytes)[1] == (
+        "operations")
+    assert chip_smoke.exp_rate(132, 1980) == H100_EXP_RATE
+
+
+def test_bound_reads_bytes_when_they_bind():
+    """The 77-key cross-attention: q and o dominate."""
+    B, H, d, Lq, Lk = 6, 8, 40, 6912, 77
+    nbytes = 2.0 * (2 * B * Lq * H * d + 2 * B * Lk * H * d)
+    ms, by = chip_smoke.bound(4.0 * B * H * Lq * Lk * d, nbytes,
+                              float(B * H * Lq * Lk))
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def _log(buckets):
+    """A ptxas -v log of the Hopper library: one entry per bucket."""
+    lines = []
+    for dp in buckets:
+        name = SM90_SYMBOL.format(dp)
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads",
+                  "ptxas info    : Used 168 registers, used 16 barriers"]
+    return "\n".join(lines)
+
+
+def test_spill_check_reads_the_sm90_instantiations(capsys):
+    """check_path_spills counts and prints both buckets of the Hopper
+    design (their first template argument), and fails on a spill."""
+    usage = chip_smoke.ptxas_usage({"flash_attention_fwd_sm90":
+                                    _log((48, 64))})
+    assert chip_smoke.check_path_spills(usage) == 2
+    assert "flash_fwd_kernel_sm90<48>: 168 registers, 0 bytes spill" in (
+        capsys.readouterr().out)
+    spilled = _log((48,)).replace("0 bytes spill stores", "8 bytes spill "
+                                  "stores")
+    with pytest.raises(RuntimeError, match="spills 8 bytes"):
+        chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
+            {"flash_attention_fwd_sm90": spilled}))
+
+
+def test_profiles_group_the_sm90_kernel_as_k1():
+    demangled = ("void (anonymous namespace)::flash_fwd_kernel_sm90<48>("
+                 "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                 "CUtensorMap_st, float*, int, int, int, float)")
+    assert chip_smoke.kernel_group(demangled) == "K1 flash_attention_fwd"
+
+
+def _row(design, shape, ms, per_run):
+    row = dict(shape=shape, design=design, per_run=per_run,
+               max_abs_err=1e-3, err_of_limit=0.2, control_of_limit=3.0,
+               ms=ms, plain_ms=10 * ms, library_ms=0.9 * ms,
+               bound_ms=0.4 * ms, bound_by="exponentials",
+               share_of_bound=0.4)
+    if design == "sm90":
+        row["mma_sync_ms"] = 1.4 * ms
+    return row
+
+
+def test_kernel_report_lists_each_k1_design():
+    """The kernels line holds K1's two designs apart, each with the keys
+    the contract asks for and its launches from each path's counted run
+    (launch_counts' "K1 sm90" and "K1 mma_sync"), the bench's and the
+    coach trace's included; the Hopper entry carries the mma.sync design's
+    ms at its shape."""
+    other = [dict(_row(None, "s", 1.0, {"train": 30}), bound_by="operations")]
+    kernels = {"K1": [_row("sm90", "B6 Lq6912", 1.3, {"serve": 150}),
+                      _row("mma_sync", "B6 Lq6912 Lk77", 0.1,
+                           {"serve": 150})],
+               "K2": other, "K3": other, "K4": other}
+    launches = {
+        "serve": {**chip_smoke.unet_k1(60), "K2": 0, "K3": 0, "K4": 58},
+        "train": {k: 7 * v for k, v in chip_smoke.SD15_STEP.items()},
+        "coach_trace": {k: 14 * v for k, v in chip_smoke.SD15_STEP.items()},
+        "bench": {**chip_smoke.unet_k1(10, 15), "K2": 1, "K3": 1, "K4": 1}}
+    report = chip_smoke.kernel_report(kernels, launches, "H100, 700 W")
+    names = [e["name"] for e in report]
+    assert names == ["flash_attention_fwd_sm90", "flash_attention_fwd",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                     "fused_affine_silu_conv3x3"]
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for e in report:
+        assert keys <= set(e)
+    sm90, mma = report[0], report[1]
+    assert sm90["source"].endswith("csrc/flash_attention_fwd_sm90.cu")
+    assert sm90["launches_by_path"] == {"serve": 300, "train": 35,
+                                        "coach_trace": 70, "bench": 150}
+    assert mma["launches_by_path"] == {"serve": 1620, "train": 189,
+                                       "coach_trace": 378, "bench": 170}
+    assert sm90["launches"] == 555 and mma["launches"] == 2357
+    assert sm90["ms"] == 1.3 and sm90["mma_sync_ms"] == pytest.approx(1.82)
+    assert mma["ms"] == 0.1 and "mma_sync_ms" not in mma
+    assert report[2]["launches_by_path"] == {"serve": 0, "train": 210,
+                                            "coach_trace": 420, "bench": 1}
+    assert report[2]["launches"] == 631
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    """On the CPU flash_attention is the plain version: no launch, no
+    design counted; the mma.sync entry for the card refuses CPU tensors."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 130, 2, 40).astype(np.float32))
+               for _ in range(3))
+    before = graphs.launch_counts()
+    o, lse = tfa.flash_attention(q, k, v)
+    ro, rlse = tfa.flash_attention_ref(q, k, v)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert graphs.launch_counts() == before
+    with pytest.raises(ValueError, match="cpu"):
+        tfa._flash_attention_mma_sync(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16())
+
+
+@pytest.fixture
+def saved_counts():
+    """The launch counters as they were, restored after the test."""
+    saved = graphs.launch_counts()
+    yield
+    graphs.set_launch_counts(saved)
+
+
+def test_launch_counts_split_k1_by_design_and_reset_together(saved_counts):
+    """K1's launches by design are keys of launch_counts beside K1-K4,
+    and its reset clears them with the rest."""
+    graphs.set_launch_counts({"K1": 7, "K1 sm90": 3, "K1 mma_sync": 4,
+                              "K4": 2})
+    assert tfa.flash_attention.launches == 7
+    assert tfa.flash_attention.designs == {"sm90": 3, "mma_sync": 4}
+    got = graphs.launch_counts()
+    assert list(got) == ["K1", "K2", "K3", "K4", "K1 sm90", "K1 mma_sync"]
+    assert {k: got[k] for k in ("K1", "K1 sm90", "K1 mma_sync", "K4")} == {
+        "K1": 7, "K1 sm90": 3, "K1 mma_sync": 4, "K4": 2}
+    assert graphs.launch_counts(reset=True) == dict.fromkeys(got, 0)
+    assert tfa.flash_attention.designs == {"sm90": 0, "mma_sync": 0}
+
+
+class _Graph:
+    """A CUDA graph's stand-in: replay launches nothing."""
+    def replay(self):
+        pass
+
+
+def test_a_replay_adds_its_capture_record_by_design(saved_counts):
+    """Every replay adds the capture's record, K1's designs included, and
+    leaves the counters the record does not name."""
+    graphs.launch_counts(reset=True)
+    graphs.set_launch_counts({"K2": 1})
+    cap = graphs.Capture(_Graph(), [], [], None,
+                         {"K1": 32, "K1 sm90": 5, "K1 mma_sync": 27}, 0.0,
+                         0)
+    g = graphs.Graphed(lambda x: x, "loop")
+    g.replay(cap)
+    g.replay(cap)
+    assert cap.replays == 2
+    assert graphs.launch_counts() == {"K1": 64, "K2": 1, "K3": 0, "K4": 0,
+                                      "K1 sm90": 10, "K1 mma_sync": 54}
+
+
+# the Hopper design's tile edges: queries past one 128-row block, keys
+# across one and two 128-key tiles (the last one ragged)
+@pytest.mark.parametrize("Lq,Lk,d", [(129, 81, 40), (130, 257, 64)])
+def test_k1_plain_matches_pallas_at_the_sm90_tile_edges(Lq, Lk, d):
+    """The plain version the card's kernels are held to, against the
+    Pallas kernel in interpret mode on the same numpy inputs."""
+    rng = np.random.RandomState(Lq + Lk)
+    q = rng.randn(1, Lq, 2, d).astype(np.float32)
+    k = rng.randn(1, Lk, 2, d).astype(np.float32)
+    v = rng.randn(1, Lk, 2, d).astype(np.float32)
+    o, _ = tfa.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v))
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)

@@ -1,0 +1,288 @@
+// Hopper (sm_90a) building blocks of the hand-written kernels, in inline
+// PTX: TMA tile copies between device and shared memory completed on
+// mbarriers, wgmma shared-memory descriptors for the 128-byte swizzle,
+// the warpgroup products wgmma.mma_async with bf16 operands and fp32
+// accumulators (A from shared memory or from registers), their fence,
+// commit and wait, setmaxnreg and named barriers. K1's Hopper design
+// (flash_attention_fwd_sm90.cu) is built on them.
+//
+// Layouts (the PTX ISA's wgmma "canonical" shared-memory layouts):
+//   * a TMA box whose rows are 128 bytes (64 bf16), loaded with
+//     CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned tile, keeps row r
+//     at byte r * 128 with its 16-byte chunk c at chunk c ^ (r % 8): the
+//     128-byte swizzle atom of 8 rows (1024 bytes) that sw128_desc
+//     describes;
+//   * as a K-major operand (the product's depth along the row) the 16
+//     columns of k-step kk start 32 * kk bytes into the row: add kk * 2 to
+//     the descriptor (its address is in 16-byte units); the 8-row groups
+//     are 1024 bytes apart (the stride byte offset);
+//   * as an MN-major operand (the depth along the rows, e.g. V in P V) the
+//     16 rows of k-step kk start 16 * 128 bytes further: add kk * 128;
+//     the 8-row groups along the depth are 1024 bytes apart (the stride
+//     byte offset), and the leading byte offset, the step between 64-wide
+//     column atoms, is never used at N <= 64.
+//
+// Accumulator layout of wgmma.m64nNk16 (fp32): warp w of the warpgroup
+// holds rows 16 w .. 16 w + 15 as mma.sync.m16n8k16's C fragments of N / 8
+// column tiles: d[4 j + 0..1] row g, columns 8 j + 2 t, + 1; d[4 j + 2..3]
+// row g + 8 (lane = 4 g + t). The A operand from registers is
+// mma.sync's A fragment of the warp's 16 rows, so two neighbouring column
+// tiles of an accumulator, packed to bf16, are the A of one k-step
+// (mma_tiles::pack_a's order).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90_tiles {
+
+// ---------------------------------------------------------- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads and to the
+// copy engine; a __syncthreads() follows it.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of copies to come (TMA).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase with the given parity has completed. A
+// wait that lasts 2^34 cycles (about 9 s) traps: a lost arrival ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// --------------------------------------------------------------- TMA ----
+
+// A 4-d box of the tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at dst; its bytes complete a transaction on bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared memory at src to the box at (c0 .. c3); the parts of the box
+// outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the committed stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before later TMA reads of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------ barriers, registers ----
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over n threads: sync
+// arrives and waits, arrive only arrives.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The warpgroup's registers a thread: all four warps execute it together,
+// in branches that never rejoin (else ptxas ignores it).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// --------------------------------------------------------------- wgmma ----
+
+// The descriptor of a 128-byte swizzled tile at shared address addr
+// (1024-byte aligned, or offset from such a tile along a row as above):
+// stride byte offset 1024 (8 rows of 128 bytes), leading byte offset 16
+// (unused by these layouts), layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Orders earlier register and shared-memory accesses before the wgmma
+// products issued after it.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The products write their accumulators (and read A) asynchronously, but
+// the compiler sees them only at the asm statement: pinning the registers
+// here, after a wait and before an issue, keeps every other access to
+// them on its side of the product.
+template <int N>
+__device__ __forceinline__ void pin_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x 128, fp32) {= or +=} A (64 x 16, shared, K-major) B (16 x 128,
+// shared, K-major); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 48, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 48,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n48k16_mn(float (&d)[24],
+                                                    const uint32_t* a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 64, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 64,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n64k16_mn(float (&d)[32],
+                                                    const uint32_t* a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x N) {= or +=} A B with A's 64 x 16 in registers and B MN-major,
+// for N = 48 and 64.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t* a,
+                                            uint64_t desc_b, int scale_d) {
+  static_assert(N == 48 || N == 64, "wgmma_rs_mn: N is 48 or 64");
+  if constexpr (N == 48)
+    wgmma_rs_m64n48k16_mn(d, a, desc_b, scale_d);
+  else
+    wgmma_rs_m64n64k16_mn(d, a, desc_b, scale_d);
+}
+
+}  // namespace sm90_tiles

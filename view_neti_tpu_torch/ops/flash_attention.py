@@ -5,9 +5,10 @@ joins them.
 Replaces view_neti_tpu/ops/flash_attention.py: K1 its _fwd_kernel (launched
 by _flash_fwd), K2 and K3 its _bwd_dq_kernel and _bwd_dkv_kernel (launched
 by _flash_bwd_rule, the custom_vjp backward). The CUDA sources are
-csrc/flash_attention_fwd.cu (K1), csrc/flash_attention_bwd_dq.cu (K2) and
-csrc/flash_attention_bwd_dkv.cu (K3, with its split reduction); see their
-headers for the design and what bounds each kernel on an H100.
+csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_fwd.cu (K1's two
+designs, chosen per shape by fwd_design), csrc/flash_attention_bwd_dq.cu
+(K2) and csrc/flash_attention_bwd_dkv.cu (K3, with its split reduction);
+see their headers for the design and what bounds each kernel on an H100.
 
 Layout at this module's functions is the JAX package's: q (B, Lq, H, d),
 k/v (B, Lk, H, d); the forward returns o (B, Lq, H, d) in q's dtype and the
@@ -18,7 +19,8 @@ and bounds checks in the kernels.
 
 Each wrapper launches on the current stream and counts its launch in
 `<wrapper>.launches`, and its model FLOPs where a count is open
-(ops/flop_count.py). Under a CUDA graph's capture (utils/graphs.py) the
+(ops/flop_count.py); K1's wrapper also counts each design's launches in
+`flash_attention.designs`. Under a CUDA graph's capture (utils/graphs.py) the
 launch goes into the graph: the first-launch work (the library's load and
 K3's tile check here, the kernels' shared-memory attribute in
 csrc/mma_tiles.cuh) has run in the eager warm-up before, K3's split
@@ -43,6 +45,10 @@ _F = ctypes.c_float
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P]
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P]
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 18 + [_F, _P]
+# K1's designs: (library, C entry point)
+FWD_ENTRIES = {
+    "sm90": ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_bf16"),
+    "mma_sync": ("flash_attention_fwd", "flash_attention_fwd_bf16")}
 # K3 keeps a warp's dK and dV accumulators (2 x 16 x d fp32) in registers
 # beside its score fragments, which caps the head dim of the backward
 MAX_BWD_HEAD_DIM = 192
@@ -175,15 +181,17 @@ def _strides(*tensors):
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """softmax(q kᵀ / sqrt(d)) v over (B, L, H, d) tensors -> (o, lse).
+def fwd_design(d: int, Lk: int) -> str:
+    """Which K1 design a CUDA call with head dim d and Lk keys launches:
+    "sm90" (csrc/flash_attention_fwd_sm90.cu) for the head-dim buckets 48
+    and 64 (SD-1.5's d = 40, SD-2.1's 64) at Lk > 80, else "mma_sync"
+    (csrc/flash_attention_fwd.cu)."""
+    return "sm90" if 32 < d <= 64 and Lk > 80 else "mma_sync"
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K1 or
-    raises. K1's output carries no gradient, so on the card it refuses
-    inputs that require one while grad mode is on: differentiate through
-    FlashAttention.apply instead."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+
+def _launch_fwd(q, k, v, design=None):
+    """K1's `design` (fwd_design's by default) on CUDA tensors, checked:
+    (o, lse, design). Counts nothing."""
     _check_shapes("flash_attention", q, k, v)
     _check_operands("flash_attention", (("q", q), ("k", k), ("v", v)), 256)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -193,21 +201,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             "kernel's output has no grad_fn; use FlashAttention.apply")
     B, Lq, H, d = q.shape
     Lk = k.shape[1]
+    design = design or fwd_design(d, Lk)
     o = torch.empty((B, Lq, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    fn = build.entry("flash_attention_fwd", "flash_attention_fwd_bf16",
-                     _FWD_ARGTYPES)
+    lib, symbol = FWD_ENTRIES[design]
+    fn = build.entry(lib, symbol, _FWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, Lq, Lk, d, *_strides(q, k, v, o),
              d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_fwd", err, "flash_attention_fwd_bf16")
+    build.check(lib, err, symbol)
+    return o, lse, design
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """softmax(q kᵀ / sqrt(d)) v over (B, L, H, d) tensors -> (o, lse).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the K1
+    design that fwd_design names, or raises: nothing falls back to the
+    other design. K1's output carries no gradient, so on the card it
+    refuses inputs that require one while grad mode is on: differentiate
+    through FlashAttention.apply instead."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    o, lse, design = _launch_fwd(q, k, v)
     flash_attention.launches += 1
+    flash_attention.designs[design] += 1
     if KernelFlops.active is not None:
-        KernelFlops.active.add("K1", attention_flops(B, H, Lq, Lk, d))
+        B, Lq, H, d = q.shape
+        KernelFlops.active.add("K1", attention_flops(B, H, Lq, k.shape[1],
+                                                     d))
     return o, lse
 
 
 flash_attention.launches = 0
+flash_attention.designs = {"sm90": 0, "mma_sync": 0}
+
+
+def _flash_attention_mma_sync(q, k, v):
+    """K1's mma.sync design (csrc/flash_attention_fwd.cu) at any shape, for
+    timing and checking it beside the sm90 design on the card; counts
+    nothing. CUDA tensors only."""
+    return _launch_fwd(q, k, v, "mma_sync")[:2]
 
 
 def _check_bwd(what, q, k, v, do, lse, delta):

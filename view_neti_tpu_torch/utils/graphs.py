@@ -21,9 +21,10 @@ A capture or replay that fails raises CaptureError, naming fn's frame where
 the capture broke; nothing falls back to eager.
 
 The kernel wrappers' launch counters (ops/flash_attention.py,
-ops/fused_conv.py) count where a kernel is launched. A capture launches
-nothing, so the counts it adds are taken back and kept as the graph's
-record of its launches, and every replay adds that record.
+ops/fused_conv.py) count where a kernel is launched, K1's also by design
+(launch_counts). A capture launches nothing, so the counts it adds are
+taken back and kept as the graph's record of its launches, and every
+replay adds that record.
 """
 from __future__ import annotations
 
@@ -50,13 +51,29 @@ def kernel_wrappers() -> Dict[str, Callable]:
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
-    """Each kernel wrapper's launch count, {"K1": n, ...}, the launches
-    inside CUDA graph replays included; reset sets them all to 0 first."""
+    """Each kernel wrapper's launch count, {"K1": n, ...}, and K1's split
+    by design, "K1 sm90" and "K1 mma_sync" (ops/flash_attention.py::
+    fwd_design), the launches inside CUDA graph replays included; reset
+    sets them all to 0 first."""
     wrappers = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts.update({f"K1 {design}": n
+                   for design, n in wrappers["K1"].designs.items()})
     if reset:
-        for fn in wrappers.values():
-            fn.launches = 0
-    return {k: fn.launches for k, fn in wrappers.items()}
+        counts = dict.fromkeys(counts, 0)
+        set_launch_counts(counts)
+    return counts
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the launch counters that `counts` names (launch_counts' keys)."""
+    wrappers = kernel_wrappers()
+    for key, n in counts.items():
+        kernel, _, design = key.partition(" ")
+        if design:
+            wrappers[kernel].designs[design] = n
+        else:
+            wrappers[kernel].launches = n
 
 
 # ------------------------------------------------------------- trees ----
@@ -129,8 +146,8 @@ def _where(err: BaseException) -> str:
 @dataclasses.dataclass
 class Capture:
     """One captured signature: the graph, its static args and outputs, its
-    launches per kernel, the capture's host seconds and the bytes its
-    private memory pool reserved."""
+    launches (launch_counts' keys), the capture's host seconds and the
+    bytes its private memory pool reserved."""
     graph: torch.cuda.CUDAGraph
     static_args: List[torch.Tensor]
     out_tensors: List[torch.Tensor]
@@ -184,8 +201,8 @@ class Graphed:
             raise CaptureError(f"{self.name}: CUDA graph replay failed: "
                                f"{e}") from e
         cap.replays += 1
-        for k, fn in kernel_wrappers().items():
-            fn.launches += cap.launches.get(k, 0)
+        now = launch_counts()
+        set_launch_counts({k: now[k] + n for k, n in cap.launches.items()})
 
     def _warm_up(self, tensors, tree):
         """fn eagerly on a side stream, as PyTorch's capture recipe warms
@@ -221,8 +238,7 @@ class Graphed:
         finally:
             # the capture launched nothing: take its counts back
             after = launch_counts()
-            for k, fn in kernel_wrappers().items():
-                fn.launches = before[k]
+            set_launch_counts(before)
         capture_s = time.perf_counter() - t0
         out_tensors, out_tree = flatten(out)
         return Capture(graph, static, out_tensors, out_tree,
