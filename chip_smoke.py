@@ -12,11 +12,11 @@ Phases; any failure ends the run with a non-zero exit:
                 buckets 48, 64, 80 and 160, and every K4 instantiation)
                 must not spill;
   3. kernels -- the flash-attention forward (K1: its Hopper design on
-                wgmma and TMA at the buckets 48 and 64 with more than 80
-                keys, its mma.sync design elsewhere; at the Hopper
-                design's shapes the mma.sync design is checked and timed
-                beside it), its backward (K2 dq, K3
-                dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
+                wgmma and TMA at the buckets 48, 64, 80 and 160, its
+                long-key kernel above 80 keys and its short-key kernel up
+                to 80, at every path shape; at each of them the mma.sync
+                design is checked and timed beside it), its backward (K2
+                dq, K3 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
                 object renders) give them, the folders phase's 512x512
@@ -35,9 +35,9 @@ Phases; any failure ends the run with a non-zero exit:
                 designs' per-call time in a CUDA graph of 20 calls and
                 their host time a call; every path's counted run below
                 holds K1's launches by design (launch_counts' "K1 sm90"
-                and "K1 mma_sync"): 5 of an SD-1.5 UNet forward's 32 on
-                the Hopper design (its level-0 self-attentions), 15 or
-                16 of SD-2.1's (M3_SM90);
+                and "K1 mma_sync"): all 32 of a UNet forward's on the
+                Hopper design, SD-1.5's and SD-2.1's (SD15_SM90,
+                M3_SM90);
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -508,7 +508,8 @@ def check_path_spills(usage):
     nothing; prints every instantiation of the kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
-        m = re.search(r"(flash_fwd_kernel(?:_sm90)?|flash_bwd_dq_kernel|"
+        m = re.search(r"(flash_fwd_kernel(?:_sm90(?:_short)?)?|"
+                      r"flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|fused_conv_kernel)I((?:Li\d+E)+)",
                       fn)
         if not m:
@@ -532,13 +533,11 @@ def launch_counts(reset: bool = False):
 
 
 # K1's launches a UNet forward on its Hopper design (ops/flash_attention.py
-# ::fwd_design: head dim 40 or 64, more than 80 keys): SD-1.5's 5 level-0
-# self-attentions (d = 40, 3072 to 6912 keys); SD-2.1's 15 self-attentions
-# of its first three levels (d = 64), and its mid block's where it has 108
-# keys (the 768x576 sweep) rather than 48 (384x512 train) or 64 (512x512
-# render)
-SD15_SM90 = 5
-M3_SM90 = {"train": 15, "sweep": 16, "render": 15}
+# ::fwd_design: the head-dim buckets 48, 64, 80 and 160 at any key count):
+# all 32 of SD-1.5's (d = 40, 80, 160) and of SD-2.1's (d = 64), whether
+# train (384x512), sweep (768x576) or render (512x512)
+SD15_SM90 = 32
+M3_SM90 = {"train": 32, "sweep": 32, "render": 32}
 
 
 def unet_k1(forwards: int, sm90: int = SD15_SM90):
@@ -546,6 +545,12 @@ def unet_k1(forwards: int, sm90: int = SD15_SM90):
     them: 32 a forward, `sm90` of them on the Hopper design."""
     return {"K1": 32 * forwards, "K1 sm90": sm90 * forwards,
             "K1 mma_sync": (32 - sm90) * forwards}
+
+
+def capture_record(counts):
+    """Launch counts as a CUDA graph's capture keeps them
+    (utils/graphs.py): only the counts the capture moved, none at 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def add_counts(*counts):
@@ -778,6 +783,7 @@ def attention_rows(torch, F, fa, shape, g, dev):
             return fa._launch_fwd(q, k, v, "sm90")
 
         row.update(mma_sync_err_of_limit=of_limit(mo, ro, tol),
+                   mma_sync_max_abs_err=(mo.float() - ro).abs().max().item(),
                    mma_sync_lse_err=(mlse - rlse).abs().max().item(),
                    mma_sync_ms=time_ms(torch, mma),
                    graph_ms=graph_ms(torch, sm90),
@@ -1148,7 +1154,8 @@ def phase_slice(torch, dev, card, steps):
     check(launches == want, f"serving launches in 2 runs {launches}, want "
                             f"{want} (no backward)")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
-    check(loop_cap.launches == unet_k1(steps) and loop_cap.replays == 1,
+    check(loop_cap.launches == capture_record(unet_k1(steps))
+          and loop_cap.replays == 1,
           f"the denoise graph's launches {loop_cap.launches}, replays "
           f"{loop_cap.replays}")
     check(dec_cap.launches == {"K4": 29} and dec_cap.replays == 1,
@@ -1661,7 +1668,8 @@ def phase_coach(torch, dev, card, train_result, steps):
         check(len(losses) == n and all(math.isfinite(x) for x in losses),
               f"coach losses {losses}")
         (cap,) = coach.window_step.captures.values()
-        check(cap.launches == per_step and cap.replays == n - 1,
+        check(cap.launches == capture_record(per_step)
+              and cap.replays == n - 1,
               f"the train step's graph launches {cap.launches} over "
               f"{cap.replays} replays, want {per_step} over {n - 1}")
         ms_step = (coach.loop_end_s - timed.at) * 1e3 / steps
@@ -4262,6 +4270,27 @@ def phase_bench(card, slice_stats, coach_stats):
     return add_counts(*launches.values())
 
 
+def mma_sync_rows(rows):
+    """K1's mma.sync design at the Hopper design's shapes, from the check
+    and the time attention_rows took of it at the same inputs: the plain
+    version, the library call, the bound and the control are the inputs',
+    its error and times its own."""
+    out = []
+    for r in rows:
+        if "mma_sync_ms" not in r:
+            continue
+        row = {k: v for k, v in r.items() if not k.startswith("mma_sync_")}
+        row.update(design="mma_sync", ms=r["mma_sync_ms"],
+                   max_abs_err=r["mma_sync_max_abs_err"],
+                   err_of_limit=r["mma_sync_err_of_limit"],
+                   lse_err=r["mma_sync_lse_err"],
+                   graph_ms=r["mma_sync_graph_ms"],
+                   host_us=r["mma_sync_host_us"],
+                   share_of_bound=r["bound_ms"] / r["mma_sync_ms"])
+        out.append(row)
+    return out
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel (K1's two designs apart),
     ms / plain_ms / bound_ms / library_ms and share_of_bound (bound_ms /
@@ -4271,6 +4300,9 @@ def kernel_report(kernels, launches, card):
     inference phase, the mode3 phase, the folders phase, a tp rank's
     render and training), each shape weighted by its launches there; the
     Hopper design's entry carries the mma.sync design's ms at its shape.
+    The mma.sync design's entry takes its rows from the shapes it runs and
+    from its check and time beside the Hopper design at the same inputs
+    (mma_sync_rows), so it keeps its numbers when no path launches it.
     `launches` holds each path's counted run (launch_counts' keys): a
     kernel's launches, by path, are those of its key there."""
     report = []
@@ -4297,6 +4329,8 @@ def kernel_report(kernels, launches, card):
              None)):
         rows = [r for r in kernels[key]
                 if design is None or r["design"] == design]
+        if design == "mma_sync":
+            rows += mma_sync_rows(kernels[key])
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
         paths = ("serve", "train", "weights", "acceptance", "validate",
                  "inference", "mode3", "folders", "tp")
@@ -4389,10 +4423,11 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
     # run reads the four path buckets of K1's mma.sync design (in two
-    # key-tile widths, 64 and 80), of K2 and of K3, K1's Hopper design at
-    # 48 and 64, and K4's two output-channel tiles
+    # key-tile widths, 64 and 80), of K2, of K3 and of K1's Hopper design
+    # (its long-key and its short-key kernel), and K4's two output-channel
+    # tiles
     n = check_path_spills(ptxas_usage(logs))
-    want = 4 * len(PATH_BUCKETS) + 2 + 2
+    want = 6 * len(PATH_BUCKETS) + 2
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 

@@ -20,15 +20,21 @@ from view_neti_tpu.ops import flash_attention as jfa
 
 from view_neti_tpu_torch.ops import build
 from view_neti_tpu_torch.ops import flash_attention as tfa
+from view_neti_tpu_torch.tools import fwd_short_variants
 from view_neti_tpu_torch.utils import graphs
 
 # the bound's exponential rate: an H100 SXM's 132 SMs at its 1980 MHz
 # clocks.max.sm, chip_smoke.py's default until it reads the card
 H100_EXP_RATE = 16 * 132 * 1980e6
-# a name ptxas reports for each bucket's instantiation
+# the names ptxas reports for each bucket's instantiation of the long-key
+# and the short-key kernel
 SM90_SYMBOL = ("_ZN60_GLOBAL__N__ffcd4624_27_flash_attention_fwd_sm90_cu_"
                "3b2fb43b21flash_fwd_kernel_sm90ILi{}EEEv14CUtensorMap_stS1_"
                "S1_S1_Pfiiif")
+SM90_SHORT_SYMBOL = ("_ZN60_GLOBAL__N__ffcd4624_27_flash_attention_fwd_sm90_"
+                     "cu_3b2fb43b27flash_fwd_kernel_sm90_shortILi{}EEEv14CUtens"
+                     "orMap_stS1_S1_S1_Pfiiiiif")
+SM90_BUCKETS = (48, 64, 80, 160)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,18 +63,15 @@ def _kinds():
 
 @pytest.mark.parametrize("kind", PATH_KINDS)
 def test_fwd_design_on_every_path_shape(kind):
-    """The self-attentions at head dims 40 and 64 with more than 80 keys
-    take the Hopper design; the 77-key cross-attentions, SD-2.1's 48- and
-    64-key mid-block attentions, and head dims 80 and 160 the mma.sync
-    design."""
+    """Every attention of the paths takes the Hopper design: the
+    self-attentions at head dims 40, 64, 80 and 160 (its long-key kernel
+    above 80 keys), the 77-key cross-attentions and SD-2.1's 48- and
+    64-key mid-block attentions (its short-key kernel)."""
     rows = [s for k, s in _kinds() if k == kind]
     assert rows
     for s in rows:
-        want = ("sm90" if s["d"] in (40, 64) and s["Lk"] == s["Lq"]
-                and s["Lk"] > 80 else "mma_sync")
-        assert tfa.fwd_design(s["d"], s["Lk"]) == want, s
-        if s["Lk"] == 77 or s["d"] in (80, 160):
-            assert want == "mma_sync"
+        assert s["d"] in (40, 64, 80, 160), s
+        assert tfa.fwd_design(s["d"], s["Lk"]) == "sm90", s
 
 
 # each kind's UNet forward and the Hopper design's launches in it that
@@ -90,13 +93,14 @@ def test_forward_split_is_fwd_designs(kind):
     """A UNet forward's 32 K1 launches at a kind's shapes (each level's
     self-attention and 77-key cross-attention, 5 of each at the first
     three levels and 1 at the mid block), split by fwd_design: the split
-    chip_smoke.py's launch checks hold every path's counted run to (5 of
-    32 for SD-1.5, 15 or 16 for SD-2.1)."""
+    chip_smoke.py's launch checks hold every path's counted run to (all 32
+    on the Hopper design, SD-1.5 and SD-2.1 alike)."""
     rows = [s for k, s in _kinds() if k == kind]
     per_design = {"sm90": 0, "mma_sync": 0}
     for i, s in enumerate(rows):
         per_design[tfa.fwd_design(s["d"], s["Lk"])] += (5, 5, 5, 1)[i // 2]
     sm90 = FORWARD_SM90[kind]
+    assert sm90 == 32
     assert per_design == {"sm90": sm90, "mma_sync": 32 - sm90}
     assert chip_smoke.unet_k1(3, sm90) == {
         "K1": 96, "K1 sm90": 3 * sm90, "K1 mma_sync": 3 * (32 - sm90)}
@@ -105,28 +109,36 @@ def test_forward_split_is_fwd_designs(kind):
 def test_unet_k1_and_add_counts_build_the_launch_checks():
     """An SD-1.5 train step's expected launches, and a resumed mode-3
     run's: train steps, sweeps and renders at their own splits."""
-    assert chip_smoke.SD15_STEP == {"K1": 32, "K1 sm90": 5,
-                                    "K1 mma_sync": 27, "K2": 30, "K3": 31,
+    assert chip_smoke.SD15_STEP == {"K1": 32, "K1 sm90": 32,
+                                    "K1 mma_sync": 0, "K2": 30, "K3": 31,
                                     "K4": 21}
     got = chip_smoke.add_counts(
-        {"K1": 32, "K1 sm90": 15, "K1 mma_sync": 17, "K4": 21},
-        chip_smoke.unet_k1(2, 16), {"K4": 29})
-    assert got == {"K1": 96, "K1 sm90": 47, "K1 mma_sync": 49, "K4": 50}
+        {"K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K4": 21},
+        chip_smoke.unet_k1(2, chip_smoke.M3_SM90["sweep"]), {"K4": 29})
+    assert got == {"K1": 96, "K1 sm90": 96, "K1 mma_sync": 0, "K4": 50}
 
 
+# the Hopper design takes the buckets 48, 64, 80 and 160 (32 < d <= 80,
+# 144 < d <= 160) at any key count; Lk picks its kernel, not the design
 @pytest.mark.parametrize("d,Lk,want", [
-    (40, 81, "sm90"), (40, 80, "mma_sync"), (33, 6912, "sm90"),
+    (40, 81, "sm90"), (40, 80, "sm90"), (33, 6912, "sm90"),
     (48, 129, "sm90"), (56, 108, "sm90"), (64, 6912, "sm90"),
-    (32, 6912, "mma_sync"), (72, 6912, "mma_sync"), (8, 4096, "mma_sync"),
-    (160, 432, "mma_sync"), (256, 300, "mma_sync"), (264, 300, "mma_sync")])
+    (32, 6912, "mma_sync"), (72, 6912, "sm90"), (8, 4096, "mma_sync"),
+    (160, 432, "sm90"), (256, 300, "mma_sync"), (264, 300, "mma_sync"),
+    (72, 80, "sm90"), (72, 81, "sm90"), (80, 80, "sm90"), (80, 81, "sm90"),
+    (88, 80, "mma_sync"), (88, 81, "mma_sync"), (144, 80, "mma_sync"),
+    (144, 81, "mma_sync"), (145, 80, "sm90"), (145, 81, "sm90"),
+    (160, 80, "sm90"), (160, 81, "sm90"), (168, 80, "mma_sync"),
+    (168, 81, "mma_sync")])
 def test_fwd_design_at_the_bucket_and_key_edges(d, Lk, want):
     assert tfa.fwd_design(d, Lk) == want
 
 
 def test_the_sm90_source_is_built_with_wgmma_and_tma_and_no_cutlass():
     """The library is one of the kernel sources; the source and the csrc
-    headers it includes hold the warpgroup product and the TMA copies,
-    and no CUTLASS or CuTe header."""
+    headers it includes hold the warpgroup products (S over 64, 80 and 128
+    keys from shared memory, P V at N = 48, 64, 80 and 160 from registers)
+    and the TMA copies, and no CUTLASS or CuTe header."""
     assert "flash_attention_fwd_sm90" in build.KERNEL_SOURCES
     assert "-gencode" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -137,8 +149,14 @@ def test_the_sm90_source_is_built_with_wgmma_and_tma_and_no_cutlass():
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
                 "setmaxnreg", "wgmma.fence", "bar.sync"):
         assert ptx in text, ptx
+    for shape in ("m64n64k16", "m64n80k16", "m64n128k16", "m64n48k16",
+                  "m64n160k16"):
+        assert f"wgmma.mma_async.sync.aligned.{shape}.f32.bf16.bf16" in (
+            text), shape
     assert not re.search(r"#include\s*[<\"](cutlass|cute)", text)
     cu = sources[0].read_text()
+    for kernel in ("flash_fwd_kernel_sm90(", "flash_fwd_kernel_sm90_short("):
+        assert kernel in cu, kernel
     assert "__grid_constant__ const CUtensorMap" in cu
     assert "cudaGetDriverEntryPoint" in cu
     assert "-lcuda" not in build.NVCC_FLAGS
@@ -173,11 +191,12 @@ def test_bound_reads_bytes_when_they_bind():
     assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
-def _log(buckets):
-    """A ptxas -v log of the Hopper library: one entry per bucket."""
+def _log(buckets, symbols=(SM90_SYMBOL,)):
+    """A ptxas -v log of the Hopper library: one entry per bucket and
+    kernel."""
     lines = []
-    for dp in buckets:
-        name = SM90_SYMBOL.format(dp)
+    for dp, symbol in ((dp, sy) for sy in symbols for dp in buckets):
+        name = symbol.format(dp)
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
                   f"'sm_90a'",
                   f"ptxas info    : Function properties for {name}",
@@ -188,24 +207,35 @@ def _log(buckets):
 
 
 def test_spill_check_reads_the_sm90_instantiations(capsys):
-    """check_path_spills counts and prints both buckets of the Hopper
-    design (their first template argument), and fails on a spill."""
-    usage = chip_smoke.ptxas_usage({"flash_attention_fwd_sm90":
-                                    _log((48, 64))})
-    assert chip_smoke.check_path_spills(usage) == 2
-    assert "flash_fwd_kernel_sm90<48>: 168 registers, 0 bytes spill" in (
-        capsys.readouterr().out)
-    spilled = _log((48,)).replace("0 bytes spill stores", "8 bytes spill "
-                                  "stores")
-    with pytest.raises(RuntimeError, match="spills 8 bytes"):
-        chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
-            {"flash_attention_fwd_sm90": spilled}))
+    """check_path_spills counts and prints the four buckets of both
+    kernels of the Hopper design (their first template argument), and
+    fails on a spill in either."""
+    usage = chip_smoke.ptxas_usage({"flash_attention_fwd_sm90": _log(
+        SM90_BUCKETS, (SM90_SYMBOL, SM90_SHORT_SYMBOL))})
+    assert chip_smoke.check_path_spills(usage) == 8
+    out = capsys.readouterr().out
+    for dp in SM90_BUCKETS:
+        for kernel in ("flash_fwd_kernel_sm90", "flash_fwd_kernel_sm90_short"):
+            assert f"{kernel}<{dp}>: 168 registers, 0 bytes spill" in out
+    for symbol in (SM90_SYMBOL, SM90_SHORT_SYMBOL):
+        spilled = _log((160,), (symbol,)).replace(
+            "0 bytes spill stores", "8 bytes spill stores")
+        with pytest.raises(RuntimeError, match="spills 8 bytes"):
+            chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
+                {"flash_attention_fwd_sm90": spilled}))
 
 
 def test_profiles_group_the_sm90_kernel_as_k1():
     demangled = ("void (anonymous namespace)::flash_fwd_kernel_sm90<48>("
                  "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                  "CUtensorMap_st, float*, int, int, int, float)")
+    assert chip_smoke.kernel_group(demangled) == "K1 flash_attention_fwd"
+
+
+def test_profiles_group_the_short_key_kernel_as_k1():
+    demangled = ("void (anonymous namespace)::flash_fwd_kernel_sm90_short"
+                 "<160>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                 "CUtensorMap_st, float*, int, int, int, int, int, float)")
     assert chip_smoke.kernel_group(demangled) == "K1 flash_attention_fwd"
 
 
@@ -216,48 +246,86 @@ def _row(design, shape, ms, per_run):
                bound_ms=0.4 * ms, bound_by="exponentials",
                share_of_bound=0.4)
     if design == "sm90":
-        row["mma_sync_ms"] = 1.4 * ms
+        row.update(mma_sync_ms=1.4 * ms, mma_sync_max_abs_err=2e-3,
+                   mma_sync_err_of_limit=0.3, mma_sync_lse_err=1e-6,
+                   graph_ms=0.9 * ms, mma_sync_graph_ms=1.3 * ms,
+                   host_us=50.0, mma_sync_host_us=45.0)
     return row
+
+
+_REPORT_KEYS = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
 
 
 def test_kernel_report_lists_each_k1_design():
     """The kernels line holds K1's two designs apart, each with the keys
     the contract asks for and its launches from each path's counted run
     (launch_counts' "K1 sm90" and "K1 mma_sync"), the bench's and the
-    coach trace's included; the Hopper entry carries the mma.sync design's
-    ms at its shape."""
+    coach trace's included. Every path shape on the Hopper design: its
+    entry carries the mma.sync design's ms at its heaviest shape, and the
+    mma.sync entry, at 0 launches, its check and times beside it at the
+    same inputs."""
     other = [dict(_row(None, "s", 1.0, {"train": 30}), bound_by="operations")]
     kernels = {"K1": [_row("sm90", "B6 Lq6912", 1.3, {"serve": 150}),
-                      _row("mma_sync", "B6 Lq6912 Lk77", 0.1,
-                           {"serve": 150})],
+                      _row("sm90", "B6 Lq6912 Lk77", 0.1, {"serve": 150})],
                "K2": other, "K3": other, "K4": other}
     launches = {
         "serve": {**chip_smoke.unet_k1(60), "K2": 0, "K3": 0, "K4": 58},
         "train": {k: 7 * v for k, v in chip_smoke.SD15_STEP.items()},
         "coach_trace": {k: 14 * v for k, v in chip_smoke.SD15_STEP.items()},
-        "bench": {**chip_smoke.unet_k1(10, 15), "K2": 1, "K3": 1, "K4": 1}}
+        "bench": {**chip_smoke.unet_k1(10, chip_smoke.M3_SM90["train"]),
+                  "K2": 1, "K3": 1, "K4": 1}}
     report = chip_smoke.kernel_report(kernels, launches, "H100, 700 W")
     names = [e["name"] for e in report]
     assert names == ["flash_attention_fwd_sm90", "flash_attention_fwd",
                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                      "fused_affine_silu_conv3x3"]
-    keys = {"name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms"}
     for e in report:
-        assert keys <= set(e)
+        assert _REPORT_KEYS <= set(e)
     sm90, mma = report[0], report[1]
     assert sm90["source"].endswith("csrc/flash_attention_fwd_sm90.cu")
-    assert sm90["launches_by_path"] == {"serve": 300, "train": 35,
-                                        "coach_trace": 70, "bench": 150}
-    assert mma["launches_by_path"] == {"serve": 1620, "train": 189,
-                                       "coach_trace": 378, "bench": 170}
-    assert sm90["launches"] == 555 and mma["launches"] == 2357
+    assert sm90["launches_by_path"] == {"serve": 1920, "train": 224,
+                                        "coach_trace": 448, "bench": 320}
+    assert mma["launches_by_path"] == {"serve": 0, "train": 0,
+                                       "coach_trace": 0, "bench": 0}
+    assert sm90["launches"] == 2912 and mma["launches"] == 0
     assert sm90["ms"] == 1.3 and sm90["mma_sync_ms"] == pytest.approx(1.82)
-    assert mma["ms"] == 0.1 and "mma_sync_ms" not in mma
+    assert sm90["serve_path_ms"] == pytest.approx(150 * 1.4)
+    # the mma.sync design's own numbers at the same inputs
+    assert mma["ms"] == pytest.approx(1.82) and "mma_sync_ms" not in mma
+    assert mma["max_abs_err"] == 2e-3 and mma["err_of_limit"] == 0.3
+    assert mma["plain_ms"] == sm90["plain_ms"]
+    assert mma["library_ms"] == sm90["library_ms"]
+    assert mma["bound_ms"] == sm90["bound_ms"]
+    assert mma["share_of_bound"] == pytest.approx(0.52 / 1.82)
+    assert mma["serve_path_ms"] == pytest.approx(150 * 1.4 * 1.4)
     assert report[2]["launches_by_path"] == {"serve": 0, "train": 210,
                                             "coach_trace": 420, "bench": 1}
     assert report[2]["launches"] == 631
+
+
+def test_kernel_report_keeps_a_shape_left_on_mma_sync():
+    """A shape fwd_design left on the mma.sync design (its own rows) and
+    the mma.sync design measured beside the Hopper one both count in the
+    mma.sync entry; its heaviest shape is the heaviest of either."""
+    kernels = {"K1": [_row("sm90", "B6 Lq6912", 1.3, {"serve": 150}),
+                      _row("mma_sync", "B9 Lq48", 0.05, {"mode3": 6})]}
+    for key in ("K2", "K3", "K4"):
+        kernels[key] = [dict(_row(None, "s", 1.0, {"train": 30}))]
+    launches = {"serve": {**chip_smoke.unet_k1(60), "K2": 0, "K3": 0,
+                          "K4": 58},
+                "mode3": {"K1": 96, "K1 sm90": 90, "K1 mma_sync": 6,
+                          "K2": 0, "K3": 0, "K4": 0}}
+    report = chip_smoke.kernel_report(kernels, launches, "H100, 700 W")
+    sm90, mma = report[0], report[1]
+    assert mma["launches_by_path"] == {"serve": 0, "mode3": 6}
+    assert sm90["launches_by_path"] == {"serve": 1920, "mode3": 90}
+    assert mma["ms"] == pytest.approx(1.82) and mma["shape"] == "B6 Lq6912"
+    assert mma["mode3_path_ms"] == pytest.approx(6 * 0.05)
+    assert "mode3_path_ms" not in sm90
+    for e in report:
+        assert _REPORT_KEYS <= set(e)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -299,6 +367,20 @@ def test_launch_counts_split_k1_by_design_and_reset_together(saved_counts):
     assert tfa.flash_attention.designs == {"sm90": 0, "mma_sync": 0}
 
 
+def test_capture_record_keeps_only_the_counts_a_capture_moved():
+    """A capture keeps the counts it moved (utils/graphs.py: after - before,
+    zeros left out), so a forward whose 32 K1 launches all take the Hopper
+    design records no "K1 mma_sync": the launch checks of the denoise and
+    train-step graphs compare against capture_record of the counts."""
+    before = {k: 0 for k in graphs.launch_counts()}
+    after = dict(before, **chip_smoke.unet_k1(30))
+    kept = {k: after[k] - before[k] for k in before if after[k] != before[k]}
+    assert kept == chip_smoke.capture_record(chip_smoke.unet_k1(30)) == {
+        "K1": 960, "K1 sm90": 960}
+    assert chip_smoke.capture_record(chip_smoke.SD15_STEP) == {
+        "K1": 32, "K1 sm90": 32, "K2": 30, "K3": 31, "K4": 21}
+
+
 class _Graph:
     """A CUDA graph's stand-in: replay launches nothing."""
     def replay(self):
@@ -322,11 +404,17 @@ def test_a_replay_adds_its_capture_record_by_design(saved_counts):
 
 
 # the Hopper design's tile edges: queries past one 128-row block, keys
-# across one and two 128-key tiles (the last one ragged)
-@pytest.mark.parametrize("Lq,Lk,d", [(129, 81, 40), (130, 257, 64)])
+# across one and two 128-key tiles (the last one ragged), and its new
+# kernels' edges: the short-key kernel's one 80-key tile (77, 48 and a
+# single key), the long-key kernel's first key past it, the 64-key tiles
+# of bucket 160, and the 64-column chunks of buckets 80 and 160
+@pytest.mark.parametrize("Lq,Lk,d", [
+    (129, 81, 40), (130, 257, 64), (129, 77, 80), (63, 81, 80),
+    (130, 48, 160), (65, 1, 40), (200, 129, 160)])
 def test_k1_plain_matches_pallas_at_the_sm90_tile_edges(Lq, Lk, d):
     """The plain version the card's kernels are held to, against the
-    Pallas kernel in interpret mode on the same numpy inputs."""
+    Pallas kernel in interpret mode on the same numpy inputs, to 1e-5
+    absolute and relative: both compute in fp32, in other orders."""
     rng = np.random.RandomState(Lq + Lk)
     q = rng.randn(1, Lq, 2, d).astype(np.float32)
     k = rng.randn(1, Lk, 2, d).astype(np.float32)
@@ -337,3 +425,22 @@ def test_k1_plain_matches_pallas_at_the_sm90_tile_edges(Lq, Lk, d):
                                jnp.asarray(v), interpret=True)
     np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", [*fwd_short_variants.VARIANTS, "split"])
+def test_short_variants_patch_the_kernel_source(name):
+    """tools/fwd_short_variants.py rebuilds the short-key kernel with text
+    replaced: every replacement finds its text in the source exactly once
+    and changes it, and the split build adds its clock64 marks and the
+    entry that reads them."""
+    src = (build.CSRC / "flash_attention_fwd_sm90.cu").read_text()
+    subs = (fwd_short_variants._split_variant() if name == "split"
+            else fwd_short_variants.VARIANTS[name])
+    out = fwd_short_variants.patched(src, subs, name)
+    assert out != src
+    if name == "split":
+        assert out.count("clock64()") == 7
+        assert "int short_split_read(void* dst)" in out
+    # a text found twice (or not at all) is refused
+    with pytest.raises(RuntimeError, match="not in the source once"):
+        fwd_short_variants.patched(src + subs[0][0], subs[:1], name)

@@ -111,13 +111,21 @@ def _sm90_inputs(B, Lq, Lk, H, d, dev):
             _randn((B, Lk, H, d), 2, dev).bfloat16())
 
 
-# K1's Hopper design (fwd_design "sm90": head dims 40 and 64, more than 80
-# keys): ragged query blocks and key tiles, and the 6912-token
-# self-attention of the serving path, each against the plain version, the
-# mma.sync design and itself
-@pytest.mark.parametrize("d", [40, 64])
+# K1's Hopper design (fwd_design "sm90": the head-dim buckets 48, 64, 80 and
+# 160, one head dim of the paths in each): ragged query blocks, its
+# short-key kernel's one 80-key tile (a single key, the mid blocks' 48 and
+# 64, the cross-attention's 77, a full 80), its long-key kernel's first key
+# past it and its ragged key tiles (128 keys, 64 at bucket 160), and the
+# 6912-token self-attention of the serving path, each against the plain
+# version, the mma.sync design and itself
+SM90_DIMS = [40, 64, 80, 160]
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
 @pytest.mark.parametrize("Lq,Lk", [(63, 81), (65, 129), (200, 300),
-                                   (6912, 6912)])
+                                   (6912, 6912), (129, 1), (130, 48),
+                                   (131, 64), (257, 77), (100, 80),
+                                   (300, 81), (190, 129)])
 def test_flash_attention_sm90_matches_plain(dev, d, Lq, Lk):
     q, k, v = _sm90_inputs(1, Lq, Lk, 1, d, dev)
     assert tfa.fwd_design(d, Lk) == "sm90"
@@ -136,7 +144,7 @@ def test_flash_attention_sm90_matches_plain(dev, d, Lq, Lk):
     assert (lse - mlse).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("d", SM90_DIMS)
 def test_flash_attention_sm90_reads_strided_views(dev, d):
     """q, k, v as views into one packed (B, L, 3, H, d) projection, read
     through their strides by the tensor maps."""
@@ -145,12 +153,25 @@ def test_flash_attention_sm90_reads_strided_views(dev, d):
     _check_attention(q, k, v)
 
 
-@pytest.mark.parametrize("d", [40, 64])
-def test_flash_attention_sm90_lse_feeds_the_backward(dev, d):
-    """FlashAttention.apply through the Hopper forward: K2 and K3 read its
-    lse, and the gradients match the plain backward from the plain
-    forward's o and lse."""
-    q, k, v = _sm90_inputs(2, 200, 200, 3, d, dev)
+@pytest.mark.parametrize("d", SM90_DIMS)
+def test_flash_attention_sm90_short_keys_read_strided_views(dev, d):
+    """The cross-attention's layout: q a view into a packed (B, L, 3, H,
+    d) projection, k and v views into a packed (B, 77, 2, H, d) one, read
+    by the short-key kernel through their strides."""
+    q = _randn((2, 300, 3, 4, d), 3, dev).bfloat16()[:, :, 1]
+    k, v = _randn((2, 77, 2, 4, d), 4, dev).bfloat16().unbind(2)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    assert tfa.fwd_design(d, 77) == "sm90"
+    _check_attention(q, k, v)
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("Lk", [77, 200])
+def test_flash_attention_sm90_lse_feeds_the_backward(dev, d, Lk):
+    """FlashAttention.apply through the Hopper forward (its short-key and
+    its long-key kernel): K2 and K3 read its lse, and the gradients match
+    the plain backward from the plain forward's o and lse."""
+    q, k, v = _sm90_inputs(2, 200, Lk, 3, d, dev)
     do = _randn((2, 200, 3, d), 3, dev).bfloat16()
     ro, rlse = tfa.flash_attention_ref(q.float(), k.float(), v.float())
     ref = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), ro,
@@ -165,12 +186,13 @@ def test_flash_attention_sm90_lse_feeds_the_backward(dev, d):
                      <= _bwd_tolerance(r)).all())
 
 
-@pytest.mark.parametrize("d", [40, 64])
-def test_flash_attention_sm90_graph_replay_equals_eager(dev, d):
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("Lk", [77, 300])
+def test_flash_attention_sm90_graph_replay_equals_eager(dev, d, Lk):
     """The Hopper forward captured in a CUDA graph (its tensor maps are
     kernel parameters) and replayed on new inputs: bit-equal to the eager
     call on them."""
-    static = list(_sm90_inputs(1, 300, 300, 2, d, dev))
+    static = list(_sm90_inputs(1, 300, Lk, 2, d, dev))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

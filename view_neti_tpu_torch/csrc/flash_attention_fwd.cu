@@ -10,6 +10,12 @@
 // while each row keeps its running max m, denominator l and output
 // accumulator. lse is written (B, H, Lq) contiguous: K2 and K3 read it back.
 //
+// Which shapes take it: ops/flash_attention.py::fwd_design sends the
+// head-dim buckets no UNet path uses here (16, 32, 96 to 144, 192, 256).
+// Every path shape (buckets 48, 64, 80 and 160: SD-1.5's d = 40, 80, 160,
+// SD-2.1's 64) goes to the Hopper design of flash_attention_fwd_sm90.cu,
+// beside which chip_smoke.py still checks and times this one.
+//
 // What bounds it on an H100: at the UNet's self-attention (L = 6912,
 // d = 40..160) the work is 4*L*L*d operations against O(L*d) bytes, so the
 // tensor cores bound it (989 TFLOP/s bf16); at d = 40 the exponentials

@@ -2,7 +2,8 @@
 // PTX: TMA tile copies between device and shared memory completed on
 // mbarriers, wgmma shared-memory descriptors for the 128-byte swizzle,
 // the warpgroup products wgmma.mma_async with bf16 operands and fp32
-// accumulators (A from shared memory or from registers), their fence,
+// accumulators (A from shared memory or from registers; N from 48 to 160),
+// their fence,
 // commit and wait, setmaxnreg and named barriers. K1's Hopper design
 // (flash_attention_fwd_sm90.cu) is built on them.
 //
@@ -16,11 +17,14 @@
 //     columns of k-step kk start 32 * kk bytes into the row: add kk * 2 to
 //     the descriptor (its address is in 16-byte units); the 8-row groups
 //     are 1024 bytes apart (the stride byte offset);
+//   * a head dim wider than 64 columns is kept as several such tiles, one
+//     per 64-column chunk (the last one zero-filled past d): as a K-major
+//     operand, k-step kk reads chunk kk / 4 at 32 * (kk % 4) bytes;
 //   * as an MN-major operand (the depth along the rows, e.g. V in P V) the
 //     16 rows of k-step kk start 16 * 128 bytes further: add kk * 128;
 //     the 8-row groups along the depth are 1024 bytes apart (the stride
-//     byte offset), and the leading byte offset, the step between 64-wide
-//     column atoms, is never used at N <= 64.
+//     byte offset), and the leading byte offset is the step between the
+//     64-wide column atoms along N, i.e. between the chunks (N > 64).
 //
 // Accumulator layout of wgmma.m64nNk16 (fp32): warp w of the warpgroup
 // holds rows 16 w .. 16 w + 15 as mma.sync.m16n8k16's C fragments of N / 8
@@ -154,11 +158,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // The descriptor of a 128-byte swizzled tile at shared address addr
 // (1024-byte aligned, or offset from such a tile along a row as above):
-// stride byte offset 1024 (8 rows of 128 bytes), leading byte offset 16
-// (unused by these layouts), layout type 1 (128-byte swizzle).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+// stride byte offset 1024 (8 rows of 128 bytes), leading byte offset lbo
+// (the chunk step of an MN-major operand wider than 64; unused otherwise),
+// layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -227,6 +233,54 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 64, fp32) {= or +=} A (64 x 16, shared, K-major) B (16 x 64,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 80, fp32) {= or +=} A (64 x 16, shared, K-major) B (16 x 80,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_ss_m64n80k16(float (&d)[40],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x 48, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 48,
 // shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_m64n48k16_mn(float (&d)[24],
@@ -272,17 +326,100 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_mn(float (&d)[32],
         "r"(scale_d));
 }
 
+// D (64 x 80, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 80,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n80k16_mn(float (&d)[40],
+                                                     const uint32_t* a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 160, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 160,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n160k16_mn(float (&d)[80],
+                                                     const uint32_t* a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+
+// D (64 x N) {= or +=} A B, both from shared memory, K-major: the products
+// of S = Q K^T over N = 64, 80 or 128 keys.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_ss: N is 64, 80, 128");
+  if constexpr (N == 64)
+    wgmma_ss_m64n64k16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 80)
+    wgmma_ss_m64n80k16(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_m64n128k16(d, desc_a, desc_b, scale_d);
+}
+
 // D (64 x N) {= or +=} A B with A's 64 x 16 in registers and B MN-major,
-// for N = 48 and 64.
+// for the head-dim buckets N = 48, 64, 80 and 160.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t* a,
                                             uint64_t desc_b, int scale_d) {
-  static_assert(N == 48 || N == 64, "wgmma_rs_mn: N is 48 or 64");
+  static_assert(N == 48 || N == 64 || N == 80 || N == 160,
+                "wgmma_rs_mn: N is 48, 64, 80 or 160");
   if constexpr (N == 48)
     wgmma_rs_m64n48k16_mn(d, a, desc_b, scale_d);
-  else
+  else if constexpr (N == 64)
     wgmma_rs_m64n64k16_mn(d, a, desc_b, scale_d);
+  else if constexpr (N == 80)
+    wgmma_rs_m64n80k16_mn(d, a, desc_b, scale_d);
+  else
+    wgmma_rs_m64n160k16_mn(d, a, desc_b, scale_d);
 }
 
 }  // namespace sm90_tiles

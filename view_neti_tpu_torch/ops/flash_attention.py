@@ -183,10 +183,11 @@ def _strides(*tensors):
 
 def fwd_design(d: int, Lk: int) -> str:
     """Which K1 design a CUDA call with head dim d and Lk keys launches:
-    "sm90" (csrc/flash_attention_fwd_sm90.cu) for the head-dim buckets 48
-    and 64 (SD-1.5's d = 40, SD-2.1's 64) at Lk > 80, else "mma_sync"
-    (csrc/flash_attention_fwd.cu)."""
-    return "sm90" if 32 < d <= 64 and Lk > 80 else "mma_sync"
+    "sm90" (csrc/flash_attention_fwd_sm90.cu) for the head-dim buckets 48,
+    64, 80 and 160 (SD-1.5's d = 40, 80 and 160, SD-2.1's 64) at any Lk,
+    else "mma_sync" (csrc/flash_attention_fwd.cu). Lk is the kernel's own
+    choice inside the Hopper design (up to 80 keys its short-key kernel)."""
+    return "sm90" if 32 < d <= 80 or 144 < d <= 160 else "mma_sync"
 
 
 def _launch_fwd(q, k, v, design=None):
