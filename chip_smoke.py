@@ -5,18 +5,24 @@
 
 Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the five kernel libraries from
+  2. build   -- nvcc builds the seven kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
                 kernel's registers and spills; the instantiations the
-                paths run (K1's two designs, K2 and K3 at the head-dim
-                buckets 48, 64, 80 and 160, and every K4 instantiation)
-                must not spill;
+                paths run (K1's two designs and K2's and K3's mma.sync
+                designs at the head-dim buckets 48, 64, 80 and 160, K2's
+                and K3's Hopper designs at 48 and 64, and every K4
+                instantiation) must not spill, and ptxas must serialise
+                no warpgroup product;
   3. kernels -- the flash-attention forward (K1: its Hopper design on
                 wgmma and TMA at the buckets 48, 64, 80 and 160, its
                 long-key kernel above 80 keys and its short-key kernel up
                 to 80, at every path shape; at each of them the mma.sync
                 design is checked and timed beside it), its backward (K2
-                dq, K3 dk/dv) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
+                dq, K3 dk/dv: their Hopper design on wgmma and TMA at the
+                buckets 48 and 64 above 80 keys, the train steps'
+                self-attentions, with the mma.sync design checked and
+                timed beside it there; the mma.sync design at the other
+                shapes) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
                 shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
                 object renders) give them, the folders phase's 512x512
@@ -34,10 +40,15 @@ Phases; any failure ends the run with a non-zero exit:
                 time); at the Hopper design's shapes, also both
                 designs' per-call time in a CUDA graph of 20 calls and
                 their host time a call; every path's counted run below
-                holds K1's launches by design (launch_counts' "K1 sm90"
-                and "K1 mma_sync"): all 32 of a UNet forward's on the
-                Hopper design, SD-1.5's and SD-2.1's (SD15_SM90,
-                M3_SM90);
+                holds K1's, K2's and K3's launches by design
+                (launch_counts' "K1 sm90", "K1 mma_sync", ...): all 32 of
+                a UNet forward's K1 on the Hopper design, SD-1.5's and
+                SD-2.1's (SD15_SM90, M3_SM90); 4 of a train step's 30 K2
+                and 31 K3 launches on SD-1.5, 14 on SD-2.1
+                (SD15_BWD_SM90, M3_BWD_SM90, which bwd_design must give
+                at attention_shapes); a `backward pair` line sums K2 and
+                K3 over each training path, as run and with the mma.sync
+                design at every shape, beside SDPA's backward;
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -500,18 +511,20 @@ def ptxas_usage(logs):
 
 
 PATH_BUCKETS = (48, 64, 80, 160)   # SD-1.5's head dims 40/80/160, SD-2.1's 64
+BWD_SM90_BUCKETS = (48, 64)        # K2's and K3's Hopper design
 
 
 def check_path_spills(usage):
-    """The instantiations of K1 (both designs), K2 and K3 at the paths'
-    head-dim buckets (PATH_BUCKETS) and every K4 instantiation must spill
-    nothing; prints every instantiation of the kernels."""
+    """The instantiations of K1, K2 and K3 (each design) at the paths'
+    head-dim buckets (PATH_BUCKETS; the Hopper designs of K2 and K3 hold
+    only 48 and 64) and every K4 instantiation must spill nothing; prints
+    every instantiation of the kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
         m = re.search(r"(flash_fwd_kernel(?:_sm90(?:_short)?)?|"
-                      r"flash_bwd_dq_kernel|"
-                      r"flash_bwd_dkv_kernel|fused_conv_kernel)I((?:Li\d+E)+)",
-                      fn)
+                      r"flash_bwd_dq_kernel(?:_sm90)?|"
+                      r"flash_bwd_dkv_kernel(?:_sm90)?|fused_conv_kernel)"
+                      r"I((?:Li\d+E)+)", fn)
         if not m:
             continue
         args = [int(a) for a in re.findall(r"\d+", m.group(2))]
@@ -522,6 +535,16 @@ def check_path_spills(usage):
             seen += 1
             check(spill == 0, f"{fn} (on the path) spills {spill} bytes")
     return seen
+
+
+def check_wgmma_pipelined(logs):
+    """No kernel's warpgroup products are serialised: ptxas says so (C7512
+    where registers run short, C7520 in a path it cannot prove
+    warp-uniform) and the products then wait for each other."""
+    for lib, log in logs.items():
+        bad = [line.strip() for line in log.splitlines()
+               if "instructions are serialized" in line]
+        check(not bad, f"{lib}: ptxas serialised wgmma: {bad[:2]}")
 
 
 def launch_counts(reset: bool = False):
@@ -562,8 +585,50 @@ def add_counts(*counts):
     return total
 
 
+# K2's and K3's launches a train step on their Hopper design
+# (ops/flash_attention.py::bwd_design: the head-dim buckets 48 and 64 above
+# 80 keys), the same for both: SD-1.5's level-0 self-attentions (d = 40)
+# but the first, which has no backward, 4 of K2's 30 and K3's 31; SD-2.1's
+# (d = 64) self-attentions of levels 0 to 2 but the first, 14
+SD15_BWD_SM90 = 4
+M3_BWD_SM90 = 14
+
+
+def unet_bwd(steps: int, sm90: int = SD15_BWD_SM90):
+    """K2's and K3's launches in `steps` train steps as launch_counts keys
+    them: 30 and 31 a step, `sm90` of each on the Hopper design."""
+    return {"K2": 30 * steps, "K2 sm90": sm90 * steps,
+            "K2 mma_sync": (30 - sm90) * steps, "K3": 31 * steps,
+            "K3 sm90": sm90 * steps, "K3 mma_sync": (31 - sm90) * steps}
+
+
+def bwd_split_by_path(shapes, design):
+    """K2's and K3's launches on each path of attention_shapes' rows, by
+    design as `design` (ops/flash_attention.py::bwd_design) names each
+    shape's: {path: launch_counts-style counts}. The launch checks'
+    unet_bwd constants must agree with it (phase_kernels checks)."""
+    out = {}
+    for shape in shapes:
+        for key in ("K2", "K3"):
+            for path, n in shape["per_run"].get(key, {}).items():
+                counts = out.setdefault(path, {})
+                for k in (key, f"{key} {design(shape['d'], shape['Lk'])}"):
+                    counts[k] = counts.get(k, 0) + n
+    return out
+
+
+def train_paths_bwd():
+    """What bwd_split_by_path must give: each training path's steps in one
+    run (attention_shapes' per_run), at its model's split."""
+    return {"train": unet_bwd(1), "validate": unet_bwd(VAL_TRAIN_STEPS),
+            "acceptance": unet_bwd(ACC_STEPS),
+            "mode3": unet_bwd(2 * (M3_WARM + M3_STEPS), M3_BWD_SM90),
+            "folders": unet_bwd(2 * (FOLDERS_WARM + FOLDERS_STEPS)),
+            "tp": unet_bwd(TP_WARM + TP_STEPS)}
+
+
 # an SD-1.5 train step's launches
-SD15_STEP = {**unet_k1(1), "K2": 30, "K3": 31, "K4": 21}
+SD15_STEP = {**unet_k1(1), **unet_bwd(1), "K4": 21}
 
 
 def device_profile(torch, fn, ranges=()):
@@ -802,6 +867,7 @@ def attention_rows(torch, F, fa, shape, g, dev):
 
     do = torch.randn(B, Lq, H, d, generator=g, device=dev).bfloat16()
     delta = fa.attention_delta(o, do)
+    design = fa.bwd_design(d, Lk)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
@@ -814,29 +880,43 @@ def attention_rows(torch, F, fa, shape, g, dev):
             v[b:b + 1, :keys].float(), o[b:b + 1].float(), lse[b:b + 1],
             do[b:b + 1].float(), need_dq, need_dkv) if t is not None])
 
-    rdq, rdk, rdv = ref_bwd()
-    tols = [attention_tolerance(r) for r in (rdq, rdk, rdv)]
-    ratios = [of_limit(x, r, t) for x, r, t in zip((dq, dk, dv),
-                                                   (rdq, rdk, rdv), tols)]
-    errs = [(x.float() - r).abs().max().item()
-            for x, r in zip((dq, dk, dv), (rdq, rdk, rdv))]
+    refs = ref_bwd()
+    tols = [attention_tolerance(r) for r in refs]
+
+    def errs_of(got):
+        """(share of the limit, max abs error) of dq, dk, dv."""
+        return ([of_limit(x, r, t) for x, r, t in zip(got, refs, tols)],
+                [(x.float() - r).abs().max().item()
+                 for x, r in zip(got, refs)])
+
+    ratios, errs = errs_of((dq, dk, dv))
     # controls: dq without the last key tile's terms; dk and dv with that
     # tile's rows never written
-    ctl_dq = of_limit(ref_bwd(Lk - drop, need_dkv=False)[0], rdq, tols[0])
+    ctl_dq = of_limit(ref_bwd(Lk - drop, need_dkv=False)[0], refs[0],
+                      tols[0])
     ctl_dkv = []
-    for r, t in zip((rdk, rdv), tols[1:]):
+    for r, t in zip(refs[1:], tols[1:]):
         lost = r.clone()
         lost[:, Lk - drop:] = 0
         ctl_dkv.append(of_limit(lost, r, t))
-    check(ratios[0] <= 1, f"K2 disagrees at {label}: {ratios[0]:.3g} of "
-                          f"the limit")
-    check(max(ratios[1:]) <= 1, f"K3 disagrees at {label}: dk "
+    check(ratios[0] <= 1, f"K2 ({design}) disagrees at {label}: "
+                          f"{ratios[0]:.3g} of the limit")
+    check(max(ratios[1:]) <= 1, f"K3 ({design}) disagrees at {label}: dk "
                                 f"{ratios[1]:.3g}, dv {ratios[2]:.3g} of "
                                 f"the limit")
     check(ctl_dq > 1 and min(ctl_dkv) > 1,
           f"the backward's limit at {label} misses a lost key tile (dq "
           f"{ctl_dq:.3g}, dk {ctl_dkv[0]:.3g}, dv {ctl_dkv[1]:.3g})")
-    del rdq, rdk, rdv, tols
+    if design == "sm90":
+        # the mma.sync designs at the same inputs, held to the same limits
+        m_ratios, m_errs = errs_of((
+            fa._flash_attention_bwd_dq_mma_sync(q, k, v, do, lse, delta),
+            *fa._flash_attention_bwd_dkv_mma_sync(q, k, v, do, lse,
+                                                  delta)))
+        check(max(m_ratios) <= 1,
+              f"K2/K3 (mma_sync) disagree at {label}: dq, dk, dv "
+              f"{[round(x, 3) for x in m_ratios]} of the limit")
+    del refs, tols
 
     # SDPA's backward through autograd, the library yardstick: one call
     # computes dq, dk and dv, so its time stands beside both kernels
@@ -849,23 +929,40 @@ def attention_rows(torch, F, fa, shape, g, dev):
     del lo
     io_bytes = 8.0 * lse.numel()                 # lse and delta, fp32
     exps = float(B * H * Lq * Lk)     # K2 and K3 recompute P
-    for key, flops, nbytes, ratio, control, err, fn, plain in (
+    for key, flops, nbytes, ratio, control, err, fn, plain, launch in (
             ("K2", 6.0 * B * H * Lq * Lk * d,
              2.0 * (3 * q.numel() + k.numel() + v.numel()) + io_bytes,
              ratios[0], ctl_dq, errs[0],
              lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-             lambda: ref_bwd(need_dkv=False)),
+             lambda: ref_bwd(need_dkv=False), fa._launch_bwd_dq),
             ("K3", 8.0 * B * H * Lq * Lk * d,
              2.0 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
              + io_bytes, max(ratios[1:]), min(ctl_dkv), max(errs[1:]),
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-             lambda: ref_bwd(need_dq=False))):
+             lambda: ref_bwd(need_dq=False), fa._launch_bwd_dkv)):
         bms, by = bound(flops, nbytes, exps)
-        rows[key] = dict(shape=label, per_run=shape["per_run"][key],
-                         max_abs_err=err, err_of_limit=ratio,
-                         control_of_limit=control, ms=time_ms(torch, fn),
-                         plain_ms=time_ms(torch, plain, 100.0),
-                         library_ms=library_ms, bound_ms=bms, bound_by=by)
+        rows[key] = row = dict(
+            shape=label, design=design, per_run=shape["per_run"][key],
+            max_abs_err=err, err_of_limit=ratio, control_of_limit=control,
+            ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, 100.0),
+            library_ms=library_ms, bound_ms=bms, bound_by=by)
+        if design == "sm90":
+            # both designs eagerly, in a CUDA graph of 20 calls and on the
+            # host, counting nothing
+            def sm90(launch=launch):
+                return launch(q, k, v, do, lse, delta, "sm90")
+
+            def mma(launch=launch):
+                return launch(q, k, v, do, lse, delta, "mma_sync")
+
+            sl = slice(0, 1) if key == "K2" else slice(1, 3)
+            row.update(mma_sync_err_of_limit=max(m_ratios[sl]),
+                       mma_sync_max_abs_err=max(m_errs[sl]),
+                       mma_sync_ms=time_ms(torch, mma),
+                       graph_ms=graph_ms(torch, sm90),
+                       mma_sync_graph_ms=graph_ms(torch, mma),
+                       host_us=host_us(torch, sm90),
+                       mma_sync_host_us=host_us(torch, mma))
     return rows
 
 
@@ -1028,6 +1125,30 @@ def print_row(key, row, card):
           f"time) [{card}]", flush=True)
 
 
+def bwd_pair(results):
+    """K2 and K3 summed over one run of each training path, each shape's
+    launches there times its time: as run (each shape on the design
+    bwd_design names), with the mma.sync design at every shape (its time
+    beside the Hopper design's at the same inputs), SDPA's backward (one
+    call computes dq, dk and dv: K3's launches, which include the one
+    cross-attention whose q needs no gradient) and the bound."""
+    out = {}
+    for p in ("train", "validate", "acceptance", "mode3", "folders", "tp"):
+        def total(key, field):
+            return sum(r.get(field, r["ms"]) * r["per_run"].get(p, 0)
+                       for r in results[key])
+        out[p] = dict(
+            k2_ms=total("K2", "ms"), k3_ms=total("K3", "ms"),
+            k2_mma_sync_ms=total("K2", "mma_sync_ms"),
+            k3_mma_sync_ms=total("K3", "mma_sync_ms"),
+            sdpa_backward_ms=total("K3", "library_ms"),
+            bound_ms=total("K2", "bound_ms") + total("K3", "bound_ms"))
+        out[p]["pair_ms"] = out[p]["k2_ms"] + out[p]["k3_ms"]
+        out[p]["pair_mma_sync_ms"] = (out[p]["k2_mma_sync_ms"]
+                                      + out[p]["k3_mma_sync_ms"])
+    return out
+
+
 def phase_kernels(torch, dev, card, serve_steps):
     import torch.nn.functional as F
     from view_neti_tpu_torch.ops import flash_attention as fa
@@ -1040,12 +1161,21 @@ def phase_kernels(torch, dev, card, serve_steps):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(dev).manual_seed(0)
     results = {"K1": [], "K2": [], "K3": [], "K4": []}
-    for shape in attention_shapes(serve_steps):
+    shapes = attention_shapes(serve_steps)
+    # the launch checks' split of K2 and K3 by design is bwd_design's
+    split = bwd_split_by_path(shapes, fa.bwd_design)
+    for path, want in train_paths_bwd().items():
+        check(split[path] == capture_record(want),
+              f"K2/K3 by design on the {path} path: bwd_design gives "
+              f"{split[path]}, the launch checks {want}")
+    for shape in shapes:
         for key, row in attention_rows(torch, F, fa, shape, g,
                                        dev).items():
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             results[key].append(row)
             print_row(key, row, card)
+    print(f"backward pair [{card}]: {json.dumps(bwd_pair(results))}",
+          flush=True)
     shapes = k4_shapes()
     check(sum(s[-1].get("serve", 0) for s in shapes) == 29
           and sum(s[-1].get("train", 0) for s in shapes) == 21
@@ -1150,7 +1280,7 @@ def phase_slice(torch, dev, card, steps):
     check(imgs.shape == (3, HEIGHT, WIDTH, 3) and imgs.dtype == np.uint8,
           f"images {imgs.shape} {imgs.dtype}")
     check(imgs.min() != imgs.max(), "images are constant")
-    want = {**unet_k1(2 * steps), "K2": 0, "K3": 0, "K4": 2 * 29}
+    want = {**unet_k1(2 * steps), **unet_bwd(0), "K4": 2 * 29}
     check(launches == want, f"serving launches in 2 runs {launches}, want "
                             f"{want} (no backward)")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
@@ -1572,18 +1702,25 @@ def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
     with open(paths[0]) as f:
         events = json.load(f)["traceEvents"]
     parse_s = time.perf_counter() - t0
-    kernels, graph_launches, sm90 = {}, 0, 0
+    # the Hopper designs' kernels of K1-K3, by name
+    sm90_names = {"K1": "flash_fwd_kernel_sm90",
+                  "K2": "flash_bwd_dq_kernel_sm90",
+                  "K3": "flash_bwd_dkv_kernel_sm90"}
+    kernels, graph_launches, sm90 = {}, 0, dict.fromkeys(sm90_names, 0)
     for e in events:
         if e.get("cat") == "kernel":
             g = kernel_group(e.get("name", ""))
             kernels[g] = kernels.get(g, 0) + 1
-            sm90 += "flash_fwd_kernel_sm90" in e.get("name", "")
+            for key, name in sm90_names.items():
+                sm90[key] += name in e.get("name", "")
         elif e.get("name") == "cudaGraphLaunch":
             graph_launches += 1
     in_trace = {k: kernels.get(kernel_group(name), 0) for k, name in (
         ("K1", "flash_fwd_kernel"), ("K2", "flash_bwd_dq_kernel"),
         ("K3", "flash_bwd_dkv"), ("K4", "fused_conv_kernel"))}
-    in_trace.update({"K1 sm90": sm90, "K1 mma_sync": in_trace["K1"] - sm90})
+    for key, n_sm90 in sm90.items():
+        in_trace.update({f"{key} sm90": n_sm90,
+                         f"{key} mma_sync": in_trace[key] - n_sm90})
     n = len(untraced["losses"])
     per_step = {k: v // n for k, v in launches.items()}
     # the warm-up step runs eagerly under the trace: at least its kernels.
@@ -1933,7 +2070,7 @@ def phase_weights(torch, dev, card, rect, cal):
     check(torch.equal(out_loaded, out_mem),
           f"the loaded UNet's forward differs from the written stack's by "
           f"{(out_loaded.float() - out_mem.float()).abs().max().item()}")
-    check(launches == {**unet_k1(2), "K2": 0, "K3": 0, "K4": 0},
+    check(launches == {**unet_k1(2), **unet_bwd(0), "K4": 0},
           f"weights launches {launches}")
     stats = dict(gb_read=nbytes / 1e9, dtypes=dtypes, write_s=write_s,
                  coach_build_s=coach_s, load_s=load_s,
@@ -2087,8 +2224,7 @@ def phase_acceptance(torch, dev, card, root, weights, cal, masks_root):
     check(fill is not None and loop is not None,
           "no cache fill or training line in the run's log")
     want = {**unet_k1(ACC_STEPS + ACC_DENOISE * EVAL_CAMS),
-            "K2": 30 * ACC_STEPS, "K3": 31 * ACC_STEPS,
-            "K4": 21 * ACC_STEPS + 29 * EVAL_CAMS}
+            **unet_bwd(ACC_STEPS), "K4": 21 * ACC_STEPS + 29 * EVAL_CAMS}
     check(launches == want, f"acceptance launches {launches}, want {want}")
     check(loaded["cam_idxs"] == res["cam_idxs"][:INFER_CAMS],
           f"offline cameras {loaded['cam_idxs']}")
@@ -2166,8 +2302,8 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
                  f"_numseeds_{len(VAL_SEEDS)}.msgpack")
     check(os.path.exists(bundle), "no validation bundle")
     n = VAL_TRAIN_STEPS
-    want = {**unet_k1(n + VAL_DENOISE * (EVAL_CAMS + 1)), "K2": 30 * n,
-            "K3": 31 * n, "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
+    want = {**unet_k1(n + VAL_DENOISE * (EVAL_CAMS + 1)), **unet_bwd(n),
+            "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
     check(launches == want, f"validate launches {launches}, want {want}")
     (loop_cap,) = [c for f, _ in coach._sampling.values()
                    for c in f.captures.values()
@@ -2280,7 +2416,7 @@ def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     launches = launch_counts()
-    want = {**unet_k1(VAL_DENOISE * INFER_CAMS), "K2": 0, "K3": 0,
+    want = {**unet_k1(VAL_DENOISE * INFER_CAMS), **unet_bwd(0),
             "K4": 29 * INFER_CAMS}
     check(launches == want, f"inference launches {launches}, want {want}")
     check(res["cam_idxs"] == val["cam_idxs"][:INFER_CAMS],
@@ -2398,7 +2534,8 @@ def phase_mode3(torch, dev, card, coach_stats):
     from view_neti_tpu_torch.training.validate import ValidationHandler
 
     B, n = TRAIN_BATCH, M3_WARM + M3_STEPS
-    per_step = {**unet_k1(1, M3_SM90["train"]), "K2": 30, "K3": 31, "K4": 21}
+    per_step = {**unet_k1(1, M3_SM90["train"]), **unet_bwd(1, M3_BWD_SM90),
+                "K4": 21}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_mode3")
     shutil.rmtree(root, ignore_errors=True)
@@ -2700,8 +2837,8 @@ def phase_mode3(torch, dev, card, coach_stats):
         infer_s = time.perf_counter() - t0
         launches_c = launch_counts()
         want_c = {**unet_k1(VAL_DENOISE * INFER_CAMS * M3_TOKENS,
-                            M3_SM90["sweep"]), "K2": 0,
-                  "K3": 0, "K4": 29 * INFER_CAMS * M3_TOKENS}
+                            M3_SM90["sweep"]), **unet_bwd(0),
+                  "K4": 29 * INFER_CAMS * M3_TOKENS}
         check(launches_c == want_c, f"mode-3 inference launches "
                                     f"{launches_c}, want {want_c}")
         check(sorted(offline_res) == sorted(tokens),
@@ -3576,8 +3713,8 @@ def phase_ddp(torch, dev, card):
     val_launches = [{k: n * (len(dist.split_items(val_cams, r["rank"],
                                                   DDP_WORLD))
                              + (r["rank"] == 0))
-                     for k, n in {**unet_k1(DDP_VAL_DENOISE), "K2": 0,
-                                  "K3": 0, "K4": 29}.items()}
+                     for k, n in {**unet_k1(DDP_VAL_DENOISE), **unet_bwd(0),
+                                  "K4": 29}.items()}
                     for r in ranks]
     stats = dict(
         backend=main["backend"], world=DDP_WORLD,
@@ -4010,7 +4147,7 @@ def phase_tp(torch, dev, card):
     steps = TP_WARM + TP_STEPS
     per_step = SD15_STEP
     want_launches = {k: v * steps for k, v in per_step.items()}
-    want_render = {**unet_k1(TP_DENOISE), "K2": 0, "K3": 0, "K4": 29}
+    want_render = {**unet_k1(TP_DENOISE), **unet_bwd(0), "K4": 29}
     unet_blocks, clip_layers = 16, 12
     want_gathers = tp_collectives_per_step(unet_blocks, clip_layers) * steps
     with tempfile.TemporaryDirectory() as root:
@@ -4235,12 +4372,13 @@ def phase_bench(card, slice_stats, coach_stats):
                  for key in ("launches", "flops per image by source")}
         counts, flops = (notes[k][0] if len(notes[k]) == 1 else {}
                          for k in notes)
-        # the kernels of the mode, and K1's launches split by design
+        # the kernels of the mode, and K1-K3's launches split by design
         check(all(counts.get(k, 0) > 0 for k in kernels.split())
               and all(v == 0 for k, v in counts.items()
                       if k.split()[0] not in kernels.split())
-              and counts.get("K1 sm90", 0) + counts.get("K1 mma_sync", 0)
-              == counts.get("K1", 0),
+              and all(counts.get(f"{k} sm90", 0)
+                      + counts.get(f"{k} mma_sync", 0) == counts.get(k, 0)
+                      for k in ("K1", "K2", "K3")),
               f"bench {name}: launches {counts}, want {kernels} only")
         # each launching kernel's wrapper added its FLOPs to the count
         check(sorted(flops) == sorted(["aten"] + kernels.split())
@@ -4271,10 +4409,10 @@ def phase_bench(card, slice_stats, coach_stats):
 
 
 def mma_sync_rows(rows):
-    """K1's mma.sync design at the Hopper design's shapes, from the check
-    and the time attention_rows took of it at the same inputs: the plain
-    version, the library call, the bound and the control are the inputs',
-    its error and times its own."""
+    """A kernel's mma.sync design (K1's, K2's or K3's) at its Hopper
+    design's shapes, from the check and the time attention_rows took of it
+    at the same inputs: the plain version, the library call, the bound and
+    the control are the inputs', its error and times its own."""
     out = []
     for r in rows:
         if "mma_sync_ms" not in r:
@@ -4283,24 +4421,26 @@ def mma_sync_rows(rows):
         row.update(design="mma_sync", ms=r["mma_sync_ms"],
                    max_abs_err=r["mma_sync_max_abs_err"],
                    err_of_limit=r["mma_sync_err_of_limit"],
-                   lse_err=r["mma_sync_lse_err"],
                    graph_ms=r["mma_sync_graph_ms"],
                    host_us=r["mma_sync_host_us"],
                    share_of_bound=r["bound_ms"] / r["mma_sync_ms"])
+        if "mma_sync_lse_err" in r:
+            row["lse_err"] = r["mma_sync_lse_err"]
         out.append(row)
     return out
 
 
 def kernel_report(kernels, launches, card):
-    """The {"kernels": [...]} line: per kernel (K1's two designs apart),
+    """The {"kernels": [...]} line: per kernel (the two designs of K1, K2
+    and K3 apart),
     ms / plain_ms / bound_ms / library_ms and share_of_bound (bound_ms /
     ms) at its heaviest main-path shape, and the same summed over one run
     of each path that launches it (<path>_path_*: a serving run, a train
     step, the weights phase, the acceptance phase, the validate phase, the
     inference phase, the mode3 phase, the folders phase, a tp rank's
     render and training), each shape weighted by its launches there; the
-    Hopper design's entry carries the mma.sync design's ms at its shape.
-    The mma.sync design's entry takes its rows from the shapes it runs and
+    Hopper designs' entries carry the mma.sync design's ms at their shape.
+    An mma.sync design's entry takes its rows from the shapes it runs and
     from its check and time beside the Hopper design at the same inputs
     (mma_sync_rows), so it keeps its numbers when no path launches it.
     `launches` holds each path's counted run (launch_counts' keys): a
@@ -4315,14 +4455,22 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu_torch/csrc/flash_attention_fwd.cu",
              "view_neti_tpu/ops/flash_attention.py:83",
              "o: 2^-8|o| + 2^-4 rms(o), lse: 1e-3", "mma_sync"),
+            ("K2", "flash_attention_bwd_dq_sm90",
+             "view_neti_tpu_torch/csrc/flash_attention_bwd_dq_sm90.cu",
+             "view_neti_tpu/ops/flash_attention.py:160",
+             "dq: 2^-8|dq| + 2^-4 rms(dq)", "sm90"),
             ("K2", "flash_attention_bwd_dq",
              "view_neti_tpu_torch/csrc/flash_attention_bwd_dq.cu",
              "view_neti_tpu/ops/flash_attention.py:160",
-             "dq: 2^-8|dq| + 2^-4 rms(dq)", None),
+             "dq: 2^-8|dq| + 2^-4 rms(dq)", "mma_sync"),
+            ("K3", "flash_attention_bwd_dkv_sm90",
+             "view_neti_tpu_torch/csrc/flash_attention_bwd_dkv_sm90.cu",
+             "view_neti_tpu/ops/flash_attention.py:190",
+             "dk, dv: 2^-8|x| + 2^-4 rms(x)", "sm90"),
             ("K3", "flash_attention_bwd_dkv",
              "view_neti_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
              "view_neti_tpu/ops/flash_attention.py:190",
-             "dk, dv: 2^-8|x| + 2^-4 rms(x)", None),
+             "dk, dv: 2^-8|x| + 2^-4 rms(x)", "mma_sync"),
             ("K4", "fused_affine_silu_conv3x3",
              "view_neti_tpu_torch/csrc/fused_conv.cu",
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|",
@@ -4423,11 +4571,13 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
     # run reads the four path buckets of K1's mma.sync design (in two
-    # key-tile widths, 64 and 80), of K2, of K3 and of K1's Hopper design
-    # (its long-key and its short-key kernel), and K4's two output-channel
+    # key-tile widths, 64 and 80), of K2's and K3's mma.sync designs and of
+    # K1's Hopper design (its long-key and its short-key kernel), the two
+    # buckets of K2's and K3's Hopper designs, and K4's two output-channel
     # tiles
     n = check_path_spills(ptxas_usage(logs))
-    want = 6 * len(PATH_BUCKETS) + 2
+    check_wgmma_pipelined(logs)
+    want = 6 * len(PATH_BUCKETS) + 2 * len(BWD_SM90_BUCKETS) + 2
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 

@@ -20,6 +20,16 @@ from view_neti_tpu_torch.ops import flash_attention as tfa
 H100_SMS = 132
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's parallel regions spend most
+    of their time waiting for cores; on one thread they do not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the train step's self-attentions at levels 0 and 1 (B 9, 8 heads), whose
 # key tiles already fill two waves of 132 SMs, and larger grids
 @pytest.mark.parametrize("B,H,Lq,Lk", [

@@ -366,6 +366,163 @@ def test_flash_attention_function_on_the_card(dev):
                          <= _bwd_tolerance(r)).all())
 
 
+# K2's and K3's Hopper design (bwd_design "sm90": the head-dim buckets 48
+# and 64 above 80 keys): the first key past the 80-key edge, ragged query
+# and key tiles (128-query blocks and 64-key stages in K2; 128-key blocks
+# and 64-query stages in K3) and the 3072-token self-attention of the train
+# step, each against the plain version, the mma.sync design and itself
+BWD_SM90_DIMS = [40, 64]
+BWD_SM90_LENGTHS = [81, 129, 200, 3072]
+
+
+def _bwd_sm90_inputs(B, Lq, Lk, H, d, dev):
+    q, k, v = _sm90_inputs(B, Lq, Lk, H, d, dev)
+    do = _randn((B, Lq, H, d), 3, dev).bfloat16()
+    o, lse = tfa.flash_attention(q, k, v)
+    return q, k, v, do, lse, tfa.attention_delta(o, do)
+
+
+def _bwd_designs():
+    return (dict(tfa.flash_attention_bwd_dq.designs),
+            dict(tfa.flash_attention_bwd_dkv.designs))
+
+
+@pytest.mark.parametrize("d", BWD_SM90_DIMS)
+@pytest.mark.parametrize("Lq", BWD_SM90_LENGTHS)
+@pytest.mark.parametrize("Lk", BWD_SM90_LENGTHS)
+def test_flash_attention_bwd_sm90_matches_plain(dev, d, Lq, Lk):
+    args = _bwd_sm90_inputs(1, Lq, Lk, 2, d, dev)
+    assert tfa.bwd_design(d, Lk) == "sm90"
+    (dq0, dkv0) = _bwd_designs()
+    dq = tfa.flash_attention_bwd_dq(*args)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args)
+    again = (tfa.flash_attention_bwd_dq(*args),
+             *tfa.flash_attention_bwd_dkv(*args))
+    mma = (tfa._flash_attention_bwd_dq_mma_sync(*args),
+           *tfa._flash_attention_bwd_dkv_mma_sync(*args))
+    torch.cuda.synchronize()
+    dq1, dkv1 = _bwd_designs()
+    assert dq1 == dict(dq0, sm90=dq0["sm90"] + 2)
+    assert dkv1 == dict(dkv0, sm90=dkv0["sm90"] + 2)
+    q, k, v, do, lse, delta = args
+    ref = tfa._bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta)
+    for got, second, m, r in zip((dq, dk, dv), again, mma, ref):
+        assert got.dtype == torch.bfloat16 and got.shape == m.shape
+        tol = _bwd_tolerance(r)
+        assert bool(((got.float() - r).abs() <= tol).all())
+        assert bool(((m.float() - r).abs() <= tol).all())
+        # no atomics, a fixed order of every sum: bit-equal from call to
+        # call
+        assert torch.equal(got, second)
+
+
+@pytest.mark.parametrize("d", BWD_SM90_DIMS)
+def test_flash_attention_bwd_sm90_reads_strided_views(dev, d):
+    """q, k, v views into one packed (B, L, 3, H, d) projection and do a
+    view into another, read through their strides by the tensor maps."""
+    q, k, v = _randn((2, 300, 3, 4, d), 4, dev).bfloat16().unbind(2)
+    do = _randn((2, 300, 2, 4, d), 5, dev).bfloat16()[:, :, 1]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    assert tfa.bwd_design(d, 300) == "sm90"
+    _check_backward(q, k, v, do)
+
+
+@pytest.mark.parametrize("d", BWD_SM90_DIMS)
+@pytest.mark.parametrize("Lk", [129, 3072])
+def test_flash_attention_bwd_sm90_graph_replay_equals_eager(dev, d, Lk):
+    """K2 and K3 captured in a CUDA graph (their tensor maps are kernel
+    parameters) and replayed on new inputs: bit-equal to the eager calls
+    on them."""
+    static = list(_bwd_sm90_inputs(1, 300, Lk, 2, d, dev))
+
+    def both(*a):
+        return (tfa.flash_attention_bwd_dq(*a),
+                *tfa.flash_attention_bwd_dkv(*a))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both(*static)
+    for seed in (7, 8):
+        new = _bwd_sm90_inputs(1, 300, Lk, 2, d, dev)
+        new = [t * (seed / 6) if t.dtype == torch.bfloat16 else t
+               for t in new]
+        for s_, n in zip(static, new):
+            s_.copy_(n)
+        graph.replay()
+        want = both(*new)
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("d", BWD_SM90_DIMS)
+def test_flash_attention_bwd_sm90_through_the_function(dev, d):
+    """FlashAttention.apply's backward launches the Hopper K2 and K3 at a
+    self-attention shape, and its gradients match the plain backward."""
+    q, k, v = _sm90_inputs(2, 300, 300, 3, d, dev)
+    do = _randn((2, 300, 3, d), 3, dev).bfloat16()
+    o, lse = tfa.flash_attention(q, k, v)
+    ref = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dq0, dkv0 = _bwd_designs()
+    (tfa.FlashAttention.apply(*leaves).float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    dq1, dkv1 = _bwd_designs()
+    assert dq1["sm90"] == dq0["sm90"] + 1 and dq1["mma_sync"] == dq0[
+        "mma_sync"]
+    assert dkv1["sm90"] == dkv0["sm90"] + 1
+    for leaf, r in zip(leaves, ref):
+        assert bool(((leaf.grad.float() - r).abs()
+                     <= _bwd_tolerance(r)).all())
+
+
+@pytest.mark.parametrize("d", BWD_SM90_DIMS)
+@pytest.mark.parametrize("B,Lq,Lk,H", [(1, 200, 129, 2), (1, 3072, 200, 1)])
+def test_flash_attention_bwd_sm90_query_splits(dev, d, B, Lq, Lk, H):
+    """The Hopper K3 with the queries split across blocks (a small grid):
+    fp32 partials reduced in a fixed order, bit-equal from call to call."""
+    assert tfa.dkv_splits(B, H, Lq, Lk, tfa.sm_count(dev)) > 1
+    args = _bwd_sm90_inputs(B, Lq, Lk, H, d, dev)
+    first = tfa.flash_attention_bwd_dkv(*args)
+    second = tfa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    q, k, v, do, lse, delta = args
+    ref = tfa._bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta, need_dq=False)[1:]
+    for a, b, r in zip(first, second, ref):
+        assert torch.equal(a, b)
+        assert bool(((a.float() - r).abs() <= _bwd_tolerance(r)).all())
+
+
+def test_flash_attention_bwd_sm90_refuses_what_it_does_not_take(dev):
+    """The Hopper design takes head dims up to 64: its entry refuses 80
+    (forced past bwd_design, which never sends it), and the wrappers
+    refuse views TMA cannot read; nothing falls back to the other
+    design."""
+    args = list(_bwd_sm90_inputs(1, 200, 200, 2, 80, dev))
+    assert tfa.bwd_design(80, 200) == "mma_sync"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa._launch_bwd_dq(*args, "sm90")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa._launch_bwd_dkv(*args, "sm90")
+    args = list(_bwd_sm90_inputs(1, 200, 200, 2, 40, dev))
+    odd = torch.zeros(1, 200, 2, 41, device=dev,
+                      dtype=torch.bfloat16)[..., :40]
+    assert odd.stride(2) % 8
+    before = _bwd_designs()
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(odd, *args[1:])
+    assert _bwd_designs() == before
+
+
 def test_kernels_refuse_to_cut_a_gradient(dev):
     """K1 and K4 fill fresh tensors without a grad_fn: under grad mode they
     refuse inputs that require grad."""

@@ -26,6 +26,16 @@ from view_neti_tpu_torch.ops.norm import GroupNorm, group_norm_fold
 from view_neti_tpu_torch.ops.resize import nearest_upsample_2x as t_up
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Beside the other test workers, torch's parallel regions spend most
+    of their time waiting for cores; on one thread they do not."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(B, Lq, Lk, H, d, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randn(B, Lq, H, d).astype(np.float32),

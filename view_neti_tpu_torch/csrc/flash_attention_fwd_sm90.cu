@@ -124,8 +124,6 @@ using namespace sm90_tiles;
 
 constexpr int kBQ = 128;        // query rows a block, or a short-key tile
 constexpr int kWgRows = 64;     // query rows a consumer warpgroup
-constexpr int kBoxD = 64;       // head-dim columns a box: one 128-byte row
-constexpr int kRowBytes = kBoxD * 2;
 constexpr int kThreads = 384;
 constexpr int kProducerRegs = 40;
 // the producer's 128 x (168 - 40) registers go to the 256 consumer threads
@@ -190,46 +188,6 @@ struct ShortTiles {
   static_assert(kSmemBytes <= kMaxSmem, "short-key tiles exceed 227 KB");
 };
 
-// One box a chunk: rows [row, row + box rows) of head h of batch b into
-// chunk tiles chunk_bytes apart from dst; their bytes complete on bar.
-template <int CHUNKS>
-__device__ __forceinline__ void tma_load_chunks(uint32_t dst,
-                                                uint32_t chunk_bytes,
-                                                const CUtensorMap* map,
-                                                uint32_t bar, int row, int h,
-                                                int b) {
-#pragma unroll
-  for (int ch = 0; ch < CHUNKS; ++ch)
-    tma_load_4d(dst + ch * chunk_bytes, map, bar, ch * kBoxD, row, h, b);
-}
-
-// A consumer's 64 output rows, chunk tiles chunk_bytes apart from src, to
-// rows [row, row + 64) of head h of batch b: one committed group of stores
-// that clip rows >= Lq and columns >= d.
-template <int CHUNKS>
-__device__ __forceinline__ void tma_store_chunks(const CUtensorMap* map,
-                                                 uint32_t src,
-                                                 uint32_t chunk_bytes,
-                                                 int row, int h, int b) {
-#pragma unroll
-  for (int ch = 0; ch < CHUNKS; ++ch)
-    tma_store_4d(map, src + ch * chunk_bytes, ch * kBoxD, row, h, b);
-  tma_store_commit();
-}
-
-// Keys at or past `valid` (Lk less the tile's first key and 2 t) of a
-// 64 x N score tile's C fragments get -inf.
-template <int N>
-__device__ __forceinline__ void mask_keys(float (&s)[N / 2], int valid) {
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) {
-    s[4 * n] = 8 * n < valid ? s[4 * n] : -INFINITY;
-    s[4 * n + 2] = 8 * n < valid ? s[4 * n + 2] : -INFINITY;
-    s[4 * n + 1] = 8 * n + 1 < valid ? s[4 * n + 1] : -INFINITY;
-    s[4 * n + 3] = 8 * n + 1 < valid ? s[4 * n + 3] : -INFINITY;
-  }
-}
-
 // The max of rows g (mx0) and g + 8 (mx1) of a 64 x N score tile over the
 // quad, as 4 independent chains: two warps an SM quarter leave little else
 // to hide a long chain's latency.
@@ -271,52 +229,6 @@ __device__ __forceinline__ void exponentiate(float (&s)[N / 2],
   }
   sum0 = (part0[0] + part0[1]) + (part0[2] + part0[3]);
   sum1 = (part1[0] + part1[1]) + (part1[2] + part1[3]);
-}
-
-// P (64 x N, fp32 C fragments) to bf16 pairs: the A operands of N / 16
-// k-steps.
-template <int N>
-__device__ __forceinline__ void pack_p(const float (&s)[N / 2],
-                                       uint32_t (&p)[N / 4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-// S (+)= Q K^T over bucket DP: k-step kk reads chunk kk / 4 of the
-// consumer's Q rows (chunk tiles q_chunk bytes apart) and of the K tile
-// (k_chunk apart), 32 (kk % 4) bytes into the row.
-template <int DP, int N>
-__device__ __forceinline__ void qk_products(float (&s)[N / 2], uint32_t q,
-                                            uint32_t q_chunk, uint32_t k,
-                                            uint32_t k_chunk) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss<N>(s, sw128_desc(q + (kk / 4) * q_chunk) + 2 * (kk % 4),
-                sw128_desc(k + (kk / 4) * k_chunk) + 2 * (kk % 4), kk > 0);
-}
-
-// o = O / l of a warp's rows r and r + 8 as bf16 into a swizzled 64-row
-// tile of chunk tiles chunk_bytes apart: column tile n goes to chunk n / 8,
-// its 16 bytes to chunk position (n % 8) ^ g (r % 8 = g).
-template <int DP>
-__device__ __forceinline__ void write_o(unsigned char* tile,
-                                        uint32_t chunk_bytes,
-                                        const float (&o)[DP / 2], float inv0,
-                                        float inv1, int r, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    unsigned char* base = tile + (n / 8) * chunk_bytes;
-    const int off = (((n % 8) ^ g) << 4) + 4 * t;
-    *reinterpret_cast<uint32_t*>(base + r * kRowBytes + off) =
-        pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(base + (r + 8) * kRowBytes + off) =
-        pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
-  }
 }
 
 template <int DP>
@@ -514,7 +426,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const int r = 16 * warp + g;
-    write_o<DP>(smem_raw + (q_wg - raw), kQChunkBytes, o, 1.f / l0,
+    write_rows<DP>(smem_raw + (q_wg - raw), kQChunkBytes, o, 1.f / l0,
                 1.f / l1, r, g, t);
     const int row0 = q0 + c * kWgRows;
     if (t == 0 && row0 + r < Lq)
@@ -707,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row0 = tile.q0 + c * kWgRows;
       if (tid == 0) tma_store_wait_read();
       named_bar_sync(kEpilogueBar + c, 128);
-      write_o<DP>(smem_raw + (o_wg - raw), kOChunkBytes, o, 1.f / l0,
+      write_rows<DP>(smem_raw + (o_wg - raw), kOChunkBytes, o, 1.f / l0,
                   1.f / l1, r, g, t);
       if (t == 0 && row0 + r < Lq)
         lse[(long long)bh * Lq + row0 + r] = (m0 + log2f(l0)) * kLn2;
@@ -721,53 +633,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the shared memory stays until the last store has read it
     if (tid == 0) tma_store_wait_read();
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime, once.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of one (B, L, H, d) bf16 tensor with the given element
-// strides: inner extent d, boxes of 64 columns (one chunk) by `rows` rows
-// of one (batch, head), 128-byte swizzle, zeros outside the tensor.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int L,
-                       int H, int d, Strides st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(L), cuuint64_t(H),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(st.l) * 2, cuuint64_t(st.h) * 2,
-                                 cuuint64_t(st.b) * 2};
-  const cuuint32_t box[4] = {kBoxD, cuuint32_t(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 struct FwdArgs {
@@ -784,11 +649,14 @@ struct FwdArgs {
 cudaError_t tensor_maps(const FwdArgs& a, int q_rows, int kv_rows,
                         CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm,
                         CUtensorMap* om) {
+  // the L2 promotion of the tile loads (tools/fwd_short_variants.py times
+  // the kernels without it)
+  const CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
   cudaError_t err;
-  if ((err = tensor_map(qm, a.q, a.B, a.Lq, a.H, a.d, a.qs, q_rows)) ||
-      (err = tensor_map(km, a.k, a.B, a.Lk, a.H, a.d, a.ks, kv_rows)) ||
-      (err = tensor_map(vm, a.v, a.B, a.Lk, a.H, a.d, a.vs, kv_rows)) ||
-      (err = tensor_map(om, a.o, a.B, a.Lq, a.H, a.d, a.os, kWgRows)))
+  if ((err = tensor_map(qm, a.q, a.B, a.Lq, a.H, a.d, a.qs, q_rows, l2)) ||
+      (err = tensor_map(km, a.k, a.B, a.Lk, a.H, a.d, a.ks, kv_rows, l2)) ||
+      (err = tensor_map(vm, a.v, a.B, a.Lk, a.H, a.d, a.vs, kv_rows, l2)) ||
+      (err = tensor_map(om, a.o, a.B, a.Lq, a.H, a.d, a.os, kWgRows, l2)))
     return err;
   return cudaSuccess;
 }

@@ -4,8 +4,12 @@
 // the warpgroup products wgmma.mma_async with bf16 operands and fp32
 // accumulators (A from shared memory or from registers; N from 48 to 160),
 // their fence,
-// commit and wait, setmaxnreg and named barriers. K1's Hopper design
-// (flash_attention_fwd_sm90.cu) is built on them.
+// commit and wait, setmaxnreg and named barriers; the tiles the attention
+// kernels share (64-column chunks of a head dim, 128-byte swizzled) and
+// their tensor maps, encoded on the host. K1's Hopper design
+// (flash_attention_fwd_sm90.cu) and K2's and K3's
+// (flash_attention_bwd_dq_sm90.cu, flash_attention_bwd_dkv_sm90.cu) are
+// built on them.
 //
 // Layouts (the PTX ISA's wgmma "canonical" shared-memory layouts):
 //   * a TMA box whose rows are 128 bytes (64 bf16), loaded with
@@ -35,10 +39,21 @@
 // (mma_tiles::pack_a's order).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
+                   // run time through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace sm90_tiles {
+
+using mma_tiles::pack_bf16;
+using mma_tiles::Strides;
+
+constexpr int kBoxD = 64;  // head-dim columns a box: one 128-byte row
+constexpr int kRowBytes = kBoxD * 2;
 
 // ---------------------------------------------------------- mbarriers ----
 
@@ -65,6 +80,14 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival on bar once this thread's cp.async copies issued so far have
+// landed; it counts against the arrivals the barrier was initialised with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
                : "memory");
 }
 
@@ -420,6 +443,148 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
     wgmma_rs_m64n80k16_mn(d, a, desc_b, scale_d);
   else
     wgmma_rs_m64n160k16_mn(d, a, desc_b, scale_d);
+}
+
+// ------------------------------------------------ attention tiles ----
+
+// One box a chunk: rows [row, row + box rows) of head h of batch b into
+// chunk tiles chunk_bytes apart from dst; their bytes complete on bar.
+template <int CHUNKS>
+__device__ __forceinline__ void tma_load_chunks(uint32_t dst,
+                                                uint32_t chunk_bytes,
+                                                const CUtensorMap* map,
+                                                uint32_t bar, int row, int h,
+                                                int b) {
+#pragma unroll
+  for (int ch = 0; ch < CHUNKS; ++ch)
+    tma_load_4d(dst + ch * chunk_bytes, map, bar, ch * kBoxD, row, h, b);
+}
+
+// A consumer's 64 output rows, chunk tiles chunk_bytes apart from src, to
+// rows [row, row + 64) of head h of batch b: one committed group of stores
+// that clip rows >= Lq and columns >= d.
+template <int CHUNKS>
+__device__ __forceinline__ void tma_store_chunks(const CUtensorMap* map,
+                                                 uint32_t src,
+                                                 uint32_t chunk_bytes,
+                                                 int row, int h, int b) {
+#pragma unroll
+  for (int ch = 0; ch < CHUNKS; ++ch)
+    tma_store_4d(map, src + ch * chunk_bytes, ch * kBoxD, row, h, b);
+  tma_store_commit();
+}
+
+// Keys at or past `valid` (Lk less the tile's first key and 2 t) of a
+// 64 x N score tile's C fragments get -inf.
+template <int N>
+__device__ __forceinline__ void mask_keys(float (&s)[N / 2], int valid) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    s[4 * n] = 8 * n < valid ? s[4 * n] : -INFINITY;
+    s[4 * n + 2] = 8 * n < valid ? s[4 * n + 2] : -INFINITY;
+    s[4 * n + 1] = 8 * n + 1 < valid ? s[4 * n + 1] : -INFINITY;
+    s[4 * n + 3] = 8 * n + 1 < valid ? s[4 * n + 3] : -INFINITY;
+  }
+}
+
+// P (64 x N, fp32 C fragments) to bf16 pairs: the A operands of N / 16
+// k-steps.
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&s)[N / 2],
+                                       uint32_t (&p)[N / 4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S (+)= Q K^T over bucket DP: k-step kk reads chunk kk / 4 of the
+// consumer's Q rows (chunk tiles q_chunk bytes apart) and of the K tile
+// (k_chunk apart), 32 (kk % 4) bytes into the row.
+template <int DP, int N>
+__device__ __forceinline__ void qk_products(float (&s)[N / 2], uint32_t q,
+                                            uint32_t q_chunk, uint32_t k,
+                                            uint32_t k_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<N>(s, sw128_desc(q + (kk / 4) * q_chunk) + 2 * (kk % 4),
+                sw128_desc(k + (kk / 4) * k_chunk) + 2 * (kk % 4), kk > 0);
+}
+
+// A warp's rows r and r + 8 of a 64 x DP accumulator (C fragments), times
+// inv0 and inv1, as bf16 into a swizzled 64-row tile of chunk tiles
+// chunk_bytes apart (o = O / l in the forward, the scaled gradients in the
+// backward): column tile n goes to chunk n / 8, its 16 bytes to chunk
+// position (n % 8) ^ g (r % 8 = g).
+template <int DP>
+__device__ __forceinline__ void write_rows(unsigned char* tile,
+                                           uint32_t chunk_bytes,
+                                           const float (&acc)[DP / 2],
+                                           float inv0, float inv1, int r,
+                                           int g, int t) {
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    unsigned char* base = tile + (n / 8) * chunk_bytes;
+    const int off = (((n % 8) ^ g) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(base + r * kRowBytes + off) =
+        pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(base + (r + 8) * kRowBytes + off) =
+        pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+}
+
+// ------------------------------------------------- tensor maps ----
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one (B, L, H, d) bf16 tensor with the given element
+// strides: inner extent d, boxes of 64 columns (one chunk) by `rows` rows
+// of one (batch, head), 128-byte swizzle, zeros outside the tensor, the
+// given L2 promotion of its loads.
+inline cudaError_t tensor_map(
+    CUtensorMap* map, const void* ptr, int B, int L, int H, int d,
+    Strides st, int rows,
+    CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(L), cuuint64_t(H),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(st.l) * 2, cuuint64_t(st.h) * 2,
+                                 cuuint64_t(st.b) * 2};
+  const cuuint32_t box[4] = {kBoxD, cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90_tiles

@@ -6,9 +6,12 @@ Replaces view_neti_tpu/ops/flash_attention.py: K1 its _fwd_kernel (launched
 by _flash_fwd), K2 and K3 its _bwd_dq_kernel and _bwd_dkv_kernel (launched
 by _flash_bwd_rule, the custom_vjp backward). The CUDA sources are
 csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_fwd.cu (K1's two
-designs, chosen per shape by fwd_design), csrc/flash_attention_bwd_dq.cu
-(K2) and csrc/flash_attention_bwd_dkv.cu (K3, with its split reduction);
-see their headers for the design and what bounds each kernel on an H100.
+designs, chosen per shape by fwd_design), csrc/flash_attention_bwd_dq_sm90.cu
+and csrc/flash_attention_bwd_dq.cu (K2's two designs) and
+csrc/flash_attention_bwd_dkv_sm90.cu and csrc/flash_attention_bwd_dkv.cu
+(K3's, with their split reduction, csrc/dkv_reduce.cuh), K2's and K3's
+chosen per shape by bwd_design; see their headers for the design and what
+bounds each kernel on an H100.
 
 Layout at this module's functions is the JAX package's: q (B, Lq, H, d),
 k/v (B, Lk, H, d); the forward returns o (B, Lq, H, d) in q's dtype and the
@@ -19,8 +22,8 @@ and bounds checks in the kernels.
 
 Each wrapper launches on the current stream and counts its launch in
 `<wrapper>.launches`, and its model FLOPs where a count is open
-(ops/flop_count.py); K1's wrapper also counts each design's launches in
-`flash_attention.designs`. Under a CUDA graph's capture (utils/graphs.py) the
+(ops/flop_count.py); each also counts its design's launches in
+`<wrapper>.designs`. Under a CUDA graph's capture (utils/graphs.py) the
 launch goes into the graph: the first-launch work (the library's load and
 K3's tile check here, the kernels' shared-memory attribute in
 csrc/mma_tiles.cuh) has run in the eager warm-up before, K3's split
@@ -49,6 +52,13 @@ _DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 18 + [_F, _P]
 FWD_ENTRIES = {
     "sm90": ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_bf16"),
     "mma_sync": ("flash_attention_fwd", "flash_attention_fwd_bf16")}
+# K2's ("dq") and K3's ("dkv") designs: the library of each, whose C entry
+# point is flash_attention_bwd_<kernel>[_sm90]_bf16
+BWD_ENTRIES = {
+    "dq": {"sm90": "flash_attention_bwd_dq_sm90",
+           "mma_sync": "flash_attention_bwd_dq"},
+    "dkv": {"sm90": "flash_attention_bwd_dkv_sm90",
+            "mma_sync": "flash_attention_bwd_dkv"}}
 # K3 keeps a warp's dK and dV accumulators (2 x 16 x d fp32) in registers
 # beside its score fragments, which caps the head dim of the backward
 MAX_BWD_HEAD_DIM = 192
@@ -65,13 +75,15 @@ def sm_count(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _check_dkv_tiles() -> None:
-    lib = build.load("flash_attention_bwd_dkv")
-    have = (lib.flash_attention_bwd_dkv_key_tile(),
-            lib.flash_attention_bwd_dkv_query_granule())
+def _check_dkv_tiles(lib_name: str) -> None:
+    """Both K3 designs split the queries by dkv_splits: each library's key
+    tile and query granule must be the wrapper's."""
+    lib = build.load(lib_name)
+    have = (getattr(lib, f"{lib_name}_key_tile")(),
+            getattr(lib, f"{lib_name}_query_granule")())
     if have != (DKV_KEY_TILE, DKV_QUERY_GRANULE):
-        raise RuntimeError(f"flash_attention_bwd_dkv: the library's key tile "
-                           f"and query granule {have} are not the wrapper's "
+        raise RuntimeError(f"{lib_name}: the library's key tile and query "
+                           f"granule {have} are not the wrapper's "
                            f"{(DKV_KEY_TILE, DKV_QUERY_GRANULE)}")
 
 
@@ -259,70 +271,124 @@ def _check_bwd(what, q, k, v, do, lse, delta):
                              f"(B, H, Lq) tensor on q's device")
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta):
-    """dq of flash attention from the forward's lse, the output gradient do
-    and delta = attention_delta(o, do).
+def bwd_design(d: int, Lk: int) -> str:
+    """Which design of K2 and K3 a CUDA call with head dim d and Lk keys
+    launches: "sm90" (csrc/flash_attention_bwd_dq_sm90.cu,
+    csrc/flash_attention_bwd_dkv_sm90.cu) for the head-dim buckets 48 and
+    64 above 80 keys (the self-attentions of SD-1.5's d = 40 and SD-2.1's
+    d = 64), else "mma_sync" (csrc/flash_attention_bwd_dq.cu,
+    csrc/flash_attention_bwd_dkv.cu): the 77-key cross-attentions, the
+    buckets 80 and 160 and SD-2.1's 48-key mid block."""
+    return "sm90" if 32 < d <= 64 and Lk > 80 else "mma_sync"
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K2 or
-    raises."""
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, need_dkv=False)[0]
+
+def _bwd_entry(kernel: str, design: str):
+    lib = BWD_ENTRIES[kernel][design]
+    symbol = f"{lib}_bf16"
+    argtypes = _DQ_ARGTYPES if kernel == "dq" else _DKV_ARGTYPES
+    return lib, symbol, build.entry(lib, symbol, argtypes)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, design=None):
+    """K2's `design` (bwd_design's by default) on CUDA tensors, checked:
+    (dq, design). Counts nothing."""
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     B, Lq, H, d = q.shape
+    Lk = k.shape[1]
+    design = design or bwd_design(d, Lk)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    fn = build.entry("flash_attention_bwd_dq", "flash_attention_bwd_dq_bf16",
-                     _DQ_ARGTYPES)
+    lib, symbol, fn = _bwd_entry("dq", design)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq,
-             k.shape[1], d, *_strides(q, k, v, do, dq), d ** -0.5,
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq, Lk,
+             d, *_strides(q, k, v, do, dq), d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_bwd_dq", err, "flash_attention_bwd_dq_bf16")
-    flash_attention_bwd_dq.launches += 1
-    if KernelFlops.active is not None:
-        KernelFlops.active.add("K2", attention_flops(B, H, Lq, k.shape[1],
-                                                     d))
-    return dq
+    build.check(lib, err, symbol)
+    return dq, design
 
 
-flash_attention_bwd_dq.launches = 0
-
-
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
-    """(dk, dv) of flash attention from the same inputs as
-    flash_attention_bwd_dq.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches K3 or
-    raises. Where dkv_splits > 1, K3 splits Lq across blocks into an fp32
-    scratch allocated here, and its reduction kernel sums the splits in a
-    fixed order (no atomics: the result is the same from run to run)."""
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, need_dq=False)[1:]
+def _launch_bwd_dkv(q, k, v, do, lse, delta, design=None):
+    """K3's `design` (bwd_design's by default) on CUDA tensors, checked:
+    (dk, dv, design). Counts nothing."""
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
-    _check_dkv_tiles()
     B, Lq, H, d = q.shape
     Lk = k.shape[1]
+    design = design or bwd_design(d, Lk)
+    lib, symbol, fn = _bwd_entry("dkv", design)
+    _check_dkv_tiles(lib)
     splits = dkv_splits(B, H, Lq, Lk, sm_count(q.device))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     part = (torch.empty((2, splits, B * H, Lk, d), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
-    fn = build.entry("flash_attention_bwd_dkv",
-                     "flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              part.data_ptr() if part is not None else None, B, H, Lq, Lk, d,
              splits, dkv_split_rows(Lq, splits),
              *_strides(q, k, v, do, dk, dv), d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_bwd_dkv", err,
-                "flash_attention_bwd_dkv_bf16")
-    flash_attention_bwd_dkv.launches += 1
+    build.check(lib, err, symbol)
+    return dk, dv, design
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta):
+    """dq of flash attention from the forward's lse, the output gradient do
+    and delta = attention_delta(o, do).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the K2
+    design that bwd_design names, or raises: nothing falls back to the
+    other design."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, need_dkv=False)[0]
+    dq, design = _launch_bwd_dq(q, k, v, do, lse, delta)
+    flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.designs[design] += 1
     if KernelFlops.active is not None:
-        KernelFlops.active.add("K3", attention_flops(B, H, Lq, Lk, d))
+        B, Lq, H, d = q.shape
+        KernelFlops.active.add("K2", attention_flops(B, H, Lq, k.shape[1],
+                                                     d))
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.designs = {"sm90": 0, "mma_sync": 0}
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
+    """(dk, dv) of flash attention from the same inputs as
+    flash_attention_bwd_dq.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the K3
+    design that bwd_design names, or raises. Where dkv_splits > 1, K3
+    splits Lq across blocks into an fp32 scratch allocated here, and its
+    reduction kernel sums the splits in a fixed order (no atomics: the
+    result is the same from run to run)."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, need_dq=False)[1:]
+    dk, dv, design = _launch_bwd_dkv(q, k, v, do, lse, delta)
+    flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.designs[design] += 1
+    if KernelFlops.active is not None:
+        B, Lq, H, d = q.shape
+        KernelFlops.active.add("K3", attention_flops(B, H, Lq, k.shape[1],
+                                                     d))
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.designs = {"sm90": 0, "mma_sync": 0}
+
+
+def _flash_attention_bwd_dq_mma_sync(q, k, v, do, lse, delta):
+    """K2's mma.sync design (csrc/flash_attention_bwd_dq.cu) at any shape,
+    for timing and checking it beside the sm90 design on the card; counts
+    nothing. CUDA tensors only."""
+    return _launch_bwd_dq(q, k, v, do, lse, delta, "mma_sync")[0]
+
+
+def _flash_attention_bwd_dkv_mma_sync(q, k, v, do, lse, delta):
+    """K3's mma.sync design (csrc/flash_attention_bwd_dkv.cu) at any shape,
+    as _flash_attention_bwd_dq_mma_sync: (dk, dv)."""
+    return _launch_bwd_dkv(q, k, v, do, lse, delta, "mma_sync")[:2]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, need_dq: bool = True,
