@@ -5,14 +5,14 @@
 
 Phases; any failure ends the run with a non-zero exit:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the seven kernel libraries from
+  2. build   -- nvcc builds the eight kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
                 kernel's registers and spills; the instantiations the
                 paths run (K1's two designs and K2's and K3's mma.sync
                 designs at the head-dim buckets 48, 64, 80 and 160, K2's
-                and K3's Hopper designs at 48 and 64, and every K4
-                instantiation) must not spill, and ptxas must serialise
-                no warpgroup product;
+                and K3's Hopper designs at 48 and 64, and every
+                instantiation of K4's two designs) must not spill, and
+                ptxas must serialise no warpgroup product;
   3. kernels -- the flash-attention forward (K1: its Hopper design on
                 wgmma and TMA at the buckets 48, 64, 80 and 160, its
                 long-key kernel above 80 keys and its short-key kernel up
@@ -22,8 +22,11 @@ Phases; any failure ends the run with a non-zero exit:
                 buckets 48 and 64 above 80 keys, the train steps'
                 self-attentions, with the mma.sync design checked and
                 timed beside it there; the mma.sync design at the other
-                shapes) and the fused GroupNorm+SiLU+conv3x3 (K4) at every
-                shape the SD-1.5 768x576 serving path, the 384x512 B=9
+                shapes) and the fused GroupNorm+SiLU+conv3x3 (K4: its
+                Hopper design on wgmma and TMA at every Cout > 16, the
+                ResNet convs, with the mma.sync design checked and timed
+                beside it; the mma.sync design at the two narrow convs)
+                at every shape the SD-1.5 768x576 serving path, the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
                 object renders) give them, the folders phase's 512x512
                 B=9 train step (K1-K3 at 4096 x 4096 and 4096 x 77, K4's
@@ -38,17 +41,21 @@ Phases; any failure ends the run with a non-zero exit:
                 beside the plain version, one PyTorch library call and
                 the card's bound (and the bound's share of the kernel's
                 time); at the Hopper design's shapes, also both
-                designs' per-call time in a CUDA graph of 20 calls and
-                their host time a call; every path's counted run below
-                holds K1's, K2's and K3's launches by design
+                designs' per-call time in a CUDA graph of 20 calls (K4:
+                10) and their host time a call; every path's counted run
+                below holds K1's to K4's launches by design
                 (launch_counts' "K1 sm90", "K1 mma_sync", ...): all 32 of
                 a UNet forward's K1 on the Hopper design, SD-1.5's and
                 SD-2.1's (SD15_SM90, M3_SM90); 4 of a train step's 30 K2
                 and 31 K3 launches on SD-1.5, 14 on SD-2.1
                 (SD15_BWD_SM90, M3_BWD_SM90, which bwd_design must give
-                at attention_shapes); a `backward pair` line sums K2 and
+                at attention_shapes); 20 of an encode's 21 K4 launches
+                and 28 of a decode's 29 (K4_SM90, which conv_design must
+                give at k4_shapes); a `backward pair` line sums K2 and
                 K3 over each training path, as run and with the mma.sync
-                design at every shape, beside SDPA's backward;
+                design at every shape, beside SDPA's backward, and a
+                `conv paths` line sums K4 over each path the same way,
+                beside GroupNorm + SiLU + cuDNN;
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -512,26 +519,30 @@ def ptxas_usage(logs):
 
 PATH_BUCKETS = (48, 64, 80, 160)   # SD-1.5's head dims 40/80/160, SD-2.1's 64
 BWD_SM90_BUCKETS = (48, 64)        # K2's and K3's Hopper design
+K4_SM90_INSTANTIATIONS = 1         # K4's Hopper design: one tile
 
 
 def check_path_spills(usage):
     """The instantiations of K1, K2 and K3 (each design) at the paths'
     head-dim buckets (PATH_BUCKETS; the Hopper designs of K2 and K3 hold
-    only 48 and 64) and every K4 instantiation must spill nothing; prints
-    every instantiation of the kernels."""
+    only 48 and 64) and every instantiation of K4's two designs must spill
+    nothing; prints every instantiation of the kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
         m = re.search(r"(flash_fwd_kernel(?:_sm90(?:_short)?)?|"
                       r"flash_bwd_dq_kernel(?:_sm90)?|"
-                      r"flash_bwd_dkv_kernel(?:_sm90)?|fused_conv_kernel)"
-                      r"I((?:Li\d+E)+)", fn)
+                      r"flash_bwd_dkv_kernel(?:_sm90)?|"
+                      r"fused_conv_kernel(?:_sm90)?)"
+                      r"I((?:L[ib]\d+E)+)", fn)
         if not m:
             continue
         args = [int(a) for a in re.findall(r"\d+", m.group(2))]
         print(f"build {lib}: {m.group(1)}<{', '.join(map(str, args))}>: "
               f"{regs} registers, {spill} bytes spill", flush=True)
-        # K1-K3's first template argument is the head-dim bucket
-        if m.group(1) == "fused_conv_kernel" or args[0] in PATH_BUCKETS:
+        # K1-K3's first template argument is the head-dim bucket; every
+        # instantiation of K4's two designs runs on a path
+        if m.group(1).startswith("fused_conv_kernel") or (
+                args[0] in PATH_BUCKETS):
             seen += 1
             check(spill == 0, f"{fn} (on the path) spills {spill} bytes")
     return seen
@@ -548,9 +559,9 @@ def check_wgmma_pipelined(logs):
 
 
 def launch_counts(reset: bool = False):
-    """Each kernel wrapper's launch count, {"K1": n, ...}, and K1's by
-    design ("K1 sm90", "K1 mma_sync"), graph replays included
-    (utils/graphs.py); reset sets them all to 0 first."""
+    """Each kernel wrapper's launch count, {"K1": n, ...}, and each one's by
+    design ("K1 sm90", "K1 mma_sync", ..., "K4 mma_sync"), graph replays
+    included (utils/graphs.py); reset sets them all to 0 first."""
     from view_neti_tpu_torch.utils.graphs import launch_counts as counts
     return counts(reset)
 
@@ -627,8 +638,50 @@ def train_paths_bwd():
             "tp": unet_bwd(TP_WARM + TP_STEPS)}
 
 
+# K4's launches an encode (the train step's VAE encoder, 21 sections) and a
+# decode (29) on its Hopper design (ops/fused_conv.py::conv_design: every
+# Cout > 16, the ResNet convs): all but the encoder's last conv (512 -> 8)
+# and the decoder's conv_out (128 -> 3)
+K4_SM90 = {"encode": 20, "decode": 28}
+
+
+def k4(encodes: int = 0, decodes: int = 0):
+    """K4's launches in `encodes` VAE encodes and `decodes` decodes as
+    launch_counts keys them: 21 and 29 each, K4_SM90 of them on the
+    Hopper design."""
+    total = 21 * encodes + 29 * decodes
+    sm90 = K4_SM90["encode"] * encodes + K4_SM90["decode"] * decodes
+    return {"K4": total, "K4 sm90": sm90, "K4 mma_sync": total - sm90}
+
+
+def path_codecs():
+    """Each path's VAE encodes and decodes in one run (k4_shapes'
+    per_run): {path: (encodes, decodes)}."""
+    return {"serve": (0, 1), "train": (1, 0),
+            "validate": (VAL_TRAIN_STEPS, EVAL_CAMS + 1),
+            "acceptance": (ACC_STEPS, EVAL_CAMS), "inference": (0, INFER_CAMS),
+            "mode3": (2 * (M3_WARM + M3_STEPS),
+                      M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1)),
+            "folders": (2 * (FOLDERS_WARM + FOLDERS_STEPS), FOLDERS_RENDERS),
+            "tp": (TP_WARM + TP_STEPS, 1)}
+
+
+def conv_split_by_path(shapes, design):
+    """K4's launches on each path of k4_shapes' rows, by design as `design`
+    (ops/fused_conv.py::conv_design) names each shape's: {path:
+    launch_counts-style counts}. Every path must give
+    k4(*path_codecs()[path]) (phase_kernels checks)."""
+    out = {}
+    for _, _, _, ci, co, _, per_run in shapes:
+        for path, n in per_run.items():
+            counts = out.setdefault(path, {})
+            for k in ("K4", f"K4 {design(ci, co)}"):
+                counts[k] = counts.get(k, 0) + n
+    return out
+
+
 # an SD-1.5 train step's launches
-SD15_STEP = {**unet_k1(1), **unet_bwd(1), "K4": 21}
+SD15_STEP = {**unet_k1(1), **unet_bwd(1), **k4(encodes=1)}
 
 
 def device_profile(torch, fn, ranges=()):
@@ -1034,8 +1087,15 @@ def k4_shapes():
 
 
 def k4_row(torch, F, fc, shape, g, dev):
+    """K4 at one shape of the paths, on the design conv_design names: held
+    against its plain version with two controls its limit has to catch,
+    timed eagerly, in a CUDA graph of 10 calls and on the host, beside the
+    plain version, GroupNorm + SiLU + cuDNN and the bound; at the Hopper
+    design's shapes the mma.sync design is held to the same limit and
+    timed the same way at the same inputs."""
     B, H, W, Ci, Co, use_res, per_run = shape
     label = f"B{B} {H}x{W} {Ci}->{Co}" + (" +res" if use_res else "")
+    design = fc.conv_design(Ci, Co)
     x = torch.randn(B, H, W, Ci, generator=g, device=dev).bfloat16()
     a = 1 + 0.1 * torch.randn(B, Ci, generator=g, device=dev)
     b = 0.1 * torch.randn(B, Ci, generator=g, device=dev)
@@ -1070,7 +1130,8 @@ def k4_row(torch, F, fc, shape, g, dev):
     # chunk of the kernel's channel loop), and the halo fault above
     controls = dict(chunk=of_limit(ref(Ci - fc.CIN_CHUNK), want, tol),
                     halo=of_limit(padded_before_silu(), want, tol))
-    check(ratio <= 1, f"K4 disagrees at {label}: {ratio:.3g} of the limit")
+    check(ratio <= 1, f"K4 ({design}) disagrees at {label}: {ratio:.3g} of "
+                      f"the limit")
     check(min(controls.values()) > 1,
           f"K4's limit at {label} misses a control's fault: {controls}")
     gn_w = torch.ones(Ci, device=dev, dtype=torch.bfloat16)
@@ -1089,17 +1150,42 @@ def k4_row(torch, F, fc, shape, g, dev):
                     2.0 * (x.numel() + out.numel() + w.numel()
                            + (res.numel() if use_res else 0))
                     + 8.0 * B * Ci)
-    return dict(shape=label, per_run=per_run,
-                max_abs_err=(out.float() - want).abs().max().item(),
-                err_of_limit=ratio,
-                control_of_limit=min(controls.values()), controls=controls,
-                ms=time_ms(torch, lambda: fc.fused_affine_silu_conv3x3(
-                    x, a, b, w, bias, residual=res)),
-                plain_ms=time_ms(torch, lambda:
-                                 fc.fused_affine_silu_conv3x3_ref(
-                                     x, a, b, w, bias, residual=res), 100.0),
-                library_ms=time_ms(torch, library), bound_ms=bms,
-                bound_by=by)
+
+    def run(d=design):
+        # counts nothing: the launch checks read the paths' runs only
+        return fc._fused_affine_silu_conv3x3_design(d, x, a, b, w, bias,
+                                                    residual=res)
+
+    row = dict(shape=label, design=design, per_run=per_run,
+               max_abs_err=(out.float() - want).abs().max().item(),
+               err_of_limit=ratio,
+               control_of_limit=min(controls.values()), controls=controls,
+               ms=time_ms(torch, lambda: fc.fused_affine_silu_conv3x3(
+                   x, a, b, w, bias, residual=res)),
+               graph_ms=graph_ms(torch, run, calls=10, replays=3),
+               host_us=host_us(torch, run, calls=20),
+               plain_ms=time_ms(torch, lambda:
+                                fc.fused_affine_silu_conv3x3_ref(
+                                    x, a, b, w, bias, residual=res), 100.0),
+               library_ms=time_ms(torch, library), bound_ms=bms,
+               bound_by=by)
+    if design == "sm90":
+        # the mma.sync design at the same inputs, held to the same limit
+        # and timed the same way in the same call
+        mo = run("mma_sync")
+        mma_ratio = of_limit(mo, want, tol)
+        check(mma_ratio <= 1, f"K4 (mma_sync) disagrees at {label}: "
+                              f"{mma_ratio:.3g} of the limit")
+        row.update(mma_sync_err_of_limit=mma_ratio,
+                   mma_sync_max_abs_err=(mo.float() - want).abs().max()
+                   .item(),
+                   mma_sync_ms=time_ms(torch, lambda: run("mma_sync")),
+                   mma_sync_graph_ms=graph_ms(torch, lambda: run("mma_sync"),
+                                              calls=10, replays=3),
+                   mma_sync_host_us=host_us(torch, lambda: run("mma_sync"),
+                                            calls=20))
+        del mo
+    return row
 
 
 def print_row(key, row, card):
@@ -1113,6 +1199,9 @@ def print_row(key, row, card):
                   f"{row['mma_sync_graph_ms']:.4f}; host "
                   f"{row['host_us']:.1f} us a call, mma_sync "
                   f"{row['mma_sync_host_us']:.1f}")
+    elif "graph_ms" in row:
+        extra += (f"; graphed {row['graph_ms']:.4f} ms; host "
+                  f"{row['host_us']:.1f} us a call")
     if "controls" in row:
         extra += ", controls " + ", ".join(
             f"{k} {v:.3g}" for k, v in row["controls"].items())
@@ -1149,6 +1238,26 @@ def bwd_pair(results):
     return out
 
 
+def conv_paths(rows):
+    """K4 summed over one run of each path, each shape's launches there
+    times its time: as run (each shape on the design conv_design names),
+    eagerly and in a CUDA graph; with the mma.sync design at every shape
+    (its time beside the Hopper design's at the same inputs), eagerly and
+    in a graph; GroupNorm + SiLU + cuDNN; the bound."""
+    out = {}
+    for p in path_codecs():
+        def total(field, fallback="ms"):
+            return sum(r.get(field, r[fallback]) * r["per_run"].get(p, 0)
+                       for r in rows)
+        out[p] = dict(k4_ms=total("ms"), k4_graph_ms=total("graph_ms"),
+                      k4_mma_sync_ms=total("mma_sync_ms"),
+                      k4_mma_sync_graph_ms=total("mma_sync_graph_ms",
+                                                 "graph_ms"),
+                      library_ms=total("library_ms"),
+                      bound_ms=total("bound_ms"))
+    return out
+
+
 def phase_kernels(torch, dev, card, serve_steps):
     import torch.nn.functional as F
     from view_neti_tpu_torch.ops import flash_attention as fa
@@ -1177,23 +1286,21 @@ def phase_kernels(torch, dev, card, serve_steps):
     print(f"backward pair [{card}]: {json.dumps(bwd_pair(results))}",
           flush=True)
     shapes = k4_shapes()
-    check(sum(s[-1].get("serve", 0) for s in shapes) == 29
-          and sum(s[-1].get("train", 0) for s in shapes) == 21
-          and sum(s[-1].get("validate", 0) for s in shapes)
-          == 29 * (EVAL_CAMS + 1) + 21 * VAL_TRAIN_STEPS
-          and sum(s[-1].get("mode3", 0) for s in shapes)
-          == 21 * 2 * (M3_WARM + M3_STEPS)
-          + 29 * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS + 1)
-          and sum(s[-1].get("folders", 0) for s in shapes)
-          == 21 * 2 * (FOLDERS_WARM + FOLDERS_STEPS) + 29 * FOLDERS_RENDERS
-          and sum(s[-1].get("tp", 0) for s in shapes)
-          == 29 + 21 * (TP_WARM + TP_STEPS),
-          "K4 shape table")
+    # every path's K4 launches in k4_shapes, split by conv_design, are what
+    # the launch checks hold the path's counted run to
+    split = conv_split_by_path(shapes, fc.conv_design)
+    codecs = path_codecs()
+    check(sorted(split) == sorted(codecs) and all(
+        split[p] == capture_record(k4(*codecs[p])) for p in split),
+        f"K4 by design in k4_shapes: {split}, the launch checks "
+        f"{ {p: k4(*c) for p, c in codecs.items()} }")
     for shape in shapes:
         row = k4_row(torch, F, fc, shape, g, dev)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         results["K4"].append(row)
         print_row("K4", row, card)
+    print(f"conv paths [{card}]: {json.dumps(conv_paths(results['K4']))}",
+          flush=True)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     return results
@@ -1280,7 +1387,7 @@ def phase_slice(torch, dev, card, steps):
     check(imgs.shape == (3, HEIGHT, WIDTH, 3) and imgs.dtype == np.uint8,
           f"images {imgs.shape} {imgs.dtype}")
     check(imgs.min() != imgs.max(), "images are constant")
-    want = {**unet_k1(2 * steps), **unet_bwd(0), "K4": 2 * 29}
+    want = {**unet_k1(2 * steps), **unet_bwd(0), **k4(decodes=2)}
     check(launches == want, f"serving launches in 2 runs {launches}, want "
                             f"{want} (no backward)")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
@@ -1288,7 +1395,8 @@ def phase_slice(torch, dev, card, steps):
           and loop_cap.replays == 1,
           f"the denoise graph's launches {loop_cap.launches}, replays "
           f"{loop_cap.replays}")
-    check(dec_cap.launches == {"K4": 29} and dec_cap.replays == 1,
+    check(dec_cap.launches == capture_record(k4(decodes=1))
+          and dec_cap.replays == 1,
           f"the decode graph's launches {dec_cap.launches}")
     print(f"slice: first run {first_s:.2f} s, capture run "
           f"{capture_run_s:.2f} s, launches {launches}", flush=True)
@@ -1702,10 +1810,11 @@ def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
     with open(paths[0]) as f:
         events = json.load(f)["traceEvents"]
     parse_s = time.perf_counter() - t0
-    # the Hopper designs' kernels of K1-K3, by name
+    # the Hopper designs' kernels of K1-K4, by name
     sm90_names = {"K1": "flash_fwd_kernel_sm90",
                   "K2": "flash_bwd_dq_kernel_sm90",
-                  "K3": "flash_bwd_dkv_kernel_sm90"}
+                  "K3": "flash_bwd_dkv_kernel_sm90",
+                  "K4": "fused_conv_kernel_sm90"}
     kernels, graph_launches, sm90 = {}, 0, dict.fromkeys(sm90_names, 0)
     for e in events:
         if e.get("cat") == "kernel":
@@ -2070,7 +2179,7 @@ def phase_weights(torch, dev, card, rect, cal):
     check(torch.equal(out_loaded, out_mem),
           f"the loaded UNet's forward differs from the written stack's by "
           f"{(out_loaded.float() - out_mem.float()).abs().max().item()}")
-    check(launches == {**unet_k1(2), **unet_bwd(0), "K4": 0},
+    check(launches == {**unet_k1(2), **unet_bwd(0), **k4()},
           f"weights launches {launches}")
     stats = dict(gb_read=nbytes / 1e9, dtypes=dtypes, write_s=write_s,
                  coach_build_s=coach_s, load_s=load_s,
@@ -2224,7 +2333,7 @@ def phase_acceptance(torch, dev, card, root, weights, cal, masks_root):
     check(fill is not None and loop is not None,
           "no cache fill or training line in the run's log")
     want = {**unet_k1(ACC_STEPS + ACC_DENOISE * EVAL_CAMS),
-            **unet_bwd(ACC_STEPS), "K4": 21 * ACC_STEPS + 29 * EVAL_CAMS}
+            **unet_bwd(ACC_STEPS), **k4(ACC_STEPS, EVAL_CAMS)}
     check(launches == want, f"acceptance launches {launches}, want {want}")
     check(loaded["cam_idxs"] == res["cam_idxs"][:INFER_CAMS],
           f"offline cameras {loaded['cam_idxs']}")
@@ -2303,7 +2412,7 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
     check(os.path.exists(bundle), "no validation bundle")
     n = VAL_TRAIN_STEPS
     want = {**unet_k1(n + VAL_DENOISE * (EVAL_CAMS + 1)), **unet_bwd(n),
-            "K4": 21 * n + 29 * (EVAL_CAMS + 1)}
+            **k4(n, EVAL_CAMS + 1)}
     check(launches == want, f"validate launches {launches}, want {want}")
     (loop_cap,) = [c for f, _ in coach._sampling.values()
                    for c in f.captures.values()
@@ -2417,7 +2526,7 @@ def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     infer_s = time.perf_counter() - t0
     launches = launch_counts()
     want = {**unet_k1(VAL_DENOISE * INFER_CAMS), **unet_bwd(0),
-            "K4": 29 * INFER_CAMS}
+            **k4(decodes=INFER_CAMS)}
     check(launches == want, f"inference launches {launches}, want {want}")
     check(res["cam_idxs"] == val["cam_idxs"][:INFER_CAMS],
           f"cameras {res['cam_idxs']}")
@@ -2535,7 +2644,7 @@ def phase_mode3(torch, dev, card, coach_stats):
 
     B, n = TRAIN_BATCH, M3_WARM + M3_STEPS
     per_step = {**unet_k1(1, M3_SM90["train"]), **unet_bwd(1, M3_BWD_SM90),
-                "K4": 21}
+                **k4(encodes=1)}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_mode3")
     shutil.rmtree(root, ignore_errors=True)
@@ -2780,7 +2889,7 @@ def phase_mode3(torch, dev, card, coach_stats):
             unet_k1(VAL_DENOISE * M3_TOKENS * M3_SWEEP_CAMS,
                     M3_SM90["sweep"]),
             unet_k1(VAL_DENOISE * M3_TOKENS, M3_SM90["render"]),
-            {"K4": 29 * M3_TOKENS * (M3_SWEEP_CAMS + 1)})
+            k4(decodes=M3_TOKENS * (M3_SWEEP_CAMS + 1)))
         check(launches_b == want_b, f"resumed run launches {launches_b}, "
                                     f"want {want_b}")
 
@@ -2838,7 +2947,7 @@ def phase_mode3(torch, dev, card, coach_stats):
         launches_c = launch_counts()
         want_c = {**unet_k1(VAL_DENOISE * INFER_CAMS * M3_TOKENS,
                             M3_SM90["sweep"]), **unet_bwd(0),
-                  "K4": 29 * INFER_CAMS * M3_TOKENS}
+                  **k4(decodes=INFER_CAMS * M3_TOKENS)}
         check(launches_c == want_c, f"mode-3 inference launches "
                                     f"{launches_c}, want {want_c}")
         check(sorted(offline_res) == sorted(tokens),
@@ -3071,7 +3180,8 @@ def phase_folders(torch, dev, card):
         renders = FOLDERS_PROMPTS if name == "mode0" else (
             1 + FOLDERS_SHEET_TOKENS)
         want = add_counts({k: v * n for k, v in per_step.items()},
-                          unet_k1(VAL_DENOISE * renders), {"K4": 29 * renders})
+                          unet_k1(VAL_DENOISE * renders),
+                          k4(decodes=renders))
         check(launches == want, f"{name} launches {launches}, want {want}")
         # the mappers as the final checkpoint saved them (the profiled
         # step below moves them)
@@ -3714,7 +3824,7 @@ def phase_ddp(torch, dev, card):
                                                   DDP_WORLD))
                              + (r["rank"] == 0))
                      for k, n in {**unet_k1(DDP_VAL_DENOISE), **unet_bwd(0),
-                                  "K4": 29}.items()}
+                                  **k4(decodes=1)}.items()}
                     for r in ranks]
     stats = dict(
         backend=main["backend"], world=DDP_WORLD,
@@ -4147,7 +4257,7 @@ def phase_tp(torch, dev, card):
     steps = TP_WARM + TP_STEPS
     per_step = SD15_STEP
     want_launches = {k: v * steps for k, v in per_step.items()}
-    want_render = {**unet_k1(TP_DENOISE), **unet_bwd(0), "K4": 29}
+    want_render = {**unet_k1(TP_DENOISE), **unet_bwd(0), **k4(decodes=1)}
     unet_blocks, clip_layers = 16, 12
     want_gathers = tp_collectives_per_step(unet_blocks, clip_layers) * steps
     with tempfile.TemporaryDirectory() as root:
@@ -4372,13 +4482,13 @@ def phase_bench(card, slice_stats, coach_stats):
                  for key in ("launches", "flops per image by source")}
         counts, flops = (notes[k][0] if len(notes[k]) == 1 else {}
                          for k in notes)
-        # the kernels of the mode, and K1-K3's launches split by design
+        # the kernels of the mode, and K1-K4's launches split by design
         check(all(counts.get(k, 0) > 0 for k in kernels.split())
               and all(v == 0 for k, v in counts.items()
                       if k.split()[0] not in kernels.split())
               and all(counts.get(f"{k} sm90", 0)
                       + counts.get(f"{k} mma_sync", 0) == counts.get(k, 0)
-                      for k in ("K1", "K2", "K3")),
+                      for k in ("K1", "K2", "K3", "K4")),
               f"bench {name}: launches {counts}, want {kernels} only")
         # each launching kernel's wrapper added its FLOPs to the count
         check(sorted(flops) == sorted(["aten"] + kernels.split())
@@ -4409,8 +4519,8 @@ def phase_bench(card, slice_stats, coach_stats):
 
 
 def mma_sync_rows(rows):
-    """A kernel's mma.sync design (K1's, K2's or K3's) at its Hopper
-    design's shapes, from the check and the time attention_rows took of it
+    """A kernel's mma.sync design (K1's to K4's) at its Hopper design's
+    shapes, from the check and the time attention_rows or k4_row took of it
     at the same inputs: the plain version, the library call, the bound and
     the control are the inputs', its error and times its own."""
     out = []
@@ -4431,8 +4541,8 @@ def mma_sync_rows(rows):
 
 
 def kernel_report(kernels, launches, card):
-    """The {"kernels": [...]} line: per kernel (the two designs of K1, K2
-    and K3 apart),
+    """The {"kernels": [...]} line: per kernel (the two designs of K1, K2,
+    K3 and K4 apart),
     ms / plain_ms / bound_ms / library_ms and share_of_bound (bound_ms /
     ms) at its heaviest main-path shape, and the same summed over one run
     of each path that launches it (<path>_path_*: a serving run, a train
@@ -4443,6 +4553,8 @@ def kernel_report(kernels, launches, card):
     An mma.sync design's entry takes its rows from the shapes it runs and
     from its check and time beside the Hopper design at the same inputs
     (mma_sync_rows), so it keeps its numbers when no path launches it.
+    Each entry carries its heaviest shape's time in a CUDA graph and on
+    the host where the rows have them.
     `launches` holds each path's counted run (launch_counts' keys): a
     kernel's launches, by path, are those of its key there."""
     report = []
@@ -4471,10 +4583,14 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
              "view_neti_tpu/ops/flash_attention.py:190",
              "dk, dv: 2^-8|x| + 2^-4 rms(x)", "mma_sync"),
+            ("K4", "fused_affine_silu_conv3x3_sm90",
+             "view_neti_tpu_torch/csrc/fused_conv_sm90.cu",
+             "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|",
+             "sm90"),
             ("K4", "fused_affine_silu_conv3x3",
              "view_neti_tpu_torch/csrc/fused_conv.cu",
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|",
-             None)):
+             "mma_sync")):
         rows = [r for r in kernels[key]
                 if design is None or r["design"] == design]
         if design == "mma_sync":
@@ -4508,6 +4624,9 @@ def kernel_report(kernels, launches, card):
         if "mma_sync_ms" in top:
             # the mma.sync design at the same shape, in the same call
             entry["mma_sync_ms"] = top["mma_sync_ms"]
+        for k in ("graph_ms", "host_us"):
+            if k in top:
+                entry[k] = top[k]
         report.append(entry)
     return report
 
@@ -4573,11 +4692,12 @@ def main() -> int:
     # run reads the four path buckets of K1's mma.sync design (in two
     # key-tile widths, 64 and 80), of K2's and K3's mma.sync designs and of
     # K1's Hopper design (its long-key and its short-key kernel), the two
-    # buckets of K2's and K3's Hopper designs, and K4's two output-channel
-    # tiles
+    # buckets of K2's and K3's Hopper designs, K4's mma.sync design's two
+    # output-channel tiles and its Hopper design's instantiations
     n = check_path_spills(ptxas_usage(logs))
     check_wgmma_pipelined(logs)
-    want = 6 * len(PATH_BUCKETS) + 2 * len(BWD_SM90_BUCKETS) + 2
+    want = (6 * len(PATH_BUCKETS) + 2 * len(BWD_SM90_BUCKETS) + 2
+            + K4_SM90_INSTANTIATIONS)
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 

@@ -114,7 +114,7 @@ def test_launch_checks_agree_with_bwd_design_on_every_path():
     assert chip_smoke.SD15_STEP == {
         "K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K2": 30, "K2 sm90": 4,
         "K2 mma_sync": 26, "K3": 31, "K3 sm90": 4, "K3 mma_sync": 27,
-        "K4": 21}
+        "K4": 21, "K4 sm90": 20, "K4 mma_sync": 1}
 
 
 # the names ptxas reports for each bucket's instantiation of the two
@@ -307,18 +307,20 @@ def test_kernel_report_and_pair_list_k2_and_k3_by_design():
     bwd = {key: [_row("sm90", "B9 Lq3072", 1.0, {"train": 4}),
                  _row("mma_sync", "B9 Lq3072 Lk77", 0.1, {"train": n})]
            for key, n in (("K2", 26), ("K3", 27))}
-    kernels = {"K1": k1, **bwd, "K4": [_row(None, "s", 1.0, {"train": 21})]}
+    kernels = {"K1": k1, **bwd,
+               "K4": [_row("sm90", "s", 1.0, {"train": 20}),
+                      _row("mma_sync", "s8", 0.1, {"train": 1})]}
     launches = {"train": {k: 3 * v for k, v in chip_smoke.SD15_STEP.items()},
                 "mode3": {**chip_smoke.unet_k1(1),
                           **chip_smoke.unet_bwd(1, chip_smoke.M3_BWD_SM90),
-                          "K4": 21}}
+                          **chip_smoke.k4(encodes=1)}}
     report = chip_smoke.kernel_report(kernels, launches, "H100, 700 W")
     by_name = {e["name"]: e for e in report}
     assert list(by_name) == [
         "flash_attention_fwd_sm90", "flash_attention_fwd",
         "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dkv",
-        "fused_affine_silu_conv3x3"]
+        "fused_affine_silu_conv3x3_sm90", "fused_affine_silu_conv3x3"]
     for e in report:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

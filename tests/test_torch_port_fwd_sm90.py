@@ -111,7 +111,8 @@ def test_unet_k1_and_add_counts_build_the_launch_checks():
     run's: train steps, sweeps and renders at their own splits."""
     assert chip_smoke.SD15_STEP == {"K1": 32, "K1 sm90": 32,
                                     "K1 mma_sync": 0,
-                                    **chip_smoke.unet_bwd(1), "K4": 21}
+                                    **chip_smoke.unet_bwd(1), "K4": 21,
+                                    "K4 sm90": 20, "K4 mma_sync": 1}
     got = chip_smoke.add_counts(
         {"K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K4": 21},
         chip_smoke.unet_k1(2, chip_smoke.M3_SM90["sweep"]), {"K4": 29})
@@ -270,7 +271,7 @@ def test_kernel_report_lists_each_k1_design():
                   bound_by="operations") for design in ("sm90", "mma_sync")]
     kernels = {"K1": [_row("sm90", "B6 Lq6912", 1.3, {"serve": 150}),
                       _row("sm90", "B6 Lq6912 Lk77", 0.1, {"serve": 150})],
-               "K2": other, "K3": other, "K4": [dict(other[1], design=None)]}
+               "K2": other, "K3": other, "K4": other}
     launches = {
         "serve": {**chip_smoke.unet_k1(60), **chip_smoke.unet_bwd(0),
                   "K4": 58},
@@ -284,7 +285,8 @@ def test_kernel_report_lists_each_k1_design():
     assert names == ["flash_attention_fwd_sm90", "flash_attention_fwd",
                      "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv_sm90",
-                     "flash_attention_bwd_dkv", "fused_affine_silu_conv3x3"]
+                     "flash_attention_bwd_dkv", "fused_affine_silu_conv3x3_sm90",
+                     "fused_affine_silu_conv3x3"]
     for e in report:
         assert _REPORT_KEYS <= set(e)
     sm90, mma = report[0], report[1]
@@ -317,10 +319,9 @@ def test_kernel_report_keeps_a_shape_left_on_mma_sync():
     mma.sync entry; its heaviest shape is the heaviest of either."""
     kernels = {"K1": [_row("sm90", "B6 Lq6912", 1.3, {"serve": 150}),
                       _row("mma_sync", "B9 Lq48", 0.05, {"mode3": 6})]}
-    for key in ("K2", "K3"):
+    for key in ("K2", "K3", "K4"):
         kernels[key] = [_row(design, "s", 1.0, {"train": 30})
                         for design in ("sm90", "mma_sync")]
-    kernels["K4"] = [_row(None, "s", 1.0, {"train": 30})]
     launches = {"serve": {**chip_smoke.unet_k1(60), **chip_smoke.unet_bwd(0),
                           "K4": 58},
                 "mode3": {"K1": 96, "K1 sm90": 90, "K1 mma_sync": 6,
@@ -369,7 +370,8 @@ def test_launch_counts_split_k1_by_design_and_reset_together(saved_counts):
     assert tfa.flash_attention.designs == {"sm90": 3, "mma_sync": 4}
     got = graphs.launch_counts()
     assert list(got) == ["K1", "K2", "K3", "K4", "K1 sm90", "K1 mma_sync",
-                         "K2 sm90", "K2 mma_sync", "K3 sm90", "K3 mma_sync"]
+                         "K2 sm90", "K2 mma_sync", "K3 sm90", "K3 mma_sync",
+                         "K4 sm90", "K4 mma_sync"]
     assert {k: got[k] for k in ("K1", "K1 sm90", "K1 mma_sync", "K4")} == {
         "K1": 7, "K1 sm90": 3, "K1 mma_sync": 4, "K4": 2}
     assert graphs.launch_counts(reset=True) == dict.fromkeys(got, 0)
@@ -388,7 +390,8 @@ def test_capture_record_keeps_only_the_counts_a_capture_moved():
         "K1": 960, "K1 sm90": 960}
     assert chip_smoke.capture_record(chip_smoke.SD15_STEP) == {
         "K1": 32, "K1 sm90": 32, "K2": 30, "K2 sm90": 4, "K2 mma_sync": 26,
-        "K3": 31, "K3 sm90": 4, "K3 mma_sync": 27, "K4": 21}
+        "K3": 31, "K3 sm90": 4, "K3 mma_sync": 27, "K4": 21, "K4 sm90": 20,
+        "K4 mma_sync": 1}
 
 
 class _Graph:
@@ -412,7 +415,8 @@ def test_a_replay_adds_its_capture_record_by_design(saved_counts):
     assert graphs.launch_counts() == {"K1": 64, "K2": 1, "K3": 0, "K4": 0,
                                       "K1 sm90": 10, "K1 mma_sync": 54,
                                       "K2 sm90": 0, "K2 mma_sync": 0,
-                                      "K3 sm90": 0, "K3 mma_sync": 0}
+                                      "K3 sm90": 0, "K3 mma_sync": 0,
+                                      "K4 sm90": 0, "K4 mma_sync": 0}
 
 
 # the Hopper design's tile edges: queries past one 128-row block, keys

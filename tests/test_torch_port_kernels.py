@@ -562,7 +562,10 @@ def test_flash_attention_bwd_refuses_what_the_kernels_do_not_take(dev):
 
 
 def _check_conv(dev, B, H, W, Ci, Co, use_bias=True, use_add=False,
-                res=None, out="bfloat16"):
+                res=None, out="bfloat16", design=None):
+    """K4 against its plain version: through the wrapper (its launch and
+    conv_design's design counted), or with `design` forced (counting
+    nothing)."""
     x = _randn((B, H, W, Ci), 0, dev).bfloat16()
     a = 1 + _randn((B, Ci), 1, dev, 0.1)
     b = _randn((B, Ci), 2, dev, 0.1)
@@ -573,10 +576,18 @@ def _check_conv(dev, B, H, W, Ci, Co, use_bias=True, use_add=False,
                 if res else None)
     out_dtype = getattr(torch, out)
     before = tfc.fused_affine_silu_conv3x3.launches
-    got = tfc.fused_affine_silu_conv3x3(x, a, b, w, bias, add_bc, residual,
-                                        out_dtype)
+    designs = dict(tfc.fused_affine_silu_conv3x3.designs)
+    if design is None:
+        got = tfc.fused_affine_silu_conv3x3(x, a, b, w, bias, add_bc,
+                                            residual, out_dtype)
+        designs[tfc.conv_design(Ci, Co)] += 1
+    else:
+        got = tfc._fused_affine_silu_conv3x3_design(
+            design, x, a, b, w, bias, add_bc, residual, out_dtype)
     torch.cuda.synchronize()
-    assert tfc.fused_affine_silu_conv3x3.launches == before + 1
+    assert tfc.fused_affine_silu_conv3x3.launches == before + (
+        design is None)
+    assert tfc.fused_affine_silu_conv3x3.designs == designs
     assert got.dtype == out_dtype and got.shape == (B, H, W, Co)
     want = tfc.fused_affine_silu_conv3x3_ref(x, a, b, w, bias, add_bc,
                                              residual, torch.float32)
@@ -626,13 +637,86 @@ def test_fused_conv_at_the_folder_paths_encoder_shape(dev, res):
     _check_conv(dev, 9, 512, 512, 128, 128, True, False, res, "bfloat16")
 
 
-# each output-channel tile of K4 (16 and 128) at the narrow Couts of the
-# VAE (3, 8) and a wider one, whatever conv_n_tile would pick
+# each output-channel tile of K4's mma.sync design (16 and 128) at the
+# narrow Couts of the VAE (3, 8) and a wider one, whatever conv_n_tile
+# would pick, on the mma.sync design whatever conv_design would pick
 @pytest.mark.parametrize("n_tile", [16, 128])
 @pytest.mark.parametrize("Co", [3, 8, 24])
 def test_fused_conv_each_n_tile(dev, monkeypatch, n_tile, Co):
     monkeypatch.setattr(tfc, "conv_n_tile", lambda cout: n_tile)
+    monkeypatch.setattr(tfc, "conv_design", lambda cin, cout: "mma_sync")
     _check_conv(dev, 2, 10, 37, 72, Co, True, True, "bfloat16")
+
+
+# K4's Hopper design (csrc/fused_conv_sm90.cu) and its mma.sync design,
+# each forced on, at the Hopper design's tile edges: H and W across its
+# 8 x 32 pixel tiles (neither a multiple), Cin 72 (a ragged 64-channel
+# chunk, an even chunk count: the residual's boxes by TMA) and 136 (an odd
+# one), Cout 136 (a ragged 128-channel tile, two 64-channel boxes of which
+# the second is ragged), 17 (not a multiple of 8: the wrapper pads the
+# weights) and 24, every epilogue term, bf16 and fp32 residual and output
+CONV_SM90_EDGES = [
+    (2, 9, 35, 72, 136, True, "bfloat16", "bfloat16"),
+    (2, 9, 35, 72, 136, True, "float32", "bfloat16"),
+    (2, 9, 35, 72, 136, True, "bfloat16", "float32"),
+    (1, 17, 70, 136, 136, False, "bfloat16", "bfloat16"),
+    (3, 7, 33, 136, 200, True, "float32", "float32"),
+    (2, 10, 37, 72, 17, True, "bfloat16", "bfloat16"),
+    (1, 1, 40, 128, 24, False, None, "bfloat16"),
+    (2, 8, 32, 64, 128, True, "bfloat16", "bfloat16")]
+
+
+@pytest.mark.parametrize("design", ["sm90", "mma_sync"])
+@pytest.mark.parametrize("B,H,W,Ci,Co,use_add,res,out", CONV_SM90_EDGES)
+def test_fused_conv_each_design_at_the_sm90_tile_edges(dev, design, B, H, W,
+                                                       Ci, Co, use_add, res,
+                                                       out):
+    _check_conv(dev, B, H, W, Ci, Co, True, use_add, res, out, design)
+
+
+@pytest.mark.parametrize("Co,want", [(8, "mma_sync"), (16, "mma_sync"),
+                                     (17, "sm90"), (128, "sm90")])
+def test_fused_conv_counts_conv_designs_choice(dev, Co, want):
+    """The wrapper launches the design conv_design names (every Cout > 16
+    on the Hopper design) and counts it."""
+    assert tfc.conv_design(64, Co) == want
+    _check_conv(dev, 1, 9, 35, 64, Co, True, True, "bfloat16")
+
+
+def test_fused_conv_sm90_is_deterministic_and_graphs_bit_equal(dev):
+    """The Hopper design gives the same bits twice and in a CUDA graph
+    replay; a, b and the weights at 16-byte misaligned offsets (the wrapper
+    copies a and b and pads the weights) give the aligned call's bits."""
+    B, H, W, Ci, Co = 2, 17, 40, 136, 136
+    x = _randn((B, H, W, Ci), 0, dev).bfloat16()
+    ab = 1 + _randn((2, B * Ci + 1), 1, dev, 0.1)
+    a, b = ab[0, :B * Ci].view(B, Ci), ab[1, :B * Ci].view(B, Ci)
+    w = _randn((3, 3, Ci, Co), 3, dev, (9 * Ci) ** -0.5).bfloat16()
+    res = _randn((B, H, W, Co), 6, dev).bfloat16()
+    first = tfc.fused_affine_silu_conv3x3(x, a, b, w, residual=res)
+    assert torch.equal(first, tfc.fused_affine_silu_conv3x3(x, a, b, w,
+                                                            residual=res))
+    a_off = ab[0, 1:B * Ci + 1].view(B, Ci).contiguous()
+    b_off = ab[1, 1:B * Ci + 1].view(B, Ci).contiguous()
+    w_flat = torch.empty(w.numel() + 1, device=dev, dtype=torch.bfloat16)
+    w_off = w_flat[1:].view_as(w)
+    w_off.copy_(w)
+    assert a_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    shifted = tfc.fused_affine_silu_conv3x3(x, a_off, b_off, w_off,
+                                            residual=res)
+    assert torch.equal(shifted, tfc.fused_affine_silu_conv3x3(
+        x, a_off.clone(), b_off.clone(), w, residual=res))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfc.fused_affine_silu_conv3x3(x, a, b, w, residual=res)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        static = tfc.fused_affine_silu_conv3x3(x, a, b, w, residual=res)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, first)
 
 
 def test_fused_conv_refuses_what_the_kernel_does_not_take(dev):
@@ -704,9 +788,11 @@ def test_graphed_denoise_loop_equals_eager(dev):
     (loop,), (dec,) = (list(f.captures.values()) for f in graphed)
     assert loop.replays == dec.replays == 2
     # the loop launches only K1 (both designs' shares), the decode only K4
+    # (both designs' shares)
     assert loop.launches == {k: v for k, v in n_e.items()
                              if v and k.startswith("K1")}
-    assert dec.launches == {"K4": n_e["K4"]}
+    assert dec.launches == {k: v for k, v in n_e.items()
+                            if v and k.startswith("K4")}
 
 
 def _tiny_tree(root):

@@ -1,5 +1,8 @@
 // Fused GroupNorm-affine + SiLU + 3x3 convolution (K4) for Hopper
-// (sm_90a), bf16 operands, fp32 accumulators in registers.
+// (sm_90a), bf16 operands, fp32 accumulators in registers: the mma.sync
+// design. ops/fused_conv.py::conv_design sends the two narrow convs of the
+// VAE (Cout <= 16) here; every wider conv takes the wgmma and TMA design of
+// fused_conv_sm90.cu, and this one is checked and timed beside it there.
 //
 // Replaces the TPU kernel view_neti_tpu/ops/fused_conv.py::_kernel
 // (launched by fused_affine_silu_conv3x3 through pl.pallas_call). It
@@ -16,9 +19,12 @@
 //
 // Design: an implicit GEMM, M = output pixels, N = output channels, K = 9
 // taps x Cin, on mma.sync.m16n8k16 (mma_tiles.cuh) with the accumulators in
-// registers. mma.sync and not wgmma: a tap's view of the staged halo tile
-// is a per-row shifted address, which ldmatrix takes and wgmma's
-// shared-memory A layout does not.
+// registers. A tap's view of the staged halo tile is a per-row shifted
+// address, which ldmatrix takes and wgmma's shared-memory A layout does
+// not; wgmma takes it with A in registers, filled by the same ldmatrix
+// (fused_conv_sm90.cu), and that design is 1.7-1.9x faster at the ResNet
+// convs. Here every warp fetches its A and B fragments by ldmatrix each
+// 16-deep step, which holds it to 0.19-0.24 of the operations bound there.
 //   * a block takes a 2-D tile of TH x kTW output pixels of one image and
 //     BN output channels, in two instantiations that the wrapper chooses
 //     by Cout: 4 x 32 pixels x 128 channels (8 warps of 64 pixels x 32

@@ -2,14 +2,15 @@
 // PTX: TMA tile copies between device and shared memory completed on
 // mbarriers, wgmma shared-memory descriptors for the 128-byte swizzle,
 // the warpgroup products wgmma.mma_async with bf16 operands and fp32
-// accumulators (A from shared memory or from registers; N from 48 to 160),
+// accumulators (A from shared memory or from registers; N from 48 to 256),
 // their fence,
-// commit and wait, setmaxnreg and named barriers; the tiles the attention
+// commit and wait, setmaxnreg and named barriers; cluster barriers, remote
+// mbarrier arrivals and multicast TMA loads; the tiles the attention
 // kernels share (64-column chunks of a head dim, 128-byte swizzled) and
 // their tensor maps, encoded on the host. K1's Hopper design
-// (flash_attention_fwd_sm90.cu) and K2's and K3's
-// (flash_attention_bwd_dq_sm90.cu, flash_attention_bwd_dkv_sm90.cu) are
-// built on them.
+// (flash_attention_fwd_sm90.cu), K2's and K3's
+// (flash_attention_bwd_dq_sm90.cu, flash_attention_bwd_dkv_sm90.cu) and
+// K4's (fused_conv_sm90.cu) are built on them.
 //
 // Layouts (the PTX ISA's wgmma "canonical" shared-memory layouts):
 //   * a TMA box whose rows are 128 bytes (64 bf16), loaded with
@@ -128,6 +129,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// A 3-d box of the tensor map at coordinates (c0 innermost .. c2).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // Shared memory at src to the box at (c0 .. c3); the parts of the box
 // outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
@@ -151,6 +164,59 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // Orders this thread's shared-memory writes before later TMA reads of them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ clusters ----
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits; it orders
+// the shared-memory accesses before it (barrier inits, remote arrivals)
+// before those after it, across the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of the same location in CTA `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// One arrival on a barrier at a shared::cluster address (any CTA's).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// tma_load_3d into the same offset of every CTA in `mask`, completing on
+// each one's barrier at bar's offset.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const void* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "h"(mask)
+      : "memory");
 }
 
 // ------------------------------------------------ barriers, registers ----
@@ -412,6 +478,89 @@ __device__ __forceinline__ void wgmma_rs_m64n160k16_mn(float (&d)[80],
         "r"(scale_d));
 }
 
+// D (64 x 128, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 128,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n128k16_mn(float (&d)[64],
+                                                       const uint32_t* a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 256, fp32) {= or +=} A (64 x 16, bf16 in registers) B (16 x 256,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_m64n256k16_mn(float (&d)[128],
+                                                       const uint32_t* a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
 
 // D (64 x N) {= or +=} A B, both from shared memory, K-major: the products
 // of S = Q K^T over N = 64, 80 or 128 keys.
@@ -427,22 +576,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
     wgmma_ss_m64n128k16(d, desc_a, desc_b, scale_d);
 }
 
-// D (64 x N) {= or +=} A B with A's 64 x 16 in registers and B MN-major,
-// for the head-dim buckets N = 48, 64, 80 and 160.
+// D (64 x N) {= or +=} A B with A's 64 x 16 in registers and B MN-major:
+// the head-dim buckets N = 48, 64, 80 and 160 of the attention kernels,
+// and K4's output-channel tiles N = 128 and 256.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t* a,
                                             uint64_t desc_b, int scale_d) {
-  static_assert(N == 48 || N == 64 || N == 80 || N == 160,
-                "wgmma_rs_mn: N is 48, 64, 80 or 160");
+  static_assert(N == 48 || N == 64 || N == 80 || N == 128 || N == 160 ||
+                    N == 256,
+                "wgmma_rs_mn: N is 48, 64, 80, 128, 160 or 256");
   if constexpr (N == 48)
     wgmma_rs_m64n48k16_mn(d, a, desc_b, scale_d);
   else if constexpr (N == 64)
     wgmma_rs_m64n64k16_mn(d, a, desc_b, scale_d);
   else if constexpr (N == 80)
     wgmma_rs_m64n80k16_mn(d, a, desc_b, scale_d);
-  else
+  else if constexpr (N == 128)
+    wgmma_rs_m64n128k16_mn(d, a, desc_b, scale_d);
+  else if constexpr (N == 160)
     wgmma_rs_m64n160k16_mn(d, a, desc_b, scale_d);
+  else
+    wgmma_rs_m64n256k16_mn(d, a, desc_b, scale_d);
 }
 
 // ------------------------------------------------ attention tiles ----

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_fwd",
                   "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dkv",
-                  "fused_conv")
+                  "fused_conv_sm90", "fused_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

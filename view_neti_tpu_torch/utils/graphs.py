@@ -21,8 +21,8 @@ A capture or replay that fails raises CaptureError, naming fn's frame where
 the capture broke; nothing falls back to eager.
 
 The kernel wrappers' launch counters (ops/flash_attention.py,
-ops/fused_conv.py) count where a kernel is launched, K1's, K2's and K3's
-also by design (launch_counts). A capture launches nothing, so the counts
+ops/fused_conv.py) count where a kernel is launched, each also by design
+(launch_counts). A capture launches nothing, so the counts
 it adds are taken back and kept as the graph's record of its launches, and
 every replay adds that record.
 """
@@ -53,12 +53,13 @@ def kernel_wrappers() -> Dict[str, Callable]:
 def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Each kernel wrapper's launch count, {"K1": n, ...}, and the split by
     design of K1 ("K1 sm90", "K1 mma_sync": ops/flash_attention.py::
-    fwd_design), K2 and K3 ("K2 sm90", ..., "K3 mma_sync": bwd_design),
+    fwd_design), K2 and K3 ("K2 sm90", ..., "K3 mma_sync": bwd_design)
+    and K4 ("K4 sm90", "K4 mma_sync": ops/fused_conv.py::conv_design),
     the launches inside CUDA graph replays included; reset sets them all
     to 0 first."""
     wrappers = kernel_wrappers()
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    counts.update({f"{k} {design}": n for k in ("K1", "K2", "K3")
+    counts.update({f"{k} {design}": n for k in ("K1", "K2", "K3", "K4")
                    for design, n in wrappers[k].designs.items()})
     if reset:
         counts = dict.fromkeys(counts, 0)
