@@ -16,17 +16,19 @@ Phases; any failure ends the run with a non-zero exit:
   3. kernels -- the flash-attention forward (K1: its Hopper design on
                 wgmma and TMA at the buckets 48, 64, 80 and 160, its
                 long-key kernel above 80 keys and its short-key kernel up
-                to 80, at every path shape; at each of them the mma.sync
-                design is checked and timed beside it), its backward (K2
-                dq, K3 dk/dv: their Hopper design on wgmma and TMA at the
+                to 80, at every path shape; the mma.sync design checked
+                beside it at each of them), its backward (K2 dq, K3
+                dk/dv: their Hopper design on wgmma and TMA at the
                 buckets 48 and 64 above 80 keys, the train steps'
-                self-attentions, with the mma.sync design checked and
-                timed beside it there; the mma.sync design at the other
-                shapes) and the fused GroupNorm+SiLU+conv3x3 (K4: its
-                Hopper design on wgmma and TMA at every Cout > 16, the
-                ResNet convs, with the mma.sync design checked and timed
-                beside it; the mma.sync design at the two narrow convs)
-                at every shape the SD-1.5 768x576 serving path, the 384x512 B=9
+                self-attentions, with the mma.sync design checked beside
+                it there; the mma.sync design at the other shapes) and the
+                fused GroupNorm+SiLU+conv3x3 (K4: its Hopper design on
+                wgmma and TMA at every Cout > 16, the ResNet convs of the
+                VAE and of the fused UNet, with the mma.sync design
+                checked beside it; the mma.sync design at the two narrow
+                convs) at every shape the SD-1.5 768x576 serving path
+                (with the fused UNet, BENCH_FUSE_UNET=1, its 18 ResNet
+                conv shapes at B = 6 too), the 384x512 B=9
                 train step and the DTU sweep (B=4 at 768x576, its 512x512
                 object renders) give them, the folders phase's 512x512
                 B=9 train step (K1-K3 at 4096 x 4096 and 4096 x 77, K4's
@@ -40,22 +42,24 @@ Phases; any failure ends the run with a non-zero exit:
                 padded before the SiLU), and timed with CUDA events
                 beside the plain version, one PyTorch library call and
                 the card's bound (and the bound's share of the kernel's
-                time); at the Hopper design's shapes, also both
-                designs' per-call time in a CUDA graph of 20 calls (K4:
-                10) and their host time a call; every path's counted run
+                time); at the Hopper design's shapes, also its per-call
+                time in a CUDA graph of 20 calls (K4: 10) and its host
+                time a call, and the mma.sync design's three times beside
+                it at each kernel's heaviest shape; every path's counted run
                 below holds K1's to K4's launches by design
                 (launch_counts' "K1 sm90", "K1 mma_sync", ...): all 32 of
                 a UNet forward's K1 on the Hopper design, SD-1.5's and
                 SD-2.1's (SD15_SM90, M3_SM90); 4 of a train step's 30 K2
                 and 31 K3 launches on SD-1.5, 14 on SD-2.1
                 (SD15_BWD_SM90, M3_BWD_SM90, which bwd_design must give
-                at attention_shapes); 20 of an encode's 21 K4 launches
-                and 28 of a decode's 29 (K4_SM90, which conv_design must
-                give at k4_shapes); a `backward pair` line sums K2 and
-                K3 over each training path, as run and with the mma.sync
-                design at every shape, beside SDPA's backward, and a
-                `conv paths` line sums K4 over each path the same way,
-                beside GroupNorm + SiLU + cuDNN;
+                at attention_shapes); 20 of an encode's 21 K4 launches,
+                28 of a decode's 29 (K4_SM90) and all 44 of a fused UNet
+                forward's (K4_UNET_SM90), which conv_design must give at
+                k4_shapes; a `backward pair` line sums K2 and K3 over
+                each training path, as run (and with the mma.sync design
+                at every shape where it was timed at each), beside SDPA's
+                backward, and a `conv paths` line sums K4 over each path
+                the same way, beside GroupNorm + SiLU + cuDNN;
   4. slice   -- the serving path at full SD-1.5 width with seeded random
                 weights: mode-2 view + object mappers, FallbackTokenizer,
                 PromptManager conditioning, DPM-Solver++ with CFG 7.5 for
@@ -70,7 +74,19 @@ Phases; any failure ends the run with a non-zero exit:
                 by stage, holds the fused decode against the same weights
                 decoded unfused, and profiles one CFG denoise step graphed
                 and eager and one decode (device time by kernel group,
-                idle share);
+                idle share); then the fused-UNet serving path
+                (BENCH_FUSE_UNET=1: fuse_for_inference with a view of the
+                same UNet, its ResNet convs through K4): its counted run
+                (44 K4 launches a forward, all on the Hopper design),
+                graphed serving with the switch off and on interleaved
+                round by round (sec/image each), the fused graphed rounds
+                bit-equal to an eager one (a stale replay the control),
+                one UNet forward against the unfused one within
+                FUSED_UNET_REL_LIMIT (the last block's residual dropped
+                the control), the loop's images within FUSED_LEVELS of
+                the unfused ones, and one fused CFG step profiled graphed
+                and eagerly with the weights' relayout (conv3x3_hwio) a
+                range of its own;
   5. train   -- the mode-2 train step of bench.py:main on the same stack:
                 B = 9 (3 x 3 accumulation, fused), 384x512 pixels uniform in
                 [-1, 1], the fused VAE encode, DDPM noise, nested dropout,
@@ -138,7 +154,8 @@ Phases; any failure ends the run with a non-zero exit:
                 RandomState(0), the Coach (DTU preprocess 1, preset 7,
                 bf16) trains 3 steps and validates once after its step-2
                 checkpoint: the DTU sweep over the 34 eval cameras at
-                768x576 (seeds [0, 1], 30 steps, CFG 7.5) reloading that
+                768x576 (seeds [0, 1], VAL_DENOISE steps, CFG 7.5)
+                reloading that
                 checkpoint, masked PSNR / SSIM / LPIPS (random VGG) on the
                 card, the object-token renders; prints the sweep's seconds
                 and sec/image, the metric means, peak memory, and the
@@ -167,7 +184,8 @@ Phases; any failure ends the run with a non-zero exit:
                 state) must replay the straight one's losses and final
                 mappers bit for bit, then runs the mode-3 validation round
                 (a DTU
-                sweep per eval token against its own scan, 30 steps, CFG
+                sweep per eval token against its own scan, VAL_DENOISE
+                steps, CFG
                 7.5, seeds [0, 1], cut to the first 2 eval cameras, and the
                 object renders); offline inference on that run (--debug 1)
                 equals its sweeps, summarize_dtu reads one bundle per
@@ -198,7 +216,8 @@ Phases; any failure ends the run with a non-zero exit:
                 false, preset 7 cropping to 512x512 on the host; each run 2
                 warm-up and FOLDERS_STEPS timed steps, one validation round
                 after the warm-up (mode 0: the first 2 validation prompts;
-                mode 2: a prompt sheet of 3 view tokens; 2 seeds, 30 steps)
+                mode 2: a prompt sheet of 3 view tokens; 2 seeds,
+                VAL_DENOISE steps)
                 and a final checkpoint, exported through python -m
                 view_neti_tpu_torch.export_torch and imported back through
                 torch_interop.import_torch_artifacts bit for bit; checks
@@ -268,14 +287,18 @@ Phases; any failure ends the run with a non-zero exit:
  15. bench  -- python -m view_neti_tpu_torch.bench in its five modes at
                 full width, each in a process of its own: the raw train
                 step (BENCH_STEPS 8), the mode-2 Coach (16 steps), the
-                mode-3 Coach (8), serving (30 steps) and the 34-view DTU
-                sweep (5 steps); each must exit 0 with one JSON line, a
-                finite positive value, 0 < mfu <= 1 and this card as its
-                device, and launch its path's kernels; serving's sec/image
-                and the mode-2 Coach's imgs/sec must lie within 0.67-1.5x
-                of the slice and coach phases' graphed rates; BENCH_FLASH=0
-                must be refused with the error line and a failed exit;
-                prints a `bench [...]` line with the five records;
+                mode-3 Coach (8), serving (30 steps), serving with
+                BENCH_FUSE_UNET=1 and the 34-view DTU sweep (3 steps); each
+                must exit 0 with one JSON line, a finite positive value,
+                0 < mfu <= 1 and this card as its device, and launch its
+                path's kernels; the fused run serving's launches and 44
+                K4 launches a UNet forward, its flops_per_image serving's
+                within 0.1 %; serving's sec/image (switch off and on) and
+                the mode-2 Coach's imgs/sec must lie within 0.67-1.5x of
+                the slice and coach phases' graphed rates; BENCH_FLASH=0
+                must be refused with the error line and a failed exit
+                (bench.main in this process);
+                prints a `bench [...]` line with the six records;
  16. report  -- one JSON line of per-kernel results, then the result line.
 The bound is max(operations / 989 TFLOP/s, bytes / 3.35 TB/s,
 exponentials / (16 a clock x the SMs x the card's clocks.max.sm)): the
@@ -286,8 +309,10 @@ per score.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -309,10 +334,12 @@ HEIGHT, WIDTH = 576, 768
 TRAIN_BATCH = 9          # train_batch_size 3 x gradient_accumulation 3
 TRAIN_HEIGHT, TRAIN_WIDTH = 384, 512
 # the shipped recipe's validation (input_configs/train.yaml): seeds [0, 1],
-# 30 denoising steps; the sweep denoises one camera at a time with CFG
+# 30 denoising steps, cut for time to VAL_DENOISE (every sweep, render and
+# offline inference of the validate, inference, mode3 and folders phases);
+# the sweep denoises one camera at a time with CFG
 VAL_SEEDS = [0, 1]
 SWEEP_BATCH = 2 * len(VAL_SEEDS)
-VAL_DENOISE = 30
+VAL_DENOISE = 20
 VAL_TRAIN_STEPS = 3      # the validate phase's Coach steps ...
 VAL_EVERY = 2            # ... with a checkpoint and a validation at step 2
 EVAL_CAMS = 34           # the DTU eval cameras of inference_dtu.get_cam_idxs
@@ -371,6 +398,17 @@ DECODE_KINDS = {
 # version, which fuses every multiply-add: within a level
 RESIZE_PLAIN_MAX_LEVELS = 1
 FOLDERS_RENDERS = FOLDERS_PROMPTS + 1 + FOLDERS_SHEET_TOKENS
+# the fused-UNet serving path (UNetConfig.fuse_conv) against the unfused
+# one on the same weights: one UNet forward at the loop's first CFG step,
+# the relative RMS of the difference within FUSED_UNET_REL_LIMIT (K4 and
+# GroupNorm + SiLU + cuDNN round differently in bf16: fp32 sums and one
+# cast against a bf16 normalize, SiLU, conv and time-embedding add), a
+# limit that a planted fault (the last ResNet block's conv2 without its
+# residual) must exceed; the full loop's images within FUSED_LEVELS levels
+# at FUSED_WITHIN_SHARE of their values
+FUSED_UNET_REL_LIMIT = 2e-2
+FUSED_LEVELS = 8
+FUSED_WITHIN_SHARE = 0.99
 
 
 def check(cond: bool, msg: str) -> None:
@@ -409,9 +447,10 @@ def of_limit(got, ref, tol) -> float:
     return ((got.float() - ref).abs() / tol).max().item()
 
 
-def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
+def time_ms(torch, fn, budget_ms: float = 150.0) -> float:
     """Mean time of fn on the card, by CUDA events, after a warm-up call;
-    the count of timed calls is sized to fill about budget_ms."""
+    the count of timed calls (2 to 20) is sized to fill about
+    budget_ms."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -420,7 +459,7 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
     fn()
     end.record()
     torch.cuda.synchronize()
-    iters = int(max(2, min(50, budget_ms / max(start.elapsed_time(end),
+    iters = int(max(2, min(20, budget_ms / max(start.elapsed_time(end),
                                                1e-3))))
     start.record()
     for _ in range(iters):
@@ -643,6 +682,11 @@ def train_paths_bwd():
 # Cout > 16, the ResNet convs): all but the encoder's last conv (512 -> 8)
 # and the decoder's conv_out (128 -> 3)
 K4_SM90 = {"encode": 20, "decode": 28}
+# K4's launches a UNet forward with UNetConfig.fuse_conv (the fused-UNet
+# serving path, BENCH_FUSE_UNET=1): two sections in each of the 22 ResNet
+# blocks, all on the Hopper design (Cout 320 to 1280)
+K4_UNET_SM90 = 44
+SERVE_STEPS = 30         # the serving path's DPM-Solver++ steps (--steps)
 
 
 def k4(encodes: int = 0, decodes: int = 0):
@@ -654,10 +698,17 @@ def k4(encodes: int = 0, decodes: int = 0):
     return {"K4": total, "K4 sm90": sm90, "K4 mma_sync": total - sm90}
 
 
+def k4_unet(forwards: int = 0):
+    """K4's launches in `forwards` fused UNet forwards as launch_counts
+    keys them: 44 each, all on the Hopper design."""
+    n = K4_UNET_SM90 * forwards
+    return {"K4": n, "K4 sm90": n, "K4 mma_sync": 0}
+
+
 def path_codecs():
     """Each path's VAE encodes and decodes in one run (k4_shapes'
     per_run): {path: (encodes, decodes)}."""
-    return {"serve": (0, 1), "train": (1, 0),
+    return {"serve": (0, 1), "serve_fused_unet": (0, 1), "train": (1, 0),
             "validate": (VAL_TRAIN_STEPS, EVAL_CAMS + 1),
             "acceptance": (ACC_STEPS, EVAL_CAMS), "inference": (0, INFER_CAMS),
             "mode3": (2 * (M3_WARM + M3_STEPS),
@@ -666,11 +717,20 @@ def path_codecs():
             "tp": (TP_WARM + TP_STEPS, 1)}
 
 
+def path_k4(serve_steps: int = SERVE_STEPS):
+    """Each path's K4 launches in one run, as the launch checks hold its
+    counted run to them: its encodes and decodes (path_codecs) and, on the
+    fused-UNet serving path, its `serve_steps` fused UNet forwards."""
+    forwards = {"serve_fused_unet": serve_steps}
+    return {p: add_counts(k4(*c), k4_unet(forwards.get(p, 0)))
+            for p, c in path_codecs().items()}
+
+
 def conv_split_by_path(shapes, design):
     """K4's launches on each path of k4_shapes' rows, by design as `design`
     (ops/fused_conv.py::conv_design) names each shape's: {path:
-    launch_counts-style counts}. Every path must give
-    k4(*path_codecs()[path]) (phase_kernels checks)."""
+    launch_counts-style counts}. Every path must give path_k4()[path]
+    (phase_kernels checks)."""
     out = {}
     for _, _, _, ci, co, _, per_run in shapes:
         for path, n in per_run.items():
@@ -749,8 +809,8 @@ def attention_shapes(serve_steps: int):
     CFG) at 72x96 latents; the acceptance phase's sweep too (its default 3
     seeds, ACC_DENOISE steps a camera). The DTU sweep (validate,
     inference; and the weights phase's two UNet forwards): B = 4 (2 seeds
-    x CFG) at 72x96, 30 steps a camera. The object-token renders of a
-    validation round: B = 4 at 64x64 latents (512x512). Training (the
+    x CFG) at 72x96, VAL_DENOISE steps a camera. The object-token renders
+    of a validation round: B = 4 at 64x64 latents (512x512). Training (the
     train step and the validate and acceptance phases' Coach steps): B = 9
     at 48x64 latents; the first
     self-attention's inputs need no gradient (no backward) and the first
@@ -831,17 +891,50 @@ def attention_shapes(serve_steps: int):
     return shapes
 
 
+def attention_bound(key, shape):
+    """(the bound's ms, what bounds it) of K1, K2 or K3 at a row of
+    attention_shapes: the products (4, 6 and 8 operations a score and head
+    dimension), the bytes (each input read once and each output written
+    once: q, k, v, o and the fp32 lse; K2 adds dO and writes dQ, K3 dK and
+    dV, both read lse and delta) and one exponential a score (K2 and K3
+    recompute P), the special-function units' share."""
+    B, Lq, Lk, H, d = (shape[k] for k in ("B", "Lq", "Lk", "H", "d"))
+    q, kv, rows = B * Lq * H * d, B * Lk * H * d, B * H * Lq
+    per, nbytes = {"K1": (4, 2.0 * (2 * q + 2 * kv) + 4.0 * rows),
+                   "K2": (6, 2.0 * (3 * q + 2 * kv) + 8.0 * rows),
+                   "K3": (8, 2.0 * (2 * q + 4 * kv) + 8.0 * rows)}[key]
+    return bound(per * B * H * Lq * Lk * d, nbytes, float(B * H * Lq * Lk))
+
+
+def conv_bound(shape):
+    """(the bound's ms, what bounds it) of K4 at a row of k4_shapes: 2 x 9
+    x Cin x Cout operations an output pixel; x, the weights, the output
+    and the residual in bf16, a and b (and the time embedding) in fp32,
+    each once."""
+    B, H, W, Ci, Co, epi, _ = shape
+    px = B * H * W
+    return bound(2.0 * 9 * px * Ci * Co,
+                 2.0 * (px * Ci + px * Co + 9 * Ci * Co
+                        + (px * Co if epi == " +res" else 0))
+                 + 8.0 * B * Ci + (4.0 * B * Co if epi == " +t" else 0.0))
+
+
 def dropped_keys(Lk: int) -> int:
     """The keys a control leaves out: the last 64-key tile, or half the
     keys where there is only one tile."""
     return 64 if Lk > 64 else Lk // 2
 
 
-def attention_rows(torch, F, fa, shape, g, dev):
+def attention_rows(torch, F, fa, shape, g, dev,
+                   heaviest=("K1", "K2", "K3")):
     """K1 at one attention shape and, where the train step differentiates
     it, K2 and K3: each held against its plain version with a control its
     limit has to catch, and timed beside the plain version, a PyTorch
-    library call and the bound."""
+    library call and the bound. At the Hopper design's shapes the mma.sync
+    design is held to the same limit at the same inputs; for the kernels
+    in `heaviest` (this is their heaviest Hopper shape) both designs are
+    also timed in a CUDA graph and on the host, and the mma.sync design
+    eagerly."""
     B, Lq, Lk, H, d = (shape[k] for k in ("B", "Lq", "Lk", "H", "d"))
     label = f"B{B} Lq{Lq} Lk{Lk} H{H} d{d}"
     drop = dropped_keys(Lk)
@@ -876,16 +969,13 @@ def attention_rows(torch, F, fa, shape, g, dev):
     check(control > 1, f"K1's limit at {label} misses {drop} dropped keys "
                        f"({control:.3g} of the limit)")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    # one exponential per score: the special-function units' share
-    bms, by = bound(4.0 * B * H * Lq * Lk * d,
-                    2.0 * (2 * q.numel() + k.numel() + v.numel())
-                    + 4.0 * lse.numel(), float(B * H * Lq * Lk))
+    bms, by = attention_bound("K1", shape)
     row = dict(
         shape=label, design=design, per_run=shape["per_run"]["K1"],
         max_abs_err=(o.float() - ro).abs().max().item(), lse_err=lse_err,
         err_of_limit=ratio, control_of_limit=control,
         ms=time_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        plain_ms=time_ms(torch, ref_fwd, 100.0),
+        plain_ms=time_ms(torch, ref_fwd, 50.0),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt)),
         bound_ms=bms, bound_by=by)
@@ -902,12 +992,13 @@ def attention_rows(torch, F, fa, shape, g, dev):
 
         row.update(mma_sync_err_of_limit=of_limit(mo, ro, tol),
                    mma_sync_max_abs_err=(mo.float() - ro).abs().max().item(),
-                   mma_sync_lse_err=(mlse - rlse).abs().max().item(),
-                   mma_sync_ms=time_ms(torch, mma),
-                   graph_ms=graph_ms(torch, sm90),
-                   mma_sync_graph_ms=graph_ms(torch, mma),
-                   host_us=host_us(torch, sm90),
-                   mma_sync_host_us=host_us(torch, mma))
+                   mma_sync_lse_err=(mlse - rlse).abs().max().item())
+        if "K1" in heaviest:
+            row.update(graph_ms=graph_ms(torch, sm90),
+                       host_us=host_us(torch, sm90),
+                       mma_sync_ms=time_ms(torch, mma),
+                       mma_sync_graph_ms=graph_ms(torch, mma),
+                       mma_sync_host_us=host_us(torch, mma))
         check(row["mma_sync_err_of_limit"] <= 1
               and row["mma_sync_lse_err"] <= 1e-3,
               f"K1 (mma_sync) disagrees at {label}: "
@@ -980,28 +1071,22 @@ def attention_rows(torch, F, fa, shape, g, dev):
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         lo, (lq, lk, lv), ldo, retain_graph=True))
     del lo
-    io_bytes = 8.0 * lse.numel()                 # lse and delta, fp32
-    exps = float(B * H * Lq * Lk)     # K2 and K3 recompute P
-    for key, flops, nbytes, ratio, control, err, fn, plain, launch in (
-            ("K2", 6.0 * B * H * Lq * Lk * d,
-             2.0 * (3 * q.numel() + k.numel() + v.numel()) + io_bytes,
-             ratios[0], ctl_dq, errs[0],
+    for key, ratio, control, err, fn, plain, launch in (
+            ("K2", ratios[0], ctl_dq, errs[0],
              lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
              lambda: ref_bwd(need_dkv=False), fa._launch_bwd_dq),
-            ("K3", 8.0 * B * H * Lq * Lk * d,
-             2.0 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
-             + io_bytes, max(ratios[1:]), min(ctl_dkv), max(errs[1:]),
+            ("K3", max(ratios[1:]), min(ctl_dkv), max(errs[1:]),
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
              lambda: ref_bwd(need_dq=False), fa._launch_bwd_dkv)):
-        bms, by = bound(flops, nbytes, exps)
+        bms, by = attention_bound(key, shape)
         rows[key] = row = dict(
             shape=label, design=design, per_run=shape["per_run"][key],
             max_abs_err=err, err_of_limit=ratio, control_of_limit=control,
-            ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, 100.0),
+            ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, 50.0),
             library_ms=library_ms, bound_ms=bms, bound_by=by)
         if design == "sm90":
             # both designs eagerly, in a CUDA graph of 20 calls and on the
-            # host, counting nothing
+            # host at the kernel's heaviest shape, counting nothing
             def sm90(launch=launch):
                 return launch(q, k, v, do, lse, delta, "sm90")
 
@@ -1010,20 +1095,22 @@ def attention_rows(torch, F, fa, shape, g, dev):
 
             sl = slice(0, 1) if key == "K2" else slice(1, 3)
             row.update(mma_sync_err_of_limit=max(m_ratios[sl]),
-                       mma_sync_max_abs_err=max(m_errs[sl]),
-                       mma_sync_ms=time_ms(torch, mma),
-                       graph_ms=graph_ms(torch, sm90),
-                       mma_sync_graph_ms=graph_ms(torch, mma),
-                       host_us=host_us(torch, sm90),
-                       mma_sync_host_us=host_us(torch, mma))
+                       mma_sync_max_abs_err=max(m_errs[sl]))
+            if key in heaviest:
+                row.update(graph_ms=graph_ms(torch, sm90),
+                           host_us=host_us(torch, sm90),
+                           mma_sync_ms=time_ms(torch, mma),
+                           mma_sync_graph_ms=graph_ms(torch, mma),
+                           mma_sync_host_us=host_us(torch, mma))
     return rows
 
 
-def k4_shapes():
+def vae_k4_shapes():
     """Every norm->SiLU->conv3x3 section of the VAE decoder (29 per decode)
-    and of its encoder (21 per train step): (B, H, W, Cin, Cout, residual,
-    {path: launches per run}). conv1 of each ResNet block has no residual,
-    conv2 adds it. Decodes: serving B = 3 from 72x96 latents, and the
+    and of its encoder (21 per train step): (B, H, W, Cin, Cout,
+    epilogue, {path: launches per run}). conv1 of each ResNet block has no
+    epilogue, conv2 adds the residual (" +res"). Decodes: serving B = 3
+    from 72x96 latents (the fused-UNet serving path's too), and the
     acceptance phase's sweep (3 seeds) once a camera; the DTU sweep
     B = 2 (one camera's seeds) from 72x96, once a camera; the object
     renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
@@ -1034,13 +1121,14 @@ def k4_shapes():
     render shapes. A tp rank decodes its render at the serving shapes and
     encodes TP_WARM + TP_STEPS train steps."""
     def decoder(D, h, w, per):
-        return [(D, h * s, w * s, ci, co, res, per(n)) for s, ci, co, res, n
-                in ((1, 512, 512, False, 5), (1, 512, 512, True, 5),
-                    (2, 512, 512, False, 3), (2, 512, 512, True, 3),
-                    (4, 512, 256, False, 1), (4, 256, 256, False, 2),
-                    (4, 256, 256, True, 3), (8, 256, 128, False, 1),
-                    (8, 128, 128, False, 2), (8, 128, 128, True, 3),
-                    (8, 128, 3, False, 1))]
+        return [(D, h * s, w * s, ci, co, epi, per(n))
+                for s, ci, co, epi, n
+                in ((1, 512, 512, "", 5), (1, 512, 512, " +res", 5),
+                    (2, 512, 512, "", 3), (2, 512, 512, " +res", 3),
+                    (4, 512, 256, "", 1), (4, 256, 256, "", 2),
+                    (4, 256, 256, " +res", 3), (8, 256, 128, "", 1),
+                    (8, 128, 128, "", 2), (8, 128, 128, " +res", 3),
+                    (8, 128, 3, "", 1))]
 
     E = TRAIN_BATCH
     m3_steps = 2 * (M3_WARM + M3_STEPS)
@@ -1054,47 +1142,70 @@ def k4_shapes():
     def folders(n):
         return {"folders": n * folders_steps}
 
+    def encoder(h, w, per):
+        return [(E, h // s, w // s, ci, co, epi, per(n))
+                for s, ci, co, epi, n
+                in ((1, 128, 128, "", 2), (1, 128, 128, " +res", 2),
+                    (2, 128, 256, "", 1), (2, 256, 256, "", 1),
+                    (2, 256, 256, " +res", 2), (4, 256, 512, "", 1),
+                    (4, 512, 512, "", 1), (4, 512, 512, " +res", 2),
+                    (8, 512, 512, "", 4), (8, 512, 512, " +res", 4),
+                    (8, 512, 8, "", 1))]
+
     return (decoder(BATCH // 2, 72, 96, lambda n: {
-                "serve": n, "acceptance": n * EVAL_CAMS, "tp": n})
+                "serve": n, "serve_fused_unet": n,
+                "acceptance": n * EVAL_CAMS, "tp": n})
             + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
                 "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
                 "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
             + decoder(len(VAL_SEEDS), 64, 64, lambda n: {
                 "validate": n, "mode3": n * M3_TOKENS,
                 "folders": n * FOLDERS_RENDERS})
-            + [(E, 384, 512, 128, 128, False, train(2)),
-               (E, 384, 512, 128, 128, True, train(2)),
-               (E, 192, 256, 128, 256, False, train(1)),
-               (E, 192, 256, 256, 256, False, train(1)),
-               (E, 192, 256, 256, 256, True, train(2)),
-               (E, 96, 128, 256, 512, False, train(1)),
-               (E, 96, 128, 512, 512, False, train(1)),
-               (E, 96, 128, 512, 512, True, train(2)),
-               (E, 48, 64, 512, 512, False, train(4)),
-               (E, 48, 64, 512, 512, True, train(4)),
-               (E, 48, 64, 512, 8, False, train(1))]
-            + [(E, 512, 512, 128, 128, False, folders(2)),
-               (E, 512, 512, 128, 128, True, folders(2)),
-               (E, 256, 256, 128, 256, False, folders(1)),
-               (E, 256, 256, 256, 256, False, folders(1)),
-               (E, 256, 256, 256, 256, True, folders(2)),
-               (E, 128, 128, 256, 512, False, folders(1)),
-               (E, 128, 128, 512, 512, False, folders(1)),
-               (E, 128, 128, 512, 512, True, folders(2)),
-               (E, 64, 64, 512, 512, False, folders(4)),
-               (E, 64, 64, 512, 512, True, folders(4)),
-               (E, 64, 64, 512, 8, False, folders(1))])
+            + encoder(TRAIN_HEIGHT, TRAIN_WIDTH, train)
+            + encoder(FOLDERS_SIZE, FOLDERS_SIZE, folders))
 
 
-def k4_row(torch, F, fc, shape, g, dev):
+def unet_k4_shapes(serve_steps: int = SERVE_STEPS):
+    """Every ResNet conv section of an SD-1.5 UNet forward with
+    UNetConfig.fuse_conv (44), on the fused-UNet serving path: B = 6 (3
+    seeds x CFG) at the 72x96 latents and the three levels below,
+    `serve_steps` forwards a run. conv1 adds the time embedding (" +t",
+    add_bc), conv2 the block's input or its 1x1 shortcut (" +res"); the
+    up blocks' conv1 read the skip concatenations (Cin up to 2560)."""
+    return [(BATCH, h, w, ci, co, epi, {"serve_fused_unet": n * serve_steps})
+            for h, w, ci, co, epi, n in (
+                (72, 96, 320, 320, " +t", 2), (72, 96, 320, 320, " +res", 5),
+                (72, 96, 640, 320, " +t", 2), (72, 96, 960, 320, " +t", 1),
+                (36, 48, 320, 640, " +t", 1), (36, 48, 640, 640, " +t", 1),
+                (36, 48, 640, 640, " +res", 5), (36, 48, 960, 640, " +t", 1),
+                (36, 48, 1280, 640, " +t", 1),
+                (36, 48, 1920, 640, " +t", 1),
+                (18, 24, 640, 1280, " +t", 1),
+                (18, 24, 1280, 1280, " +t", 1),
+                (18, 24, 1280, 1280, " +res", 5),
+                (18, 24, 1920, 1280, " +t", 1),
+                (18, 24, 2560, 1280, " +t", 2),
+                (9, 12, 1280, 1280, " +t", 4),
+                (9, 12, 1280, 1280, " +res", 7),
+                (9, 12, 2560, 1280, " +t", 3))]
+
+
+def k4_shapes(serve_steps: int = SERVE_STEPS):
+    """K4's shapes on every path: the VAE's (vae_k4_shapes), then the
+    fused UNet's (unet_k4_shapes)."""
+    return vae_k4_shapes() + unet_k4_shapes(serve_steps)
+
+
+def k4_row(torch, F, fc, shape, g, dev, time_mma=True):
     """K4 at one shape of the paths, on the design conv_design names: held
     against its plain version with two controls its limit has to catch,
     timed eagerly, in a CUDA graph of 10 calls and on the host, beside the
     plain version, GroupNorm + SiLU + cuDNN and the bound; at the Hopper
-    design's shapes the mma.sync design is held to the same limit and
-    timed the same way at the same inputs."""
-    B, H, W, Ci, Co, use_res, per_run = shape
-    label = f"B{B} {H}x{W} {Ci}->{Co}" + (" +res" if use_res else "")
+    design's shapes the mma.sync design is held to the same limit at the
+    same inputs and, with time_mma, timed the same way."""
+    B, H, W, Ci, Co, epi, per_run = shape
+    label = f"B{B} {H}x{W} {Ci}->{Co}{epi}"
+    use_res, use_t = epi == " +res", epi == " +t"
     design = fc.conv_design(Ci, Co)
     x = torch.randn(B, H, W, Ci, generator=g, device=dev).bfloat16()
     a = 1 + 0.1 * torch.randn(B, Ci, generator=g, device=dev)
@@ -1104,13 +1215,16 @@ def k4_row(torch, F, fc, shape, g, dev):
     bias = (0.1 * torch.randn(Co, generator=g, device=dev)).bfloat16()
     res = (torch.randn(B, H, W, Co, generator=g, device=dev).bfloat16()
            if use_res else None)
-    out = fc.fused_affine_silu_conv3x3(x, a, b, w, bias, residual=res)
+    # the UNet's time embedding, fp32 as the wrapper takes it
+    t = torch.randn(B, Co, generator=g, device=dev) if use_t else None
+    out = fc.fused_affine_silu_conv3x3(x, a, b, w, bias, add_bc=t,
+                                       residual=res)
     torch.cuda.synchronize()
 
     def ref(cin=Ci):
         return fc.fused_affine_silu_conv3x3_ref(
             x[..., :cin], a[:, :cin], b[:, :cin], w[:, :, :cin], bias,
-            residual=res, out_dtype=torch.float32)
+            add_bc=t, residual=res, out_dtype=torch.float32)
 
     def padded_before_silu():
         # the zero padding applied to x, not to silu(a x + b): the border
@@ -1118,7 +1232,7 @@ def k4_row(torch, F, fc, shape, g, dev):
         # without its out-of-image mask
         pad = (0, 0, 1, 1, 1, 1)
         return fc.fused_affine_silu_conv3x3_ref(
-            F.pad(x, pad), a, b, w, bias,
+            F.pad(x, pad), a, b, w, bias, add_bc=t,
             residual=F.pad(res, pad) if use_res else None,
             out_dtype=torch.float32)[:, 1:-1, 1:-1]
 
@@ -1140,33 +1254,35 @@ def k4_row(torch, F, fc, shape, g, dev):
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     res_cl = res.permute(0, 3, 1, 2) if use_res else None
+    # the unfused UNet adds the time embedding in bf16
+    t_cl = t.bfloat16()[:, :, None, None] if use_t else None
 
     def library():
         y = F.conv2d(F.silu(F.group_norm(x_cl, 32, gn_w, gn_b)), w_oihw,
                      bias, padding=1)
+        if use_t:
+            y = y + t_cl
         return y + res_cl if use_res else y
 
-    bms, by = bound(2.0 * 9 * B * H * W * Ci * Co,
-                    2.0 * (x.numel() + out.numel() + w.numel()
-                           + (res.numel() if use_res else 0))
-                    + 8.0 * B * Ci)
+    bms, by = conv_bound(shape)
 
     def run(d=design):
         # counts nothing: the launch checks read the paths' runs only
         return fc._fused_affine_silu_conv3x3_design(d, x, a, b, w, bias,
-                                                    residual=res)
+                                                    add_bc=t, residual=res)
 
     row = dict(shape=label, design=design, per_run=per_run,
                max_abs_err=(out.float() - want).abs().max().item(),
                err_of_limit=ratio,
                control_of_limit=min(controls.values()), controls=controls,
                ms=time_ms(torch, lambda: fc.fused_affine_silu_conv3x3(
-                   x, a, b, w, bias, residual=res)),
+                   x, a, b, w, bias, add_bc=t, residual=res)),
                graph_ms=graph_ms(torch, run, calls=10, replays=3),
                host_us=host_us(torch, run, calls=20),
                plain_ms=time_ms(torch, lambda:
                                 fc.fused_affine_silu_conv3x3_ref(
-                                    x, a, b, w, bias, residual=res), 100.0),
+                                    x, a, b, w, bias, add_bc=t,
+                                    residual=res), 50.0),
                library_ms=time_ms(torch, library), bound_ms=bms,
                bound_by=by)
     if design == "sm90":
@@ -1178,13 +1294,15 @@ def k4_row(torch, F, fc, shape, g, dev):
                               f"{mma_ratio:.3g} of the limit")
         row.update(mma_sync_err_of_limit=mma_ratio,
                    mma_sync_max_abs_err=(mo.float() - want).abs().max()
-                   .item(),
-                   mma_sync_ms=time_ms(torch, lambda: run("mma_sync")),
-                   mma_sync_graph_ms=graph_ms(torch, lambda: run("mma_sync"),
-                                              calls=10, replays=3),
-                   mma_sync_host_us=host_us(torch, lambda: run("mma_sync"),
-                                            calls=20))
+                   .item())
         del mo
+        if time_mma:
+            row.update(
+                mma_sync_ms=time_ms(torch, lambda: run("mma_sync")),
+                mma_sync_graph_ms=graph_ms(torch, lambda: run("mma_sync"),
+                                           calls=10, replays=3),
+                mma_sync_host_us=host_us(torch, lambda: run("mma_sync"),
+                                         calls=20))
     return row
 
 
@@ -1202,6 +1320,9 @@ def print_row(key, row, card):
     elif "graph_ms" in row:
         extra += (f"; graphed {row['graph_ms']:.4f} ms; host "
                   f"{row['host_us']:.1f} us a call")
+    if "mma_sync_err_of_limit" in row and "mma_sync_ms" not in row:
+        extra += (f"; mma_sync {row['mma_sync_err_of_limit']:.3g} of the "
+                  f"limit, not timed")
     if "controls" in row:
         extra += ", controls " + ", ".join(
             f"{k} {v:.3g}" for k, v in row["controls"].items())
@@ -1218,41 +1339,62 @@ def bwd_pair(results):
     """K2 and K3 summed over one run of each training path, each shape's
     launches there times its time: as run (each shape on the design
     bwd_design names), with the mma.sync design at every shape (its time
-    beside the Hopper design's at the same inputs), SDPA's backward (one
+    beside the Hopper design's at the same inputs; None where that time
+    was not taken, mma_sync_total), SDPA's backward (one
     call computes dq, dk and dv: K3's launches, which include the one
     cross-attention whose q needs no gradient) and the bound."""
     out = {}
     for p in ("train", "validate", "acceptance", "mode3", "folders", "tp"):
         def total(key, field):
-            return sum(r.get(field, r["ms"]) * r["per_run"].get(p, 0)
+            return sum(r[field] * r["per_run"].get(p, 0)
                        for r in results[key])
         out[p] = dict(
             k2_ms=total("K2", "ms"), k3_ms=total("K3", "ms"),
-            k2_mma_sync_ms=total("K2", "mma_sync_ms"),
-            k3_mma_sync_ms=total("K3", "mma_sync_ms"),
+            k2_mma_sync_ms=mma_sync_total(results["K2"], p),
+            k3_mma_sync_ms=mma_sync_total(results["K3"], p),
             sdpa_backward_ms=total("K3", "library_ms"),
             bound_ms=total("K2", "bound_ms") + total("K3", "bound_ms"))
         out[p]["pair_ms"] = out[p]["k2_ms"] + out[p]["k3_ms"]
-        out[p]["pair_mma_sync_ms"] = (out[p]["k2_mma_sync_ms"]
-                                      + out[p]["k3_mma_sync_ms"])
+        both = (out[p]["k2_mma_sync_ms"], out[p]["k3_mma_sync_ms"])
+        out[p]["pair_mma_sync_ms"] = (None if None in both else sum(both))
     return out
+
+
+def mma_sync_total(rows, path, field="mma_sync_ms", fallback="ms"):
+    """A path's sum with every shape on the mma.sync design: a Hopper row
+    adds the mma.sync design's `field`, timed beside it, an mma.sync row
+    its own `fallback`; None where a Hopper row of the path was not timed
+    on the mma.sync design (phase_kernels times that design beside the
+    Hopper one at each kernel's heaviest shape only)."""
+    total = 0.0
+    for r in rows:
+        n = r["per_run"].get(path, 0)
+        if not n:
+            continue
+        if r["design"] == "sm90":
+            if field not in r:
+                return None
+            total += r[field] * n
+        else:
+            total += r[fallback] * n
+    return total
 
 
 def conv_paths(rows):
     """K4 summed over one run of each path, each shape's launches there
     times its time: as run (each shape on the design conv_design names),
     eagerly and in a CUDA graph; with the mma.sync design at every shape
-    (its time beside the Hopper design's at the same inputs), eagerly and
-    in a graph; GroupNorm + SiLU + cuDNN; the bound."""
+    (its time beside the Hopper design's at the same inputs; None where
+    that time was not taken, mma_sync_total), eagerly and in a graph;
+    GroupNorm + SiLU + cuDNN; the bound."""
     out = {}
     for p in path_codecs():
-        def total(field, fallback="ms"):
-            return sum(r.get(field, r[fallback]) * r["per_run"].get(p, 0)
-                       for r in rows)
+        def total(field):
+            return sum(r[field] * r["per_run"].get(p, 0) for r in rows)
         out[p] = dict(k4_ms=total("ms"), k4_graph_ms=total("graph_ms"),
-                      k4_mma_sync_ms=total("mma_sync_ms"),
-                      k4_mma_sync_graph_ms=total("mma_sync_graph_ms",
-                                                 "graph_ms"),
+                      k4_mma_sync_ms=mma_sync_total(rows, p),
+                      k4_mma_sync_graph_ms=mma_sync_total(
+                          rows, p, "mma_sync_graph_ms", "graph_ms"),
                       library_ms=total("library_ms"),
                       bound_ms=total("bound_ms"))
     return out
@@ -1277,30 +1419,50 @@ def phase_kernels(torch, dev, card, serve_steps):
         check(split[path] == capture_record(want),
               f"K2/K3 by design on the {path} path: bwd_design gives "
               f"{split[path]}, the launch checks {want}")
+    # the superseded mma.sync designs: checked beside the Hopper designs at
+    # every shape, timed beside them at each kernel's heaviest shape
+    design = {"K1": fa.fwd_design, "K2": fa.bwd_design,
+              "K3": fa.bwd_design}
+    heaviest = {key: max((s for s in shapes if key in s["per_run"]
+                          and fn(s["d"], s["Lk"]) == "sm90"),
+                         key=lambda s: attention_bound(key, s)[0])
+                for key, fn in design.items()}
     for shape in shapes:
-        for key, row in attention_rows(torch, F, fa, shape, g,
-                                       dev).items():
+        t0 = time.perf_counter()
+        rows = attention_rows(torch, F, fa, shape, g, dev,
+                              [k for k, s in heaviest.items() if s is shape])
+        for key, row in rows.items():
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["row_s"] = time.perf_counter() - t0
             results[key].append(row)
             print_row(key, row, card)
     print(f"backward pair [{card}]: {json.dumps(bwd_pair(results))}",
           flush=True)
-    shapes = k4_shapes()
+    shapes = k4_shapes(serve_steps)
     # every path's K4 launches in k4_shapes, split by conv_design, are what
     # the launch checks hold the path's counted run to
     split = conv_split_by_path(shapes, fc.conv_design)
-    codecs = path_codecs()
-    check(sorted(split) == sorted(codecs) and all(
-        split[p] == capture_record(k4(*codecs[p])) for p in split),
-        f"K4 by design in k4_shapes: {split}, the launch checks "
-        f"{ {p: k4(*c) for p, c in codecs.items()} }")
+    want = path_k4(serve_steps)
+    check(sorted(split) == sorted(want) and all(
+        split[p] == capture_record(want[p]) for p in split),
+        f"K4 by design in k4_shapes: {split}, the launch checks {want}")
+    heaviest = max((s for s in shapes
+                    if fc.conv_design(s[3], s[4]) == "sm90"),
+                   key=lambda s: conv_bound(s)[0])
     for shape in shapes:
-        row = k4_row(torch, F, fc, shape, g, dev)
+        t0 = time.perf_counter()
+        row = k4_row(torch, F, fc, shape, g, dev, shape is heaviest)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["row_s"] = time.perf_counter() - t0
         results["K4"].append(row)
         print_row("K4", row, card)
     print(f"conv paths [{card}]: {json.dumps(conv_paths(results['K4']))}",
           flush=True)
+    # the phase's seconds: the attention shapes' rows (K1 with K2 and K3
+    # where the shape has them) and K4's
+    print("kernels seconds: " + json.dumps({
+        key: sum(r["row_s"] for r in results[key]) for key in ("K1", "K4")}),
+        flush=True)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     return results
@@ -1495,7 +1657,208 @@ def phase_slice(torch, dev, card, steps):
             prof["idle_share"] if prof else None)
         print(f"profile {what} [{card}]: "
               f"{json.dumps(prof) if prof else 'not measured'}", flush=True)
+    stages["fused_unet"] = slice_fused_unet(
+        torch, dev, card, built, vae, sched, steps, seeds,
+        (ctx, ctx_b, uncond), lat0, outs["graphed"], run)
     return launches, stages, built, tok
+
+
+def cfg_unet_inputs(torch, lat0, ctx, ctx_b, uncond, t):
+    """The UNet's inputs at one CFG step of pipeline.make_denoise_fn's
+    loop: the latents twice (B = 2 N), the timestep t, and the
+    unconditional contexts beside the prompt's, in bf16."""
+    N, n_layers = lat0.shape[0], ctx.shape[1]
+    reps = N // ctx.shape[2]
+    u = uncond[None, :1].to(torch.bfloat16).expand(
+        (n_layers, N) + tuple(uncond.shape[1:]))
+    c, cb = (x[0].repeat_interleave(reps, dim=1).to(torch.bfloat16)
+             for x in (ctx, ctx_b))
+    return (torch.cat([lat0, lat0]).to(torch.bfloat16),
+            torch.full((2 * N,), float(t), device=lat0.device),
+            torch.cat([u, c], 1), torch.cat([u, cb], 1))
+
+
+def slice_fused_unet(torch, dev, card, built, vae, sched, steps, seeds,
+                     cond, lat0, unfused_imgs, run_unfused):
+    """The fused-UNet serving path (BENCH_FUSE_UNET=1; builder.
+    fuse_for_inference with the UNet) on the slice's weights: a view of
+    the UNet that shares its parameters, fused. Its counted run (the eager
+    warm-up and the capture, as the slice's) holds K4's launches by design
+    (44 a forward, all on the Hopper design, and the decode's); graphed
+    serving with the switch off and on, interleaved round by round; the
+    graphed rounds bit-equal to an eager one, a stale-buffer replay the
+    control; one UNet forward against the unfused one within
+    FUSED_UNET_REL_LIMIT, which a planted fault must exceed; the loop's
+    images against the unfused ones; one fused CFG step profiled graphed
+    and eagerly, the weights' relayout (ops/conv.py conv3x3_hwio) a range
+    of its own. Returns the stats, the counted launches under
+    "launches"."""
+    import numpy as np
+    from view_neti_tpu_torch.inference import pipeline
+    from view_neti_tpu_torch.models import unet as unet_mod
+    from view_neti_tpu_torch.ops import conv as conv_ops
+    from view_neti_tpu_torch.training import builder
+
+    ctx, ctx_b, uncond = cond
+    unet = copy.copy(built.unet)
+    builder.fuse_for_inference(vae, unet=unet)
+    check(unet.config.fuse_conv and not built.unet.config.fuse_conv,
+          "fuse_for_inference did not fuse the UNet's view alone")
+
+    def sampler(graph):
+        return (pipeline.make_denoise_fn(unet, sched, steps, 7.5,
+                                         torch.bfloat16, graph=graph),
+                pipeline.make_decode_fn(vae, graph=graph))
+
+    graphed, eager = sampler(True), sampler(False)
+
+    def run(seed_offset, fns=graphed):
+        return pipeline.generate(unet, vae, sched, ctx, ctx_b, uncond,
+                                 HEIGHT, WIDTH,
+                                 [s + seed_offset for s in seeds],
+                                 num_inference_steps=steps,
+                                 guidance_scale=7.5,
+                                 compute_dtype=torch.bfloat16, device=dev,
+                                 denoise_fn=fns[0], decode_fn=fns[1])
+
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    run(0)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(1)
+    capture_run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {**unet_k1(2 * steps), **unet_bwd(0),
+            **add_counts(k4(decodes=2), k4_unet(2 * steps))}
+    check(launches == want, f"fused serving launches in 2 runs {launches}, "
+                            f"want {want}")
+    (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
+    check(loop_cap.launches == capture_record(
+        add_counts(unet_k1(steps), k4_unet(steps))),
+        f"the fused denoise graph's launches {loop_cap.launches}")
+    check(dec_cap.launches == capture_record(k4(decodes=1)),
+          f"the fused decode graph's launches {dec_cap.launches}")
+
+    # sec/image with the switch off and on, their graphed rounds
+    # interleaved (off, on) so that both see the same card
+    rounds = 3
+    secs = {"off": 0.0, "on": 0.0}
+    imgs = []
+    for r in range(2, rounds + 2):
+        for name, fn in (("off", run_unfused), ("on", run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(r)
+            secs[name] += time.perf_counter() - t0
+            if name == "on":
+                imgs.append(out)
+    per_image = {k: v / (rounds * len(seeds)) for k, v in secs.items()}
+    eager_imgs = run(2, eager)
+    equal = np.array_equal(imgs[0], eager_imgs)
+    check(equal, "the fused graphed sampling run differs from the eager one")
+    graphed[0].replay(loop_cap)
+    stale = pipeline.decode_to_uint8(
+        vae, loop_cap.out_tensors[0].to(torch.bfloat16)).cpu().numpy()
+    stale_levels = float(np.abs(stale.astype(np.int32)
+                                - eager_imgs.astype(np.int32)).mean())
+    check(stale_levels > 1.0, f"a stale fused replay is within "
+                              f"{stale_levels} mean levels of the eager run")
+
+    # the loop's images, fused against unfused, the same seeds
+    diff = np.abs(np.stack(imgs).astype(np.int32)
+                  - np.stack(unfused_imgs).astype(np.int32))
+    within = float((diff <= FUSED_LEVELS).mean())
+    images = dict(mean_levels=float(diff.mean()), max_levels=int(diff.max()),
+                  within_2=float((diff <= 2).mean()),
+                  within_limit=within)
+    check(within >= FUSED_WITHIN_SHARE,
+          f"the fused loop's images: {within} within {FUSED_LEVELS} levels "
+          f"of the unfused ones, want {FUSED_WITHIN_SHARE}")
+
+    # one UNet forward, fused against unfused, and the planted fault
+    inputs = cfg_unet_inputs(torch, lat0, ctx, ctx_b, uncond,
+                             sched.set_timesteps(steps)[0])
+    fused_conv3x3 = unet_mod.fused_affine_silu_conv3x3
+
+    def dropped_last_residual(*args, **kwargs):
+        # the 22nd section with a residual is the last block's conv2
+        if kwargs.get("residual") is not None:
+            seen[0] += 1
+            if seen[0] == 22:
+                kwargs["residual"] = None
+        return fused_conv3x3(*args, **kwargs)
+
+    with torch.no_grad():
+        want_eps = built.unet(*inputs).float()
+        got = unet(*inputs).float()
+        seen = [0]
+        unet_mod.fused_affine_silu_conv3x3 = dropped_last_residual
+        try:
+            fault = unet(*inputs).float()
+        finally:
+            unet_mod.fused_affine_silu_conv3x3 = fused_conv3x3
+    check(seen[0] == 22, f"{seen[0]} fused sections with a residual in a "
+                         f"forward, want 22")
+
+    def rel(x):
+        return ((x - want_eps).square().mean().sqrt()
+                / want_eps.square().mean().sqrt()).item()
+
+    forward = dict(rel_rms=rel(got), fault_rel_rms=rel(fault),
+                   max_abs=(got - want_eps).abs().max().item(),
+                   limit=FUSED_UNET_REL_LIMIT,
+                   finite=bool(torch.isfinite(got).all()))
+    check(forward["finite"] and forward["rel_rms"] <= FUSED_UNET_REL_LIMIT,
+          f"the fused UNet's forward against the unfused one: {forward}")
+    check(forward["fault_rel_rms"] > FUSED_UNET_REL_LIMIT,
+          f"the limit misses the dropped residual: {forward}")
+    del want_eps, got, fault
+
+    # one fused CFG step: graphed, by kernel group; eagerly, with the
+    # weights' relayout under a range of its own
+    step1 = pipeline.make_denoise_fn(unet, sched, 1, 7.5, torch.bfloat16)
+    step1_eager = pipeline.make_denoise_fn(unet, sched, 1, 7.5,
+                                           torch.bfloat16, graph=False)
+    for _ in range(2):      # the warm-up, then the capture
+        step1(lat0, ctx, ctx_b, uncond)
+
+    def hwio(conv):
+        with torch.profiler.record_function("conv3x3_hwio"):
+            return conv_ops.conv3x3_hwio(conv)
+
+    prof = {"graphed": device_profile(
+        torch, lambda: step1(lat0, ctx, ctx_b, uncond))}
+    unet_mod.conv3x3_hwio = hwio
+    try:
+        prof["eager"] = device_profile(
+            torch, lambda: step1_eager(lat0, ctx, ctx_b, uncond),
+            ranges=("conv3x3_hwio",))
+    finally:
+        unet_mod.conv3x3_hwio = conv_ops.conv3x3_hwio
+    for what, p in prof.items():
+        print(f"profile fused denoise step {what} [{card}]: "
+              f"{json.dumps(p) if p else 'not measured'}", flush=True)
+    relayout = None
+    if prof["graphed"] and prof["eager"]:
+        ms = prof["eager"]["by_group_ms"].get("conv3x3_hwio", 0.0)
+        relayout = dict(ms=ms, launches=prof["eager"]["launches_by_range"]
+                        .get("conv3x3_hwio", 0),
+                        share_of_graphed_busy=ms / prof["graphed"]["busy_ms"])
+    stats = dict(sec_per_image_off=per_image["off"],
+                 sec_per_image_on=per_image["on"],
+                 on_over_off=per_image["on"] / per_image["off"],
+                 first_run_s=first_s, capture_run_s=capture_run_s,
+                 graphed_equals_eager=equal,
+                 stale_replay_mean_levels=stale_levels,
+                 loop_capture_s=loop_cap.capture_s,
+                 loop_pool_gib=loop_cap.pool_bytes / 2 ** 30,
+                 forward=forward, images=images, relayout=relayout,
+                 step_idle_share=(prof["graphed"]["idle_share"]
+                                  if prof["graphed"] else None))
+    print(f"slice fused unet [{card}]: {json.dumps(stats)}", flush=True)
+    stats["launches"] = launches
+    return stats
 
 
 def phase_train(torch, dev, card, built, tok, steps):
@@ -2502,7 +2865,8 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
 def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     """python -m view_neti_tpu_torch.inference on the validate phase's run
     at its checkpoint step, --debug 1 (its first two cameras), the same
-    seeds and 30 steps: the predictions equal the sweep's bit for bit.
+    seeds and VAL_DENOISE steps: the predictions equal the sweep's bit for
+    bit.
     Then python -m view_neti_tpu_torch.summarize_dtu on the sweep's bundle
     with LPIPS: each seed's CSV means equal the means of the sweep's
     per-view metrics to 1e-6."""
@@ -2594,13 +2958,15 @@ def write_mode3_scans(root, image_io, dtu, np, scans):
 def mode3_config(rect, exp_dir, steps, save_steps, **log):
     """input_configs/train_m3.yaml as the train CLI reads it, with this
     run's data and experiment directories, a checkpoint and a train state
-    every save_steps, and no reports."""
+    every save_steps, no reports, and its validation at VAL_DENOISE
+    steps."""
     from view_neti_tpu_torch.config import parse_cli
     args = ["--config_path", M3_CONFIG, "--data.train_data_dir", rect,
             "--log.exp_dir", exp_dir, "--log.save_steps", str(save_steps),
             "--log.checkpoint_backend", "orbax", "--log.report_to", "none",
             "--log.save_dataset_images", "false",
-            "--optim.max_train_steps", str(steps)]
+            "--optim.max_train_steps", str(steps),
+            "--eval.num_denoising_steps", str(VAL_DENOISE)]
     for key, value in log.items():
         args += [f"--log.{key}", str(value)]
     return parse_cli(args)
@@ -4436,7 +4802,9 @@ BENCH_RUNS = (
     ("coach_mode2", {"BENCH_STEPS": "16"}, "K1 K2 K3 K4"),
     ("coach_mode3", {"BENCH_MODE": "3", "BENCH_STEPS": "8"}, "K1 K2 K3 K4"),
     ("serving", {"BENCH_INFER": "1"}, "K1 K4"),
-    ("sweep", {"BENCH_VAL": "1", "BENCH_INFER_STEPS": "5"}, "K1 K4"),
+    ("serving_fused_unet", {"BENCH_INFER": "1", "BENCH_FUSE_UNET": "1"},
+     "K1 K4"),
+    ("sweep", {"BENCH_VAL": "1", "BENCH_INFER_STEPS": "3"}, "K1 K4"),
 )
 BENCH_RATIO = (0.67, 1.5)   # a bench rate over the same rate of a phase
 BENCH_TIMEOUT_S = 300
@@ -4458,12 +4826,15 @@ def run_bench(env):
 
 def phase_bench(card, slice_stats, coach_stats):
     """python -m view_neti_tpu_torch.bench in its five modes at full width,
-    each in a process of its own (the kernels built above): exit 0 and one
-    line each, a finite positive value, 0 < mfu <= 1, the device this card;
-    the launches of each mode's kernels; serving's sec/image and the mode-2
-    Coach's imgs/sec within BENCH_RATIO of the slice and coach phases'
-    graphed rates in this run. The control: BENCH_FLASH=0 is refused with
-    the error line and a failed exit."""
+    and serving again with BENCH_FUSE_UNET=1, each in a process of its own
+    (the kernels built above): exit 0 and one line each, a finite positive
+    value, 0 < mfu <= 1, the device this card; the launches of each mode's
+    kernels; the fused-UNet run's launches serving's and K4's 44 a UNet
+    forward, its flops_per_image serving's within 0.1 %; serving's
+    sec/image (switch off and on) and the mode-2 Coach's imgs/sec within
+    BENCH_RATIO of the slice and coach phases' graphed rates in this run.
+    The control: BENCH_FLASH=0 is refused with the error line and a failed
+    exit (bench.main, in this process)."""
     records, launches = {}, {}
     for name, env, kernels in BENCH_RUNS:
         rc, lines, err, secs = run_bench(env)
@@ -4497,21 +4868,47 @@ def phase_bench(card, slice_stats, coach_stats):
         launches[name] = counts
         records[name] = dict(rec, launches=counts, flops_by_source=flops,
                              process_s=secs)
+    # the fused UNet adds K4's 44 launches to each of the serving run's UNet
+    # forwards (32 K1 launches each) and no FLOP
+    plain, fused = records["serving"], records["serving_fused_unet"]
+    forwards = plain["launches"]["K1"] // 32
+    want = add_counts(plain["launches"], k4_unet(forwards))
+    check(fused["launches"] == want,
+          f"bench serving_fused_unet: launches {fused['launches']}, want "
+          f"{want}")
+    flops_ratio = fused["flops_per_image"] / plain["flops_per_image"]
+    check(abs(flops_ratio - 1) <= 1e-3,
+          f"bench serving_fused_unet: flops_per_image {flops_ratio} of "
+          f"serving's")
     serve = records["serving"]["value"] / slice_stats["sec_per_image_graphed"]
+    serve_fused = (fused["value"]
+                   / slice_stats["fused_unet"]["sec_per_image_on"])
     coach = records["coach_mode2"]["value"] / coach_stats["imgs_per_sec"]
     for what, ratio in (("serving sec/image over the slice phase's", serve),
+                        ("fused-UNet serving sec/image over the slice "
+                         "phase's", serve_fused),
                         ("Coach mode 2 imgs/sec over the coach phase's",
                          coach)):
         check(BENCH_RATIO[0] <= ratio <= BENCH_RATIO[1],
               f"bench {what}: {ratio}, outside {BENCH_RATIO}")
-    rc, lines, err, secs = run_bench({"BENCH_FLASH": "0",
-                                      "BENCH_INFER": "1"})
+    # the control, in this process (the CLI's exit code is main's): the
+    # switch is refused before the card is touched
+    from view_neti_tpu_torch import bench
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = bench.main([], env={"BENCH_FLASH": "0", "BENCH_INFER": "1"})
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
     control = json.loads(lines[0]) if len(lines) == 1 else None
     check(rc != 0 and control is not None and control["unit"] == "error"
           and "BENCH_FLASH" in control["error"],
           f"bench control BENCH_FLASH=0: exit {rc}, stdout {lines}")
     summary = dict(records=records,
                    serving_over_slice_sec_per_image=serve,
+                   serving_fused_unet_over_slice_sec_per_image=serve_fused,
+                   fused_over_plain_flops_per_image=flops_ratio,
                    coach_mode2_over_coach_imgs_per_sec=coach,
                    control=dict(exit=rc, line=control, process_s=secs))
     print(f"bench [{card}]: {json.dumps(summary)}", flush=True)
@@ -4519,10 +4916,11 @@ def phase_bench(card, slice_stats, coach_stats):
 
 
 def mma_sync_rows(rows):
-    """A kernel's mma.sync design (K1's to K4's) at its Hopper design's
-    shapes, from the check and the time attention_rows or k4_row took of it
-    at the same inputs: the plain version, the library call, the bound and
-    the control are the inputs', its error and times its own."""
+    """A kernel's mma.sync design (K1's to K4's) at the Hopper design's
+    shapes where it was timed beside it (the heaviest), from the check and
+    the time attention_rows or k4_row took of it at the same inputs: the
+    plain version, the library call, the bound and the control are the
+    inputs', its error and times its own."""
     out = []
     for r in rows:
         if "mma_sync_ms" not in r:
@@ -4545,14 +4943,16 @@ def kernel_report(kernels, launches, card):
     K3 and K4 apart),
     ms / plain_ms / bound_ms / library_ms and share_of_bound (bound_ms /
     ms) at its heaviest main-path shape, and the same summed over one run
-    of each path that launches it (<path>_path_*: a serving run, a train
-    step, the weights phase, the acceptance phase, the validate phase, the
-    inference phase, the mode3 phase, the folders phase, a tp rank's
-    render and training), each shape weighted by its launches there; the
-    Hopper designs' entries carry the mma.sync design's ms at their shape.
-    An mma.sync design's entry takes its rows from the shapes it runs and
-    from its check and time beside the Hopper design at the same inputs
-    (mma_sync_rows), so it keeps its numbers when no path launches it.
+    of each path that launches it (<path>_path_*: a serving run, a
+    fused-UNet serving run, a train step, the weights phase, the
+    acceptance phase, the validate phase, the inference phase, the mode3
+    phase, the folders phase, a tp rank's render and training), each shape
+    the design runs there weighted by its launches there; the Hopper
+    designs' entries carry the mma.sync design's ms at their shape. An
+    mma.sync design's entry takes its heaviest shape from the shapes it
+    runs and from its time beside the Hopper design at the same inputs
+    (mma_sync_rows), so it keeps its numbers when no path launches it, and
+    its error from every shape it was checked at.
     Each entry carries its heaviest shape's time in a CUDA graph and on
     the host where the rows have them.
     `launches` holds each path's counted run (launch_counts' keys): a
@@ -4591,17 +4991,26 @@ def kernel_report(kernels, launches, card):
              "view_neti_tpu_torch/csrc/fused_conv.cu",
              "view_neti_tpu/ops/fused_conv.py:176", "2e-2 + 2^-8|out|",
              "mma_sync")):
-        rows = [r for r in kernels[key]
+        own = [r for r in kernels[key]
                 if design is None or r["design"] == design]
+        rows, errs = list(own), [(r["max_abs_err"], r["err_of_limit"],
+                                  r["control_of_limit"]) for r in own]
         if design == "mma_sync":
+            # beside the Hopper design: timed at its heaviest shape, checked
+            # at every one
             rows += mma_sync_rows(kernels[key])
+            errs += [(r["mma_sync_max_abs_err"], r["mma_sync_err_of_limit"],
+                      r["control_of_limit"]) for r in kernels[key]
+                     if "mma_sync_err_of_limit" in r]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
-        paths = ("serve", "train", "weights", "acceptance", "validate",
-                 "inference", "mode3", "folders", "tp")
+        paths = ("serve", "serve_fused_unet", "train", "weights",
+                 "acceptance", "validate", "inference", "mode3", "folders",
+                 "tp")
+        # a path's sums over the shapes the design runs there
         path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
-                                     for r in rows)
+                                     for r in own)
                 for p in paths
-                if any(p in r["per_run"] for r in rows)
+                if any(p in r["per_run"] for r in own)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         for p in paths:
             if f"{p}_path_ms" in path:
@@ -4613,9 +5022,9 @@ def kernel_report(kernels, launches, card):
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             checked=True, tolerance=tol,
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            err_of_limit=max(r["err_of_limit"] for r in rows),
-            control_of_limit=min(r["control_of_limit"] for r in rows),
+            max_abs_err=max(e[0] for e in errs),
+            err_of_limit=max(e[1] for e in errs),
+            control_of_limit=min(e[2] for e in errs),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             share_of_bound=top["share_of_bound"],
@@ -4766,6 +5175,9 @@ def main() -> int:
     bench_launches = timed("bench", phase_bench, card, slice_stats,
                            coach_stats)
     report = kernel_report(kernels, {"serve": serve_launches,
+                                     "serve_fused_unet":
+                                         slice_stats["fused_unet"]
+                                         ["launches"],
                                      "train": train_launches,
                                      "coach": coach_launches,
                                      "coach_trace":

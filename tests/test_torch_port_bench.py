@@ -242,7 +242,8 @@ def test_kernel_flops_context_is_single():
 @pytest.mark.parametrize("env,named", [
     ({"BENCH_FLASH": "0"}, "BENCH_FLASH"),
     ({"BENCH_FUSECONV": "0"}, "BENCH_FUSECONV"),
-    ({"BENCH_FUSE_UNET": "1", "BENCH_INFER": "1"}, "BENCH_FUSE_UNET"),
+    ({"BENCH_FUSE_UNET": "1", "BENCH_FLASH": "0", "BENCH_INFER": "1"},
+     "BENCH_FLASH"),
     ({"BENCH_CHECK_FLASH": "1", "BENCH_E2E": "0"}, "BENCH_CHECK_FLASH"),
     ({"BENCH_MODE": "4"}, "BENCH_MODE"),
 ])
@@ -256,6 +257,41 @@ def test_refused_switches_and_unknown_mode(env, named, capsys, monkeypatch):
                    "unit": "error", "vs_baseline": 0.0,
                    "error": rec["error"]}
     assert named in rec["error"]
+
+
+@pytest.mark.parametrize("mode", ["serving", "sweep", "raw"])
+def test_fuse_unet_switch_fuses_the_unet_where_the_vae_is(mode, capsys,
+                                                         monkeypatch):
+    """BENCH_FUSE_UNET=1 builds the fused UNet in the serving and sweep
+    modes wherever they fuse the VAE (the card; forced here, the plain K4
+    on CPU tensors), and not without the switch; the raw train step never
+    fuses it (its UNet is differentiated), as the JAX bench reads the
+    switch only in those two modes. The model FLOPs are the same either
+    way; on the CPU without forcing, nothing is fused."""
+    stacks = []
+    stack = bench._stack
+
+    def kept(*args, **kwargs):
+        out = stack(*args, **kwargs)
+        stacks.append(out[0])
+        return out
+
+    monkeypatch.setattr(bench, "_stack", kept)
+    env = dict(MODES[mode], BENCH_TINY="1")
+    if mode == "raw":
+        env["BENCH_STEPS"] = "1"
+    recs = {}
+    for forced, switch in ((True, "1"), (True, "0"), (False, "1")):
+        monkeypatch.setattr(bench, "fuses", lambda device: forced)
+        rc, recs[forced, switch] = run_bench(
+            capsys, dict(env, BENCH_FUSE_UNET=switch))
+        assert rc == 0, recs[forced, switch]
+        built = stacks[-1]
+        assert built.vae.config.fuse_conv is forced
+        assert built.unet.config.fuse_conv is (
+            forced and switch == "1" and mode != "raw")
+    flops = {k: r["flops_per_image"] for k, r in recs.items()}
+    assert len(set(flops.values())) == 1, flops
 
 
 def test_no_card_is_an_error(capsys, monkeypatch):

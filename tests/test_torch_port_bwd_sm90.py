@@ -336,12 +336,20 @@ def test_kernel_report_and_pair_list_k2_and_k3_by_design():
     assert dq["ms"] == 1.0 and dq["mma_sync_ms"] == 2.0
     # the mma.sync entry: its own shapes and its time beside the Hopper one
     assert dq_mma["ms"] == 2.0 and dq_mma["err_of_limit"] == 0.3
-    assert dq_mma["train_path_ms"] == pytest.approx(26 * 0.1 + 4 * 2.0)
+    assert dq_mma["train_path_ms"] == pytest.approx(26 * 0.1)
     pair = chip_smoke.bwd_pair(kernels)["train"]
     assert pair["pair_ms"] == pytest.approx(2 * (4 * 1.0) + 0.1 * (26 + 27))
     assert pair["pair_mma_sync_ms"] == pytest.approx(
         2 * (4 * 2.0) + 0.1 * (26 + 27))
     assert pair["sdpa_backward_ms"] == pytest.approx(0.8 * 4 + 0.08 * 27)
+    # a Hopper shape not timed on the mma.sync design: the all-mma.sync
+    # sums of its paths are unknown
+    bwd["K2"][0] = {k: v for k, v in bwd["K2"][0].items()
+                    if k != "mma_sync_ms"}
+    pair = chip_smoke.bwd_pair(kernels)["train"]
+    assert pair["k2_mma_sync_ms"] is None and pair["pair_mma_sync_ms"] is None
+    assert pair["k3_mma_sync_ms"] == pytest.approx(4 * 2.0 + 0.1 * 27)
+    assert pair["pair_ms"] == pytest.approx(2 * (4 * 1.0) + 0.1 * (26 + 27))
 
 
 # the Hopper design's tile edges: the first key past the 80-key edge,

@@ -32,15 +32,16 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-# k4_shapes in its order: three decoders of 11 sections (serving, the
+# vae_k4_shapes in its order: three decoders of 11 sections (serving, the
 # sweep, the renders), then two encoders of 11 (the train step, the folder
-# path's 512x512 one)
+# path's 512x512 one); the fused UNet's rows are
+# tests/test_torch_port_unet_fused.py's
 KINDS = ("serve decode", "sweep decode", "render decode", "train encode",
          "folders encode")
 
 
 def _kinds():
-    shapes = chip_smoke.k4_shapes()
+    shapes = chip_smoke.vae_k4_shapes()
     kinds = [k for k in KINDS for _ in range(11)]
     assert len(kinds) == len(shapes)
     return list(zip(kinds, shapes))
@@ -87,14 +88,17 @@ def test_conv_design_at_its_cout_edges(Ci, Co, want):
 def test_launch_checks_agree_with_conv_design_on_every_path():
     """What phase_kernels checks before it runs a kernel: conv_design over
     k4_shapes gives every path's K4 counts of the launch checks (k4 of the
-    path's encodes and decodes)."""
+    path's encodes and decodes, and the fused-UNet serving path's UNet
+    forwards)."""
     split = chip_smoke.conv_split_by_path(chip_smoke.k4_shapes(),
                                           tfc.conv_design)
     codecs = chip_smoke.path_codecs()
     assert sorted(split) == sorted(codecs)
+    want = chip_smoke.path_k4()
     for path, (enc, dec) in codecs.items():
-        assert split[path] == chip_smoke.capture_record(
-            chip_smoke.k4(enc, dec)), path
+        assert split[path] == chip_smoke.capture_record(want[path]), path
+        if path != "serve_fused_unet":
+            assert want[path] == chip_smoke.k4(enc, dec), path
     assert chip_smoke.k4(2, 3) == {"K4": 129, "K4 sm90": 124,
                                    "K4 mma_sync": 5}
     assert set(chip_smoke.k4().values()) == {0}
@@ -305,10 +309,10 @@ def test_kernel_report_and_conv_paths_list_k4_by_design():
     assert mma["launches_by_path"] == {"serve": 2, "train": 1}
     assert sm90["ms"] == 1.7 and sm90["mma_sync_ms"] == 3.4
     assert sm90["graph_ms"] == pytest.approx(0.95 * 1.7)
-    # the mma.sync entry: the narrow shape it runs and its time beside the
-    # Hopper design at the wide ones
+    # the mma.sync entry: its time beside the Hopper design at the heaviest
+    # wide shape, its path sums over the narrow shape it runs
     assert mma["ms"] == 3.4 and mma["shape"] == "B3 288x384 512->256"
-    assert mma["serve_path_ms"] == pytest.approx(0.8 + 3.4)
+    assert mma["serve_path_ms"] == pytest.approx(0.8)
     for e in report:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -323,6 +327,16 @@ def test_kernel_report_and_conv_paths_list_k4_by_design():
     assert paths["train"]["library_ms"] == pytest.approx(2 * 1.5 * 1.3)
     assert paths["train"]["bound_ms"] == pytest.approx(2 * 0.4 * 1.3)
     assert paths["validate"]["k4_ms"] == 0
+    # a Hopper shape whose mma.sync time was not taken leaves its path's
+    # all-mma.sync sums unknown, and no other path's
+    untimed = {k: v for k, v in k4_rows[1].items()
+               if k not in ("mma_sync_ms", "mma_sync_graph_ms",
+                            "mma_sync_host_us")}
+    paths = chip_smoke.conv_paths([k4_rows[0], untimed, k4_rows[2]])
+    assert paths["train"]["k4_mma_sync_ms"] is None
+    assert paths["train"]["k4_mma_sync_graph_ms"] is None
+    assert paths["train"]["k4_ms"] == pytest.approx(2 * 1.3)
+    assert paths["serve"]["k4_mma_sync_ms"] == pytest.approx(3.4 + 0.8)
 
 
 def _conv_inputs(rng, B, H, W, Ci, Co):

@@ -305,7 +305,8 @@ def test_kernel_report_lists_each_k1_design():
     assert mma["library_ms"] == sm90["library_ms"]
     assert mma["bound_ms"] == sm90["bound_ms"]
     assert mma["share_of_bound"] == pytest.approx(0.52 / 1.82)
-    assert mma["serve_path_ms"] == pytest.approx(150 * 1.4 * 1.4)
+    # its path sums cover the shapes it runs: none on the serving path
+    assert "serve_path_ms" not in mma
     assert report[2]["launches_by_path"] == {"serve": 0, "train": 28,
                                             "coach_trace": 56, "bench": 1}
     assert report[2]["launches"] == 85

@@ -733,6 +733,64 @@ def test_fused_conv_refuses_what_the_kernel_does_not_take(dev):
             tfc.fused_affine_silu_conv3x3(*bad)
 
 
+# the fused UNet's ResNet convs (UNetConfig.fuse_conv) at full width where
+# they meet the Hopper design's 8 x 32 pixel tiles raggedly: 9 x 12 (a
+# second row tile of one row, 12 of 32 columns) and 18 x 24, Cin up to
+# 2560 (40 chunks), Cout 1280 (10 output-channel blocks), with the time
+# embedding (add_bc) or a bf16 residual
+@pytest.mark.parametrize("B,H,W,Ci,Co,use_add,res", [
+    (6, 9, 12, 2560, 1280, True, None),
+    (6, 9, 12, 1280, 1280, False, "bfloat16"),
+    (6, 18, 24, 1920, 1280, True, None)])
+def test_fused_conv_at_the_unets_ragged_shapes(dev, B, H, W, Ci, Co,
+                                               use_add, res):
+    assert tfc.conv_design(Ci, Co) == "sm90"
+    _check_conv(dev, B, H, W, Ci, Co, True, use_add, res, "bfloat16")
+
+
+# a fused UNet forward against the unfused one on the same bf16 weights:
+# K4 rounds once from fp32 sums where GroupNorm, SiLU, cuDNN and the
+# time-embedding add each round to bf16, so the two differ by bf16
+# roundings carried through 22 blocks; the limit on the relative RMS of
+# the difference
+FUSED_UNET_REL_LIMIT = 5e-2
+
+
+def test_fused_unet_forward_matches_unfused(dev):
+    """The tiny UNet with fuse_conv on the card: 44 K4 launches a forward,
+    all on the Hopper design, nothing else changed, its output the
+    unfused one's within FUSED_UNET_REL_LIMIT."""
+    import copy
+    from view_neti_tpu_torch.models.unet import (UNet2DCondition,
+                                                 tiny_unet_config)
+    from view_neti_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+    from view_neti_tpu_torch.training import builder
+    g = torch.Generator(dev).manual_seed(0)
+    unet = builder._make(UNet2DCondition, tiny_unet_config(), dev, g,
+                         torch.bfloat16)
+    vae = builder._make(AutoencoderKL, tiny_vae_config(), dev, g,
+                        torch.bfloat16)
+    fused = copy.copy(unet)
+    builder.fuse_for_inference(vae, unet=fused)
+    assert fused.config.fuse_conv and not unet.config.fuse_conv
+    lat = _randn((4, 16, 16, 4), 7, dev)
+    t = torch.tensor([999.0, 999.0, 400.0, 400.0], device=dev)
+    ctx = _randn((4, 16, 32), 8, dev)
+    with torch.no_grad():
+        want = unet(lat, t, ctx)
+        before = _launches()
+        got = fused(lat, t, ctx)
+        torch.cuda.synchronize()
+        n = {k: v - before[k] for k, v in _launches().items()}
+    assert {k: n[k] for k in ("K4", "K4 sm90", "K4 mma_sync")} == {
+        "K4": 44, "K4 sm90": 44, "K4 mma_sync": 0}
+    assert n["K1"] == 32
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    rel = ((got - want).square().mean().sqrt()
+           / want.square().mean().sqrt()).item()
+    assert rel <= FUSED_UNET_REL_LIMIT, rel
+
+
 # --------------------------------------------------------- CUDA graphs ----
 # The denoise loop and the train window as CUDA graph replays
 # (utils/graphs.py) against the same work launched eagerly, on a tiny

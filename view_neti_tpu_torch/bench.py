@@ -24,12 +24,15 @@ Modes, chosen by the JAX bench's variables:
                  BENCH_INFER_STEPS steps); seconds.
 BENCH_STEPS sets the train steps (20 raw, 40 end to end, rounded up to a
 multiple of 4). BENCH_TINY=1 runs the miniature stack, for the CPU.
-Frozen weights are seeded, as in the JAX bench.
+Frozen weights are seeded, as in the JAX bench. On the card the VAE runs
+through the fused conv (K4); BENCH_FUSE_UNET=1 fuses the UNet's ResNet
+convs too (training/builder.py fuse_for_inference), read by the serving
+and sweep modes only, as in the JAX bench; off by default.
 
-Refused: BENCH_FLASH other than 1, BENCH_FUSECONV other than 1,
-BENCH_FUSE_UNET and BENCH_CHECK_FLASH other than 0. Each selects a path of
-the JAX package around its Pallas kernels; on the card it would put a
-kernel's plain version on the main path.
+Refused: BENCH_FLASH other than 1, BENCH_FUSECONV other than 1 and
+BENCH_CHECK_FLASH other than 0. Each selects a path of the JAX package
+around its Pallas kernels; on the card it would put a kernel's plain
+version on the main path.
 
 The line: "metric" (the JAX bench's name for the same environment),
 "value", "unit", "vs_baseline" (against the reference's own estimates: 6
@@ -77,7 +80,7 @@ PEAK_BF16_TFLOPS = 989.0        # H100 SXM, dense bf16, 700 W
 
 # switch -> the values that keep the port's one path (unset reads as "")
 REFUSED = {"BENCH_FLASH": ("", "1"), "BENCH_FUSECONV": ("", "1"),
-           "BENCH_FUSE_UNET": ("", "0"), "BENCH_CHECK_FLASH": ("", "0")}
+           "BENCH_CHECK_FLASH": ("", "0")}
 
 SD15 = "runwayml/stable-diffusion-v1-5"
 MODEL = {"arch_view_net": 15, "arch_view_disable_tl": False,
@@ -207,9 +210,22 @@ def _tiny(env: Mapping[str, str]) -> bool:
     return env.get("BENCH_TINY", "0") == "1"
 
 
-def _stack(env, device, view_tokens, caldir, compute_dtype, arch=None):
+def fuses(device: torch.device) -> bool:
+    """The JAX bench's auto for the fused conv: on for the accelerator,
+    off on the CPU."""
+    return device.type == "cuda"
+
+
+def _fuse_unet(env: Mapping[str, str]) -> bool:
+    return env.get("BENCH_FUSE_UNET", "") == "1"
+
+
+def _stack(env, device, view_tokens, caldir, compute_dtype, arch=None,
+           fuse_unet=False):
     """The mode-2 stack of the raw, serving and sweep modes: seeded
-    weights, one object token <skull>. Returns (built, tokenizer)."""
+    weights, one object token <skull>; where the fused conv is on, the VAE
+    and, with fuse_unet, the UNet run through it. Returns (built,
+    tokenizer)."""
     from view_neti_tpu_torch.config import RunConfig, decode
     from view_neti_tpu_torch.tokenizer import FallbackTokenizer
     from view_neti_tpu_torch.training import builder
@@ -226,9 +242,9 @@ def _stack(env, device, view_tokens, caldir, compute_dtype, arch=None):
     built = builder.build_models(cfg, tok, view_tokens, ["<skull>"],
                                  arch=arch, compute_dtype=compute_dtype,
                                  calibration_dir=caldir, device=device)
-    if device.type == "cuda":
-        # the fused VAE (K4): the JAX bench's auto, on for the accelerator
-        builder.fuse_for_inference(built.vae)
+    if fuses(device):
+        builder.fuse_for_inference(built.vae,
+                                   unet=built.unet if fuse_unet else None)
     return built, tok
 
 
@@ -448,7 +464,8 @@ def bench_infer(env, device) -> Dict:
     with tempfile.TemporaryDirectory() as caldir:
         write_calibration(rng, caldir)
         view_tokens = synthetic_view_tokens(rng)
-        built, tok = _stack(env, device, view_tokens, caldir, dtype)
+        built, tok = _stack(env, device, view_tokens, caldir, dtype,
+                            fuse_unet=_fuse_unet(env))
     sched = DPMSolverSchedule()
     n_steps = int(env.get("BENCH_INFER_STEPS", "30"))
     pm = PromptManager(tok, built.text, sched.set_timesteps(n_steps),
@@ -492,7 +509,8 @@ def bench_infer(env, device) -> Dict:
         raise ValueError(f"images {imgs.shape} {imgs.dtype}")
     flops = count_flops(run, rounds + 2, sampler(False))
     note(f"build_s={build_s:.3f} warmup_s={warm_s:.3f} rounds={rounds} "
-         f"steps={n_steps} sec_per_image={dt:.6f} hw={H}x{W}")
+         f"steps={n_steps} sec_per_image={dt:.6f} hw={H}x{W} "
+         f"fused_unet={built.unet.config.fuse_conv}")
     per_image = _report_counts(launches, flops, len(seeds))
     return dict({"value": dt, "unit": "sec/image",
                  "vs_baseline": REF_SEC_PER_IMAGE / dt},
@@ -523,7 +541,7 @@ def bench_val(env, device) -> Dict:
             calibration_dir=caldir)
         built, tok = _stack(env, device,
                             [lookup_tok[i] for i in sorted(lookup_tok)],
-                            caldir, dtype)
+                            caldir, dtype, fuse_unet=_fuse_unet(env))
     sched = DPMSolverSchedule()
     n_steps = int(env.get("BENCH_INFER_STEPS", "2" if tiny else "30"))
     pm = PromptManager(tok, built.text, sched.set_timesteps(n_steps),
@@ -600,7 +618,7 @@ def bench_val(env, device) -> Dict:
     note(f"{len(cam_idxs)} views x {len(seeds)} seeds, {W}x{H}, {n_steps} "
          f"DPM++ steps, CFG, view_batch={vb}: wall={wall:.4f}s "
          f"sec_per_image={wall / n_imgs:.6f} build_s={build_s:.3f} "
-         f"warmup_s={warm_s:.3f}")
+         f"warmup_s={warm_s:.3f} fused_unet={built.unet.config.fuse_conv}")
     per_image = _report_counts(launches, flops, n_imgs)
     return dict({"value": wall, "unit": "seconds",
                  "vs_baseline": REF_SWEEP_S / wall},

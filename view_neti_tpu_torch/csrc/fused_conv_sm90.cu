@@ -1,5 +1,6 @@
 // Fused GroupNorm-affine + SiLU + 3x3 convolution (K4), redesigned for
-// Hopper (sm_90a) on wgmma and TMA: every ResNet conv of the VAE (Cout > 16,
+// Hopper (sm_90a) on wgmma and TMA: every ResNet conv of the VAE and, with
+// UNetConfig.fuse_conv on the inference paths, of the UNet (Cout > 16,
 // ops/fused_conv.py::conv_design). The mma.sync design of fused_conv.cu
 // keeps the two narrow convs (the decoder's conv_out, Cout 3, and the
 // encoder's last conv, Cout 8), which the bytes of x bound.

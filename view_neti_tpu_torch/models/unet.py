@@ -15,7 +15,15 @@ checkpoint loads strictly. As in the JAX module:
     attention runs its rank's heads and a feed-forward its rank's piece of
     the hidden units; `tp` is then the rank's record, and each adds its
     inputs' gradients over the tp group (copy_to_tp);
-  * the ResNet convs stay unfused (the fused conv serves the VAE);
+  * with `fuse_conv` (inference only; training.builder.fuse_for_inference
+    with `unet`) each ResNet block runs its two norm -> SiLU -> conv3x3
+    sections through ops.fused_conv.fused_affine_silu_conv3x3, the
+    hand-written kernel K4 on the card: conv1 with the time embedding as
+    its broadcast add, conv2 with the block's input (or its 1x1 shortcut)
+    as its residual. conv_in, the samplers, the Transformer2D norms and
+    conv_norm_out + conv_out stay unfused. The parameters are the same
+    either way, so a shallow copy of the module with another config is a
+    second view of the same weights;
   * with `gradient_checkpointing` the ResNet blocks are recomputed in the
     backward (torch.utils.checkpoint), as nn.remat does there.
 """
@@ -31,7 +39,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from view_neti_tpu_torch.ops.attention import multi_head_attention
-from view_neti_tpu_torch.ops.conv import conv_nhwc
+from view_neti_tpu_torch.ops.conv import conv3x3_hwio, conv_nhwc
+from view_neti_tpu_torch.ops.fused_conv import fused_affine_silu_conv3x3
 from view_neti_tpu_torch.ops.norm import GroupNorm, LayerNorm
 from view_neti_tpu_torch.ops.resize import nearest_upsample_2x
 from view_neti_tpu_torch.parallel.tensor import copy_to_tp
@@ -52,6 +61,10 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     gradient_checkpointing: bool = False
+    # run the ResNet blocks' norm+silu+conv3x3 sections through the fused
+    # conv (K4). Forward-only: the kernel refuses inputs that require grad,
+    # so only inference UNets turn it on (the JAX package's default is off)
+    fuse_conv: bool = False
 
     def heads_for(self, channels: int) -> int:
         if self.attention_head_dim is not None:
@@ -102,8 +115,19 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, fuse: bool = False):
         t = self.time_emb_proj(F.silu(temb))
+        if fuse:
+            a1, b1 = self.norm1(x, fold=True)
+            h = fused_affine_silu_conv3x3(
+                x, a1, b1, conv3x3_hwio(self.conv1), self.conv1.bias,
+                add_bc=t, out_dtype=x.dtype)
+            a2, b2 = self.norm2(h, fold=True)
+            if self.conv_shortcut is not None:
+                x = conv_nhwc(self.conv_shortcut, x)
+            return fused_affine_silu_conv3x3(
+                h, a2, b2, conv3x3_hwio(self.conv2), self.conv2.bias,
+                residual=x, out_dtype=x.dtype)
         h = conv_nhwc(self.conv1, F.silu(self.norm1(x)))
         h = h + t[:, None, None, :]
         h = conv_nhwc(self.conv2, F.silu(self.norm2(h)))
@@ -323,11 +347,12 @@ class UNet2DCondition(nn.Module):
         temb = te.linear_2(F.silu(te.linear_1(temb.to(dtype))))
 
         remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+        fuse = cfg.fuse_conv
 
         def resnet(block, x):
             if remat:
-                return checkpoint(block, x, temb, use_reentrant=False)
-            return block(x, temb)
+                return checkpoint(block, x, temb, fuse, use_reentrant=False)
+            return block(x, temb, fuse)
 
         x = conv_nhwc(self.conv_in, latents.to(dtype))
         skips = [x]

@@ -4,13 +4,14 @@
 Replaces view_neti_tpu/ops/fused_conv.py::_kernel (launched by
 fused_affine_silu_conv3x3, the TPU's Pallas kernel). conv_design picks the
 design of a call: csrc/fused_conv_sm90.cu (wgmma and TMA) for every
-Cout > 16, the VAE's ResNet convs; csrc/fused_conv.cu (mma.sync) for the
-narrow convs (the decoder's conv_out, Cout 3, and the encoder's last conv,
-Cout 8). See the sources' headers for the designs and what bounds them on
-an H100. None of the TPU kernel's gates carries over: its VMEM plan, its
-128-channel alignment rule (a Mosaic DMA constraint) and its profitability
-thresholds (measured on the TPU) are gone, and every call on a CUDA tensor
-runs a kernel, ragged channel counts included.
+Cout > 16, the VAE's and the UNet's ResNet convs; csrc/fused_conv.cu
+(mma.sync) for the narrow convs (the decoder's conv_out, Cout 3, and the
+encoder's last conv, Cout 8). See the sources' headers for the designs
+and what bounds them on an H100. None of the TPU kernel's gates carries
+over: its VMEM plan, its 128-channel alignment rule (a Mosaic DMA
+constraint) and its profitability thresholds (measured on the TPU) are
+gone, and every call on a CUDA tensor runs a kernel, ragged channel
+counts included.
 
 Contract, as in the JAX package: x (B, H, W, Cin) NHWC; a, b (B, Cin) the
 per-sample affine from ops.norm.group_norm_fold; kernel (3, 3, Cin, Cout)
@@ -56,7 +57,8 @@ CIN_CHUNK = 64
 def conv_design(cin: int, cout: int) -> str:
     """Which K4 design a CUDA call with cin input and cout output channels
     launches: "sm90" (csrc/fused_conv_sm90.cu) for every cout > 16, the
-    VAE's ResNet convs (128 to 512 channels), at any cin the kernel takes;
+    VAE's and the UNet's ResNet convs (Cout 128 to 512 and 320 to 1280),
+    at any cin the kernel takes;
     "mma_sync" (csrc/fused_conv.cu) for the narrow convs, the decoder's
     conv_out (3) and the encoder's last conv (8), on its 16-channel tile."""
     del cin  # every cin that is a multiple of 8 takes either design

@@ -326,18 +326,27 @@ def build_models(cfg: RunConfig, tokenizer,
         target_norm_object=norms_obj or None, target_norm_view=norm_view)
 
 
-def fuse_for_inference(vae: AutoencoderKL) -> AutoencoderKL:
+def fuse_for_inference(vae: AutoencoderKL,
+                       unet: Optional[UNet2DCondition] = None
+                       ) -> AutoencoderKL:
     """Route the VAE's norm+SiLU+conv3x3 sections, the decoder's and the
-    encoder's, through the fused conv (ops/fused_conv.py). Parameters are
-    unchanged; the UNet stays unfused, as in the JAX package's default."""
+    encoder's, through the fused conv (ops/fused_conv.py), in place, and
+    return the VAE. With `unet` (off by default, as in the JAX package),
+    that UNet's ResNet convs go through it too, in place. Only the configs
+    change, never the parameters: a shallow copy of the UNet
+    (copy.copy) fused here leaves the original unfused on the same
+    weights. The kernel is forward-only, so a fused UNet serves only the
+    inference paths (the denoise loop, the sweep)."""
     vae.config = dataclasses.replace(vae.config, fuse_conv=True)
+    if unet is not None:
+        unet.config = dataclasses.replace(unet.config, fuse_conv=True)
     return vae
 
 
 def fuse_vae_for_training(vae: AutoencoderKL) -> AutoencoderKL:
     """The same fused VAE for the train step: its encode runs under
     no_grad, so the forward-only kernel is safe there while the UNet stays
-    differentiable."""
+    unfused and differentiable."""
     return fuse_for_inference(vae)
 
 
