@@ -8,10 +8,9 @@ Phases; any failure ends the run with a non-zero exit:
   2. build   -- nvcc builds the eight kernel libraries from
                 view_neti_tpu_torch/csrc/ (in parallel) and prints each
                 kernel's registers and spills; the instantiations the
-                paths run (K1's two designs and K2's and K3's mma.sync
-                designs at the head-dim buckets 48, 64, 80 and 160, K2's
-                and K3's Hopper designs at 48 and 64, and every
-                instantiation of K4's two designs) must not spill, and
+                paths run (K1's, K2's and K3's two designs at the head-dim
+                buckets 48, 64, 80 and 160, and every instantiation of
+                K4's two designs) must not spill, and
                 ptxas must serialise no warpgroup product;
   3. kernels -- the flash-attention forward (K1: its Hopper design on
                 wgmma and TMA at the buckets 48, 64, 80 and 160, its
@@ -19,9 +18,12 @@ Phases; any failure ends the run with a non-zero exit:
                 to 80, at every path shape; the mma.sync design checked
                 beside it at each of them), its backward (K2 dq, K3
                 dk/dv: their Hopper design on wgmma and TMA at the
-                buckets 48 and 64 above 80 keys, the train steps'
-                self-attentions, with the mma.sync design checked beside
-                it there; the mma.sync design at the other shapes) and the
+                buckets 48, 64, 80 and 160 at any key count, every shape
+                of the train steps, with the mma.sync design checked
+                beside it at each of them, but for each kernel the shapes
+                where the card measured it slower, BWD_MMA_SYNC_SHAPES,
+                which keep the mma.sync design with the Hopper one checked
+                and timed beside it) and the
                 fused GroupNorm+SiLU+conv3x3 (K4: its Hopper design on
                 wgmma and TMA at every Cout > 16, the ResNet convs of the
                 VAE and of the fused UNet, with the mma.sync design
@@ -49,15 +51,17 @@ Phases; any failure ends the run with a non-zero exit:
                 below holds K1's to K4's launches by design
                 (launch_counts' "K1 sm90", "K1 mma_sync", ...): all 32 of
                 a UNet forward's K1 on the Hopper design, SD-1.5's and
-                SD-2.1's (SD15_SM90, M3_SM90); 4 of a train step's 30 K2
-                and 31 K3 launches on SD-1.5, 14 on SD-2.1
-                (SD15_BWD_SM90, M3_BWD_SM90, which bwd_design must give
+                SD-2.1's (SD15_SM90, M3_SM90); of a train step's 30 K2
+                and 31 K3 launches, 30 and 30 on SD-1.5 at 384x512, 29
+                and 31 on SD-2.1, all at 512x512 (SD15_BWD_SM90,
+                M3_BWD_SM90, FOLDERS_BWD_SM90, which bwd_design must give
                 at attention_shapes); 20 of an encode's 21 K4 launches,
                 28 of a decode's 29 (K4_SM90) and all 44 of a fused UNet
                 forward's (K4_UNET_SM90), which conv_design must give at
                 k4_shapes; a `backward pair` line sums K2 and K3 over
-                each training path, as run (and with the mma.sync design
-                at every shape where it was timed at each), beside SDPA's
+                each training path, as run (with each kernel's launches
+                there by design, and with the mma.sync design at every
+                shape where it was timed at each), beside SDPA's
                 backward, and a `conv paths` line sums K4 over each path
                 the same way, beside GroupNorm + SiLU + cuDNN;
   4. slice   -- the serving path at full SD-1.5 width with seeded random
@@ -557,19 +561,20 @@ def ptxas_usage(logs):
 
 
 PATH_BUCKETS = (48, 64, 80, 160)   # SD-1.5's head dims 40/80/160, SD-2.1's 64
-BWD_SM90_BUCKETS = (48, 64)        # K2's and K3's Hopper design
+BWD_SM90_BUCKETS = PATH_BUCKETS    # K2's and K3's Hopper design
+BWD_SM90_SHORT_BUCKETS = (48, 64)  # K2's short-key kernel (Lk <= 80)
 K4_SM90_INSTANTIATIONS = 1         # K4's Hopper design: one tile
 
 
 def check_path_spills(usage):
     """The instantiations of K1, K2 and K3 (each design) at the paths'
-    head-dim buckets (PATH_BUCKETS; the Hopper designs of K2 and K3 hold
-    only 48 and 64) and every instantiation of K4's two designs must spill
-    nothing; prints every instantiation of the kernels."""
+    head-dim buckets (PATH_BUCKETS) and every instantiation of K4's two
+    designs must spill nothing; prints every instantiation of the
+    kernels."""
     seen = 0
     for (lib, fn), (regs, spill) in sorted(usage.items()):
         m = re.search(r"(flash_fwd_kernel(?:_sm90(?:_short)?)?|"
-                      r"flash_bwd_dq_kernel(?:_sm90)?|"
+                      r"flash_bwd_dq_kernel(?:_sm90(?:_short)?)?|"
                       r"flash_bwd_dkv_kernel(?:_sm90)?|"
                       r"fused_conv_kernel(?:_sm90)?)"
                       r"I((?:L[ib]\d+E)+)", fn)
@@ -636,33 +641,45 @@ def add_counts(*counts):
 
 
 # K2's and K3's launches a train step on their Hopper design
-# (ops/flash_attention.py::bwd_design: the head-dim buckets 48 and 64 above
-# 80 keys), the same for both: SD-1.5's level-0 self-attentions (d = 40)
-# but the first, which has no backward, 4 of K2's 30 and K3's 31; SD-2.1's
-# (d = 64) self-attentions of levels 0 to 2 but the first, 14
-SD15_BWD_SM90 = 4
-M3_BWD_SM90 = 14
+# (ops/flash_attention.py::bwd_design: the head-dim buckets 48, 64, 80 and
+# 160 at any key count, but the shapes of BWD_MMA_SYNC_SHAPES, where the
+# card measured the Hopper design slower): SD-1.5's at 384x512 all 30 of
+# K2's and 30 of K3's 31 (its 48 x 77 mid-block cross-attention at d = 160
+# on mma.sync); SD-2.1's 29 of K2's (its 48 x 48 mid block at d = 64 on
+# mma.sync) and all 31 of K3's; SD-1.5's at 512x512 (the folders path, 64
+# x 64 and 64 x 77 mid blocks) all
+SD15_BWD_SM90 = {"K2": 30, "K3": 30}
+M3_BWD_SM90 = {"K2": 29, "K3": 31}
+FOLDERS_BWD_SM90 = {"K2": 30, "K3": 31}
 
 
-def unet_bwd(steps: int, sm90: int = SD15_BWD_SM90):
+def unet_bwd(steps: int, sm90=SD15_BWD_SM90):
     """K2's and K3's launches in `steps` train steps as launch_counts keys
-    them: 30 and 31 a step, `sm90` of each on the Hopper design."""
-    return {"K2": 30 * steps, "K2 sm90": sm90 * steps,
-            "K2 mma_sync": (30 - sm90) * steps, "K3": 31 * steps,
-            "K3 sm90": sm90 * steps, "K3 mma_sync": (31 - sm90) * steps}
+    them: 30 and 31 a step, sm90["K2"] and sm90["K3"] of them on the
+    Hopper design."""
+    return {"K2": 30 * steps, "K2 sm90": sm90["K2"] * steps,
+            "K2 mma_sync": (30 - sm90["K2"]) * steps, "K3": 31 * steps,
+            "K3 sm90": sm90["K3"] * steps,
+            "K3 mma_sync": (31 - sm90["K3"]) * steps}
+
+
+BWD_KERNELS = {"K2": "dq", "K3": "dkv"}  # bwd_design's names of K2 and K3
 
 
 def bwd_split_by_path(shapes, design):
     """K2's and K3's launches on each path of attention_shapes' rows, by
     design as `design` (ops/flash_attention.py::bwd_design) names each
-    shape's: {path: launch_counts-style counts}. The launch checks'
-    unet_bwd constants must agree with it (phase_kernels checks)."""
+    shape's for each kernel: {path: launch_counts-style counts}. The launch
+    checks' unet_bwd constants must agree with it (phase_kernels
+    checks)."""
     out = {}
     for shape in shapes:
         for key in ("K2", "K3"):
+            name = design(shape["d"], shape["Lk"], shape["Lq"],
+                          BWD_KERNELS[key])
             for path, n in shape["per_run"].get(key, {}).items():
                 counts = out.setdefault(path, {})
-                for k in (key, f"{key} {design(shape['d'], shape['Lk'])}"):
+                for k in (key, f"{key} {name}"):
                     counts[k] = counts.get(k, 0) + n
     return out
 
@@ -673,7 +690,8 @@ def train_paths_bwd():
     return {"train": unet_bwd(1), "validate": unet_bwd(VAL_TRAIN_STEPS),
             "acceptance": unet_bwd(ACC_STEPS),
             "mode3": unet_bwd(2 * (M3_WARM + M3_STEPS), M3_BWD_SM90),
-            "folders": unet_bwd(2 * (FOLDERS_WARM + FOLDERS_STEPS)),
+            "folders": unet_bwd(2 * (FOLDERS_WARM + FOLDERS_STEPS),
+                                FOLDERS_BWD_SM90),
             "tp": unet_bwd(TP_WARM + TP_STEPS)}
 
 
@@ -1011,7 +1029,8 @@ def attention_rows(torch, F, fa, shape, g, dev,
 
     do = torch.randn(B, Lq, H, d, generator=g, device=dev).bfloat16()
     delta = fa.attention_delta(o, do)
-    design = fa.bwd_design(d, Lk)
+    designs = {key: fa.bwd_design(d, Lk, Lq, kernel)
+               for key, kernel in (("K2", "dq"), ("K3", "dkv"))}
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
@@ -1043,15 +1062,15 @@ def attention_rows(torch, F, fa, shape, g, dev,
         lost = r.clone()
         lost[:, Lk - drop:] = 0
         ctl_dkv.append(of_limit(lost, r, t))
-    check(ratios[0] <= 1, f"K2 ({design}) disagrees at {label}: "
+    check(ratios[0] <= 1, f"K2 ({designs['K2']}) disagrees at {label}: "
                           f"{ratios[0]:.3g} of the limit")
-    check(max(ratios[1:]) <= 1, f"K3 ({design}) disagrees at {label}: dk "
-                                f"{ratios[1]:.3g}, dv {ratios[2]:.3g} of "
-                                f"the limit")
+    check(max(ratios[1:]) <= 1, f"K3 ({designs['K3']}) disagrees at "
+                                f"{label}: dk {ratios[1]:.3g}, dv "
+                                f"{ratios[2]:.3g} of the limit")
     check(ctl_dq > 1 and min(ctl_dkv) > 1,
           f"the backward's limit at {label} misses a lost key tile (dq "
           f"{ctl_dq:.3g}, dk {ctl_dkv[0]:.3g}, dv {ctl_dkv[1]:.3g})")
-    if design == "sm90":
+    if "sm90" in designs.values():
         # the mma.sync designs at the same inputs, held to the same limits
         m_ratios, m_errs = errs_of((
             fa._flash_attention_bwd_dq_mma_sync(q, k, v, do, lse, delta),
@@ -1060,6 +1079,18 @@ def attention_rows(torch, F, fa, shape, g, dev,
         check(max(m_ratios) <= 1,
               f"K2/K3 (mma_sync) disagree at {label}: dq, dk, dv "
               f"{[round(x, 3) for x in m_ratios]} of the limit")
+    # a shape of a Hopper bucket that bwd_design keeps on the mma.sync
+    # design for a kernel (BWD_MMA_SYNC_SHAPES): the Hopper design checked
+    # and timed beside it at the same inputs
+    held = [key for key, name in designs.items()
+            if name == "mma_sync" and fa.fwd_design(d, Lk) == "sm90"]
+    if held:
+        h_ratios, h_errs = errs_of((
+            fa._launch_bwd_dq(q, k, v, do, lse, delta, "sm90")[0],
+            *fa._launch_bwd_dkv(q, k, v, do, lse, delta, "sm90")[:2]))
+        check(max(h_ratios) <= 1,
+              f"K2/K3 (sm90) disagree at {label}: dq, dk, dv "
+              f"{[round(x, 3) for x in h_ratios]} of the limit")
     del refs, tols
 
     # SDPA's backward through autograd, the library yardstick: one call
@@ -1079,21 +1110,27 @@ def attention_rows(torch, F, fa, shape, g, dev,
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
              lambda: ref_bwd(need_dq=False), fa._launch_bwd_dkv)):
         bms, by = attention_bound(key, shape)
+        design = designs[key]
         rows[key] = row = dict(
             shape=label, design=design, per_run=shape["per_run"][key],
             max_abs_err=err, err_of_limit=ratio, control_of_limit=control,
             ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, 50.0),
             library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+        def sm90(launch=launch):
+            return launch(q, k, v, do, lse, delta, "sm90")
+
+        def mma(launch=launch):
+            return launch(q, k, v, do, lse, delta, "mma_sync")
+
+        sl = slice(0, 1) if key == "K2" else slice(1, 3)
+        if key in held:
+            row.update(sm90_err_of_limit=max(h_ratios[sl]),
+                       sm90_max_abs_err=max(h_errs[sl]),
+                       sm90_ms=time_ms(torch, sm90))
         if design == "sm90":
             # both designs eagerly, in a CUDA graph of 20 calls and on the
             # host at the kernel's heaviest shape, counting nothing
-            def sm90(launch=launch):
-                return launch(q, k, v, do, lse, delta, "sm90")
-
-            def mma(launch=launch):
-                return launch(q, k, v, do, lse, delta, "mma_sync")
-
-            sl = slice(0, 1) if key == "K2" else slice(1, 3)
             row.update(mma_sync_err_of_limit=max(m_ratios[sl]),
                        mma_sync_max_abs_err=max(m_errs[sl]))
             if key in heaviest:
@@ -1323,6 +1360,9 @@ def print_row(key, row, card):
     if "mma_sync_err_of_limit" in row and "mma_sync_ms" not in row:
         extra += (f"; mma_sync {row['mma_sync_err_of_limit']:.3g} of the "
                   f"limit, not timed")
+    if "sm90_ms" in row:
+        extra += (f"; sm90 {row['sm90_ms']:.4f} ms "
+                  f"({row['sm90_err_of_limit']:.3g} of the limit)")
     if "controls" in row:
         extra += ", controls " + ", ".join(
             f"{k} {v:.3g}" for k, v in row["controls"].items())
@@ -1342,13 +1382,20 @@ def bwd_pair(results):
     beside the Hopper design's at the same inputs; None where that time
     was not taken, mma_sync_total), SDPA's backward (one
     call computes dq, dk and dv: K3's launches, which include the one
-    cross-attention whose q needs no gradient) and the bound."""
+    cross-attention whose q needs no gradient) and the bound; `designs`
+    holds each kernel's launches there by design."""
     out = {}
     for p in ("train", "validate", "acceptance", "mode3", "folders", "tp"):
         def total(key, field):
             return sum(r[field] * r["per_run"].get(p, 0)
                        for r in results[key])
+
+        designs = {key: {"sm90": 0, "mma_sync": 0} for key in ("K2", "K3")}
+        for key, by_design in designs.items():
+            for r in results[key]:
+                by_design[r["design"]] += r["per_run"].get(p, 0)
         out[p] = dict(
+            designs=designs,
             k2_ms=total("K2", "ms"), k3_ms=total("K3", "ms"),
             k2_mma_sync_ms=mma_sync_total(results["K2"], p),
             k3_mma_sync_ms=mma_sync_total(results["K3"], p),
@@ -1421,12 +1468,15 @@ def phase_kernels(torch, dev, card, serve_steps):
               f"{split[path]}, the launch checks {want}")
     # the superseded mma.sync designs: checked beside the Hopper designs at
     # every shape, timed beside them at each kernel's heaviest shape
-    design = {"K1": fa.fwd_design, "K2": fa.bwd_design,
-              "K3": fa.bwd_design}
+    def design(key, s):
+        if key == "K1":
+            return fa.fwd_design(s["d"], s["Lk"])
+        return fa.bwd_design(s["d"], s["Lk"], s["Lq"], BWD_KERNELS[key])
+
     heaviest = {key: max((s for s in shapes if key in s["per_run"]
-                          and fn(s["d"], s["Lk"]) == "sm90"),
+                          and design(key, s) == "sm90"),
                          key=lambda s: attention_bound(key, s)[0])
-                for key, fn in design.items()}
+                for key in ("K1", "K2", "K3")}
     for shape in shapes:
         t0 = time.perf_counter()
         rows = attention_rows(torch, F, fa, shape, g, dev,
@@ -3500,7 +3550,8 @@ def phase_folders(torch, dev, card):
     from view_neti_tpu_torch.training.validate import ValidationHandler
 
     B, n = TRAIN_BATCH, FOLDERS_WARM + FOLDERS_STEPS
-    per_step = SD15_STEP
+    per_step = {**unet_k1(1), **unet_bwd(1, FOLDERS_BWD_SM90),
+                **k4(encodes=1)}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_folders")
     shutil.rmtree(root, ignore_errors=True)
@@ -5099,14 +5150,15 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
     # the logs of libraries built earlier come from beside them, so every
     # run reads the four path buckets of K1's mma.sync design (in two
-    # key-tile widths, 64 and 80), of K2's and K3's mma.sync designs and of
-    # K1's Hopper design (its long-key and its short-key kernel), the two
-    # buckets of K2's and K3's Hopper designs, K4's mma.sync design's two
-    # output-channel tiles and its Hopper design's instantiations
+    # key-tile widths, 64 and 80), of K2's and K3's two designs and of K1's
+    # Hopper design (its long-key and its short-key kernel), the two
+    # buckets of K2's Hopper short-key kernel, K4's mma.sync
+    # design's two output-channel tiles and its Hopper design's
+    # instantiations
     n = check_path_spills(ptxas_usage(logs))
     check_wgmma_pipelined(logs)
-    want = (6 * len(PATH_BUCKETS) + 2 * len(BWD_SM90_BUCKETS) + 2
-            + K4_SM90_INSTANTIATIONS)
+    want = (6 * len(PATH_BUCKETS) + 2 * len(BWD_SM90_BUCKETS)
+            + len(BWD_SM90_SHORT_BUCKETS) + 2 + K4_SM90_INSTANTIATIONS)
     check(n == want, f"found {n} path instantiations of K1-K4 in the build "
                      f"logs, want {want}")
 

@@ -45,35 +45,95 @@ def _kinds():
     return list(zip(kinds, shapes))
 
 
+# the path shapes bwd_design keeps on the mma.sync design, by kind: K2 at
+# SD-2.1's 48 x 48 mid block, K3 at SD-1.5's 48 x 77 mid-block
+# cross-attention (384x512 training: the train step and the tp ranks')
+KEPT = {"m3 train": {("K2", 48, 48, 64)}, "train": {("K3", 48, 77, 160)},
+        "tp train": {("K3", 48, 77, 160)}}
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_bwd_design_on_every_path_shape(kind):
-    """The Hopper design takes the self-attentions at head dims 40 and 64
-    above 80 keys (SD-1.5's first level, SD-2.1's first three); the 77-key
-    cross-attentions, head dims 80 and 160 and SD-2.1's 48- and 64-key mid
-    blocks stay on the mma.sync design."""
+    """The Hopper design takes every attention shape of the paths (the
+    self-attentions at head dims 40, 64, 80 and 160, the 77-key
+    cross-attentions and the 48- and 64-key mid blocks) but the two shapes
+    where the card measured a kernel's Hopper design slower, which stay on
+    the mma.sync design for that kernel."""
     rows = [s for k, s in _kinds() if k == kind]
     assert rows
+    kept = set()
     for s in rows:
-        self_attention = s["Lk"] == s["Lq"]
-        want = ("sm90" if self_attention and s["d"] in (40, 64)
-                and s["Lk"] > 80 else "mma_sync")
-        assert tfa.bwd_design(s["d"], s["Lk"]) == want, s
+        assert s["d"] in (40, 64, 80, 160), s
+        assert tfa.bwd_design(s["d"], s["Lk"]) == "sm90", s
+        for key, kernel in chip_smoke.BWD_KERNELS.items():
+            if tfa.bwd_design(s["d"], s["Lk"], s["Lq"], kernel) != "sm90":
+                kept.add((key, s["Lq"], s["Lk"], s["d"]))
+    assert kept == KEPT.get(kind, set())
 
 
-@pytest.mark.parametrize("d", [32, 33, 40, 48, 49, 64, 65, 80])
-@pytest.mark.parametrize("Lk", [80, 81])
+def test_bwd_design_keeps_the_measured_slower_shapes_on_mma_sync():
+    """The static rule: a (kernel, head-dim bucket, Lq, Lk) of
+    BWD_MMA_SYNC_SHAPES takes the mma.sync design for that kernel only,
+    at any head dim of the bucket; the neighbouring shapes, the other
+    kernel and a call that names no kernel take the Hopper design."""
+    assert tfa.BWD_MMA_SYNC_SHAPES == {("dq", 64, 48, 48),
+                                       ("dkv", 160, 48, 77)}
+    for d, Lk, Lq, kernel, want in (
+            (64, 48, 48, "dq", "mma_sync"), (56, 48, 48, "dq", "mma_sync"),
+            (64, 48, 48, "dkv", "sm90"), (64, 48, 64, "dq", "sm90"),
+            (64, 77, 48, "dq", "sm90"), (40, 48, 48, "dq", "sm90"),
+            (160, 77, 48, "dkv", "mma_sync"), (152, 77, 48, "dkv",
+                                               "mma_sync"),
+            (160, 77, 48, "dq", "sm90"), (160, 77, 64, "dkv", "sm90"),
+            (160, 48, 48, "dkv", "sm90"), (128, 77, 48, "dkv", "mma_sync"),
+            (64, 48, None, None, "sm90"), (160, 77, None, None, "sm90")):
+        assert tfa.bwd_design(d, Lk, Lq, kernel) == want, (d, Lk, Lq,
+                                                            kernel)
+    assert [tfa.head_dim_bucket(d) for d in (8, 33, 48, 49, 64, 65, 80, 81,
+                                             145, 160, 161)] == [
+        8, 48, 48, 64, 64, 80, 80, 81, 160, 160, 161]
+
+
+# the edges of the Hopper design's buckets (48 and 64: 33..64; 80: 65..80;
+# 160: 145..160) at the key counts of the short-key shapes and past them
+@pytest.mark.parametrize("d", [32, 33, 40, 48, 49, 64, 65, 80, 81, 144, 145,
+                               160, 161])
+@pytest.mark.parametrize("Lk", [48, 77, 80, 81])
 def test_bwd_design_at_the_bucket_and_key_edges(d, Lk):
-    want = "sm90" if 32 < d <= 64 and Lk > 80 else "mma_sync"
+    want = "sm90" if 32 < d <= 80 or 144 < d <= 160 else "mma_sync"
     assert tfa.bwd_design(d, Lk) == want
+    # the same rule as K1's, whatever the key count, and for each kernel
+    # at 200 queries
+    assert tfa.bwd_design(d, Lk) == tfa.fwd_design(d, Lk)
+    assert tfa.bwd_design(d, Lk, 200, "dq") == want
+    assert tfa.bwd_design(d, Lk, 200, "dkv") == want
 
 
-# each train kind's steps a run in attention_shapes, and its split
+# K3's key rows a block, by design and head dim: 64 in the Hopper design at
+# bucket 160 (a dV and a dK warpgroup share a block's keys), else 128; the
+# split policy counts its blocks with it
+@pytest.mark.parametrize("design,d,tile", [
+    ("sm90", 40, 128), ("sm90", 64, 128), ("sm90", 80, 128),
+    ("sm90", 160, 64), ("mma_sync", 160, 128), ("mma_sync", 40, 128)])
+def test_dkv_key_tile_by_design_and_head_dim(design, d, tile):
+    assert tfa.dkv_key_tile(design, d) == tile
+    # at B9 H8 on 132 SMs: 256 keys are 4 x 72 = 288 blocks of 64 (two
+    # waves: no split) or 144 of 128 (two splits); 77 keys 144 blocks of 64
+    # (two splits) or 72 of 128 (four)
+    assert tfa.dkv_splits(9, 8, 256, 256, 132, tile) == (
+        1 if tile == 64 else 2)
+    assert tfa.dkv_splits(9, 8, 3072, 77, 132, tile) == (
+        2 if tile == 64 else 4)
+
+
+# each train kind's steps a run in attention_shapes, and its split: every
+# launch on the Hopper design but the kept shapes'
 TRAIN_KINDS = {"train": (1, chip_smoke.SD15_BWD_SM90),
                "m3 train": (2 * (chip_smoke.M3_WARM + chip_smoke.M3_STEPS),
                             chip_smoke.M3_BWD_SM90),
                "folders train": (2 * (chip_smoke.FOLDERS_WARM
                                       + chip_smoke.FOLDERS_STEPS),
-                                 chip_smoke.SD15_BWD_SM90),
+                                 chip_smoke.FOLDERS_BWD_SM90),
                "tp train": (chip_smoke.TP_WARM + chip_smoke.TP_STEPS,
                             chip_smoke.SD15_BWD_SM90)}
 
@@ -81,20 +141,23 @@ TRAIN_KINDS = {"train": (1, chip_smoke.SD15_BWD_SM90),
 @pytest.mark.parametrize("kind", list(TRAIN_KINDS))
 def test_a_train_steps_split_is_bwd_designs(kind):
     """A train step's 30 K2 and 31 K3 launches at a kind's shapes, split
-    by bwd_design: 4 of each on the Hopper design on SD-1.5 (the level-0
-    self-attentions but the first, which has no backward), 14 on SD-2.1
-    (levels 0 to 2): the split the launch checks hold every path to."""
+    by bwd_design: all on the Hopper design but one on SD-1.5 at 384x512
+    (K3's 48 x 77 mid-block cross-attention) and one on SD-2.1 (K2's 48 x
+    48 mid block): the split the launch checks hold every path to."""
     rows = [s for k, s in _kinds() if k == kind]
     path = next(iter(rows[0]["per_run"]["K2"]))
     steps, sm90 = TRAIN_KINDS[kind]
     got = {key: {"sm90": 0, "mma_sync": 0} for key in ("K2", "K3")}
     for s in rows:
-        for key in ("K2", "K3"):
-            got[key][tfa.bwd_design(s["d"], s["Lk"])] += (
+        for key, kernel in chip_smoke.BWD_KERNELS.items():
+            got[key][tfa.bwd_design(s["d"], s["Lk"], s["Lq"], kernel)] += (
                 s["per_run"][key][path] // steps)
-    assert got == {"K2": {"sm90": sm90, "mma_sync": 30 - sm90},
-                   "K3": {"sm90": sm90, "mma_sync": 31 - sm90}}
-    assert sm90 == (14 if kind == "m3 train" else 4)
+    assert got == {"K2": {"sm90": sm90["K2"], "mma_sync": 30 - sm90["K2"]},
+                   "K3": {"sm90": sm90["K3"], "mma_sync": 31 - sm90["K3"]}}
+    assert sm90 == {"train": {"K2": 30, "K3": 30},
+                    "m3 train": {"K2": 29, "K3": 31},
+                    "folders train": {"K2": 30, "K3": 31},
+                    "tp train": {"K2": 30, "K3": 30}}[kind]
 
 
 def test_launch_checks_agree_with_bwd_design_on_every_path():
@@ -108,12 +171,16 @@ def test_launch_checks_agree_with_bwd_design_on_every_path():
     for path, counts in want.items():
         assert split[path] == chip_smoke.capture_record(counts), path
     assert chip_smoke.unet_bwd(2, chip_smoke.M3_BWD_SM90) == {
-        "K2": 60, "K2 sm90": 28, "K2 mma_sync": 32, "K3": 62, "K3 sm90": 28,
-        "K3 mma_sync": 34}
+        "K2": 60, "K2 sm90": 58, "K2 mma_sync": 2, "K3": 62, "K3 sm90": 62,
+        "K3 mma_sync": 0}
+    # a split that kept some shapes on the mma.sync design counts them
+    assert chip_smoke.unet_bwd(3, {"K2": 26, "K3": 27}) == {
+        "K2": 90, "K2 sm90": 78, "K2 mma_sync": 12, "K3": 93, "K3 sm90": 81,
+        "K3 mma_sync": 12}
     assert set(chip_smoke.unet_bwd(0).values()) == {0}
     assert chip_smoke.SD15_STEP == {
-        "K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K2": 30, "K2 sm90": 4,
-        "K2 mma_sync": 26, "K3": 31, "K3 sm90": 4, "K3 mma_sync": 27,
+        "K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K2": 30, "K2 sm90": 30,
+        "K2 mma_sync": 0, "K3": 31, "K3 sm90": 30, "K3 mma_sync": 1,
         "K4": 21, "K4 sm90": 20, "K4 mma_sync": 1}
 
 
@@ -122,6 +189,9 @@ def test_launch_checks_agree_with_bwd_design_on_every_path():
 DQ_SYMBOL = ("_ZN63_GLOBAL__N__7d77d2f2_30_flash_attention_bwd_dq_sm90_cu_"
              "3b2fb43b24flash_bwd_dq_kernel_sm90ILi{}EEEv14CUtensorMap_stS1_"
              "S1_S1_S1_PKfS3_iiiff")
+DQ_SHORT_SYMBOL = DQ_SYMBOL.replace(
+    "24flash_bwd_dq_kernel_sm90I", "30flash_bwd_dq_kernel_sm90_shortI"
+).replace("S3_iiiff", "S3_iiiiiff")
 DKV_SYMBOL = ("_ZN64_GLOBAL__N__685698f7_31_flash_attention_bwd_dkv_sm90_cu_"
               "6bf9000c25flash_bwd_dkv_kernel_sm90ILi{}EEEv14CUtensorMap_st"
               "S1_S1_S1_S1_S1_PKfS3_Pfiiiiiff")
@@ -141,15 +211,22 @@ def _log(symbol, buckets=(48, 64), regs=168, spill=0):
 
 
 def test_spill_check_reads_the_bwd_sm90_instantiations(capsys):
-    """check_path_spills counts and prints both buckets of both Hopper
-    kernels (their first template argument), and fails on a spill in
-    either; the build holds 2 x 2 more path instantiations."""
+    """check_path_spills counts and prints the four buckets of both Hopper
+    kernels and the two of K2's short-key kernel (their first template
+    argument), and fails on a spill in any; the build holds 2 x 4 + 2 path
+    instantiations of them."""
     usage = chip_smoke.ptxas_usage({
-        "flash_attention_bwd_dq_sm90": _log(DQ_SYMBOL),
-        "flash_attention_bwd_dkv_sm90": _log(DKV_SYMBOL)})
-    assert chip_smoke.check_path_spills(usage) == 4
+        "flash_attention_bwd_dq_sm90": "\n".join((
+            _log(DQ_SYMBOL, (48, 64, 80, 160)),
+            _log(DQ_SHORT_SYMBOL, (48, 64)))),
+        "flash_attention_bwd_dkv_sm90": _log(DKV_SYMBOL, (48, 64, 80, 160))})
+    assert chip_smoke.check_path_spills(usage) == 10
     out = capsys.readouterr().out
     for dp in (48, 64):
+        assert (f"build flash_attention_bwd_dq_sm90: "
+                f"flash_bwd_dq_kernel_sm90_short<{dp}>: 168 registers, 0 "
+                f"bytes spill") in out
+    for dp in (48, 64, 80, 160):
         for lib, kernel in (("flash_attention_bwd_dq_sm90",
                              "flash_bwd_dq_kernel_sm90"),
                             ("flash_attention_bwd_dkv_sm90",
@@ -158,10 +235,16 @@ def test_spill_check_reads_the_bwd_sm90_instantiations(capsys):
                     f"spill") in out
     for lib, symbol in (("flash_attention_bwd_dq_sm90", DQ_SYMBOL),
                         ("flash_attention_bwd_dkv_sm90", DKV_SYMBOL)):
-        with pytest.raises(RuntimeError, match="spills 8 bytes"):
-            chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
-                {lib: _log(symbol, (64,), spill=8)}))
-    assert chip_smoke.BWD_SM90_BUCKETS == (48, 64)
+        for dp in (64, 80, 160):
+            with pytest.raises(RuntimeError, match="spills 8 bytes"):
+                chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
+                    {lib: _log(symbol, (dp,), spill=8)}))
+    with pytest.raises(RuntimeError, match="spills 8 bytes"):
+        chip_smoke.check_path_spills(chip_smoke.ptxas_usage(
+            {"flash_attention_bwd_dq_sm90": _log(DQ_SHORT_SYMBOL, (48,),
+                                                 spill=8)}))
+    assert chip_smoke.BWD_SM90_BUCKETS == (48, 64, 80, 160)
+    assert chip_smoke.BWD_SM90_SHORT_BUCKETS == (48, 64)
 
 
 def test_a_serialised_wgmma_fails_the_build_check():
@@ -203,7 +286,9 @@ def test_the_sources_hold_wgmma_tma_and_setmaxnreg_and_no_atomics():
     products, the TMA copies and setmaxnreg, and no CUTLASS, no atomics and
     no global reductions. K2 hands its producer warpgroup's registers to
     its consumers with setmaxnreg; K3 has no producer (two warpgroups of
-    up to 255 registers a thread, one warp of them loading the stages)."""
+    up to 255 registers a thread, one warp of them loading the stages; at
+    bucket 160 one accumulates dV and the other dK). Both carry head dims
+    above 64 as 64-column chunks, loaded and stored a box a chunk."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for lib, kernel in (("flash_attention_bwd_dq_sm90",
                          "flash_bwd_dq_kernel_sm90("),
@@ -217,7 +302,7 @@ def test_the_sources_hold_wgmma_tma_and_setmaxnreg_and_no_atomics():
         for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "setmaxnreg",
                     "mbarrier", "wgmma.fence", "bar.sync"):
             assert ptx in text, (lib, ptx)
-        for shape in ("m64n64k16", "m64n48k16"):
+        for shape in ("m64n64k16", "m64n48k16", "m64n80k16", "m64n160k16"):
             assert (f"wgmma.mma_async.sync.aligned.{shape}.f32.bf16.bf16"
                     in text), (lib, shape)
         assert "cutlass" not in text.lower() and "atomicAdd" not in text
@@ -229,7 +314,31 @@ def test_the_sources_hold_wgmma_tma_and_setmaxnreg_and_no_atomics():
         assert ("setmaxnreg_inc<" in cu) == (lib == "flash_attention_bwd_dq_sm90")
         assert ("constexpr int kThreads = 256;" in cu) == (
             lib == "flash_attention_bwd_dkv_sm90")
+        assert "tma_load_chunks<T::kChunks>" in cu
+        assert "tma_store_chunks<T::kChunks>" in cu
+        assert "static_assert(DP == 48 || DP == 64 || DP == 80 || DP == 160" \
+            in cu
+        for dp in (48, 64, 80, 160):
+            assert re.search(rf"launch(_bucket)?<{dp}>\(a, s\)", cu), (lib,
+                                                                      dp)
         assert not re.search(r"#include\s*[<\"](cutlass|cute)", cu)
+    # K3 at bucket 160: a dV and a dK warpgroup over one 64-key tile, the
+    # same code in both; K2 there: 32-key stages (wgmma.m64n32k16)
+    dkv = (build.CSRC / "flash_attention_bwd_dkv_sm90.cu").read_text()
+    for piece in ("consume<DP, T::kRole>(x, wg)",
+                  "kRole = DP > 128 ? kOne : kBoth",
+                  "kBK = kRole == kOne ? kWgRows : 2 * kWgRows"):
+        assert piece in dkv, piece
+    dq = (build.CSRC / "flash_attention_bwd_dq_sm90.cu").read_text()
+    assert "kBK = DP > 128 ? 32 : 64" in dq
+    # K2 up to 80 keys at buckets 48 and 64: the persistent short-key
+    # kernel, its dq tiles stored in turns
+    for piece in ("flash_bwd_dq_kernel_sm90_short(",
+                  "if (a.Lk <= ShortTiles<DP>::kKeys) return launch_short",
+                  "tma_store_wait_read<T::kOBufs - 1>()"):
+        assert piece in dq, piece
+    assert ("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+            in (build.CSRC / "sm90_tiles.cuh").read_text())
     # K3's lse and delta rows reach the stage by cp.async on its barrier
     assert "cp.async.mbarrier.arrive" in (
         build.CSRC / "sm90_tiles.cuh").read_text()
@@ -310,9 +419,12 @@ def test_kernel_report_and_pair_list_k2_and_k3_by_design():
     kernels = {"K1": k1, **bwd,
                "K4": [_row("sm90", "s", 1.0, {"train": 20}),
                       _row("mma_sync", "s8", 0.1, {"train": 1})]}
-    launches = {"train": {k: 3 * v for k, v in chip_smoke.SD15_STEP.items()},
+    # runs in which some shapes kept the mma.sync design (4 of each a step)
+    launches = {"train": {**chip_smoke.unet_k1(3),
+                          **chip_smoke.unet_bwd(3, {"K2": 4, "K3": 4}),
+                          **chip_smoke.k4(encodes=3)},
                 "mode3": {**chip_smoke.unet_k1(1),
-                          **chip_smoke.unet_bwd(1, chip_smoke.M3_BWD_SM90),
+                          **chip_smoke.unet_bwd(1, {"K2": 14, "K3": 14}),
                           **chip_smoke.k4(encodes=1)}}
     report = chip_smoke.kernel_report(kernels, launches, "H100, 700 W")
     by_name = {e["name"]: e for e in report}
@@ -338,6 +450,8 @@ def test_kernel_report_and_pair_list_k2_and_k3_by_design():
     assert dq_mma["ms"] == 2.0 and dq_mma["err_of_limit"] == 0.3
     assert dq_mma["train_path_ms"] == pytest.approx(26 * 0.1)
     pair = chip_smoke.bwd_pair(kernels)["train"]
+    assert pair["designs"] == {"K2": {"sm90": 4, "mma_sync": 26},
+                               "K3": {"sm90": 4, "mma_sync": 27}}
     assert pair["pair_ms"] == pytest.approx(2 * (4 * 1.0) + 0.1 * (26 + 27))
     assert pair["pair_mma_sync_ms"] == pytest.approx(
         2 * (4 * 2.0) + 0.1 * (26 + 27))
@@ -366,6 +480,36 @@ def test_plain_backward_matches_pallas_vjp_at_the_sm90_tile_edges(Lq, Lk,
     rng = np.random.RandomState(Lq + Lk + d)
     q, do = (rng.randn(1, Lq, 2, d).astype(np.float32) for _ in range(2))
     k, v = (rng.randn(1, Lk, 2, d).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = tfa.flash_attention_ref(tq, tk, tv)
+    got = tfa.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, interpret=True), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# the Hopper design's new tile edges: buckets 80 and 160 past 80 keys
+# (64-key K2 stages, 32 at 160; 128-key K3 blocks, 64 at 160) with ragged
+# queries, and up to 80 keys at every bucket (K2's short-key kernel at 48
+# and 64: one 80-key tile of the mid blocks' 48 and the cross-attention's
+# 77 keys, or a full one); one head, to keep the interpreted kernels short
+@pytest.mark.parametrize("Lq,Lk,d", [
+    (63, 81, 80), (200, 129, 80), (130, 81, 160), (65, 129, 160),
+    (70, 48, 40), (130, 77, 40), (200, 80, 40),
+    (130, 48, 64), (200, 77, 64), (70, 80, 64),
+    (200, 48, 80), (70, 77, 80), (130, 80, 80),
+    (48, 48, 160), (70, 77, 160), (200, 80, 160)])
+def test_plain_backward_matches_pallas_vjp_at_the_wide_and_short_edges(
+        Lq, Lk, d):
+    """As the test above, at the tile edges of the buckets 80 and 160 and
+    of the short-key shapes, to the same 1e-5."""
+    rng = np.random.RandomState(Lq + Lk + d)
+    q, do = (rng.randn(1, Lq, 1, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(1, Lk, 1, d).astype(np.float32) for _ in range(2))
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = tfa.flash_attention_ref(tq, tk, tv)
     got = tfa.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo)

@@ -307,11 +307,13 @@ def test_kernel_report_lists_each_k1_design():
     assert mma["share_of_bound"] == pytest.approx(0.52 / 1.82)
     # its path sums cover the shapes it runs: none on the serving path
     assert "serve_path_ms" not in mma
-    assert report[2]["launches_by_path"] == {"serve": 0, "train": 28,
-                                            "coach_trace": 56, "bench": 1}
-    assert report[2]["launches"] == 85
-    assert report[5]["launches_by_path"] == {"serve": 0, "train": 189,
-                                            "coach_trace": 378, "bench": 1}
+    # every train step's K2 launch on the Hopper design, and K3's but its
+    # 48 x 77 mid-block cross-attention
+    assert report[2]["launches_by_path"] == {"serve": 0, "train": 210,
+                                            "coach_trace": 420, "bench": 1}
+    assert report[2]["launches"] == 631
+    assert report[5]["launches_by_path"] == {"serve": 0, "train": 7,
+                                            "coach_trace": 14, "bench": 1}
 
 
 def test_kernel_report_keeps_a_shape_left_on_mma_sync():
@@ -390,8 +392,8 @@ def test_capture_record_keeps_only_the_counts_a_capture_moved():
     assert kept == chip_smoke.capture_record(chip_smoke.unet_k1(30)) == {
         "K1": 960, "K1 sm90": 960}
     assert chip_smoke.capture_record(chip_smoke.SD15_STEP) == {
-        "K1": 32, "K1 sm90": 32, "K2": 30, "K2 sm90": 4, "K2 mma_sync": 26,
-        "K3": 31, "K3 sm90": 4, "K3 mma_sync": 27, "K4": 21, "K4 sm90": 20,
+        "K1": 32, "K1 sm90": 32, "K2": 30, "K2 sm90": 30, "K3": 31,
+        "K3 sm90": 30, "K3 mma_sync": 1, "K4": 21, "K4 sm90": 20,
         "K4 mma_sync": 1}
 
 

@@ -366,13 +366,22 @@ def test_flash_attention_function_on_the_card(dev):
                          <= _bwd_tolerance(r)).all())
 
 
-# K2's and K3's Hopper design (bwd_design "sm90": the head-dim buckets 48
-# and 64 above 80 keys): the first key past the 80-key edge, ragged query
-# and key tiles (128-query blocks and 64-key stages in K2; 128-key blocks
-# and 64-query stages in K3) and the 3072-token self-attention of the train
-# step, each against the plain version, the mma.sync design and itself
-BWD_SM90_DIMS = [40, 64]
-BWD_SM90_LENGTHS = [81, 129, 200, 3072]
+# K2's and K3's Hopper design (bwd_design "sm90": the head-dim buckets 48,
+# 64, 80 and 160 at any key count, one head dim of the paths in each): the
+# first key past 80, ragged query and key tiles (128-query blocks and
+# 64-key stages in K2; 128-key blocks, 64 at bucket 160, and 64-query
+# stages in K3), the self-attentions of the train step (3072 tokens at
+# d 40 and 64, 768 at d 80 and 160), and up to 80 keys (one key tile: the
+# mid blocks' 48 and 64, the cross-attention's 77, a full 80) at every
+# bucket, each against the plain version, the mma.sync design and itself
+BWD_SM90_DIMS = [40, 64, 80, 160]
+BWD_SM90_SHAPES = (
+    [(d, Lq, Lk) for d in (40, 64) for Lq in (81, 129, 200, 3072)
+     for Lk in (81, 129, 200, 3072)]
+    + [(d, Lq, Lk) for d in (80, 160) for Lq in (81, 129, 200, 768)
+       for Lk in (81, 129, 200, 768)]
+    + [(d, Lq, Lk) for d in BWD_SM90_DIMS for Lq in (48, 200, 3072)
+       for Lk in (48, 64, 77, 80)])
 
 
 def _bwd_sm90_inputs(B, Lq, Lk, H, d, dev):
@@ -387,34 +396,47 @@ def _bwd_designs():
             dict(tfa.flash_attention_bwd_dkv.designs))
 
 
-@pytest.mark.parametrize("d", BWD_SM90_DIMS)
-@pytest.mark.parametrize("Lq", BWD_SM90_LENGTHS)
-@pytest.mark.parametrize("Lk", BWD_SM90_LENGTHS)
+@pytest.mark.parametrize("d,Lq,Lk", BWD_SM90_SHAPES)
 def test_flash_attention_bwd_sm90_matches_plain(dev, d, Lq, Lk):
+    """The wrappers launch the design bwd_design names for each kernel
+    (the Hopper one but at the shapes of BWD_MMA_SYNC_SHAPES); the Hopper
+    design, forced at every shape, matches the plain version and itself,
+    and so does the mma.sync design."""
     args = _bwd_sm90_inputs(1, Lq, Lk, 2, d, dev)
     assert tfa.bwd_design(d, Lk) == "sm90"
+    want = {k: tfa.bwd_design(d, Lk, Lq, k) for k in ("dq", "dkv")}
     (dq0, dkv0) = _bwd_designs()
-    dq = tfa.flash_attention_bwd_dq(*args)
-    dk, dv = tfa.flash_attention_bwd_dkv(*args)
-    again = (tfa.flash_attention_bwd_dq(*args),
-             *tfa.flash_attention_bwd_dkv(*args))
+    wrapped = (tfa.flash_attention_bwd_dq(*args),
+               *tfa.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    dq1, dkv1 = _bwd_designs()
+    assert dq1 == dict(dq0, **{want["dq"]: dq0[want["dq"]] + 1})
+    assert dkv1 == dict(dkv0, **{want["dkv"]: dkv0[want["dkv"]] + 1})
+
+    def hopper():
+        return (tfa._launch_bwd_dq(*args, "sm90")[0],
+                *tfa._launch_bwd_dkv(*args, "sm90")[:2])
+
+    got, again = hopper(), hopper()
     mma = (tfa._flash_attention_bwd_dq_mma_sync(*args),
            *tfa._flash_attention_bwd_dkv_mma_sync(*args))
     torch.cuda.synchronize()
-    dq1, dkv1 = _bwd_designs()
-    assert dq1 == dict(dq0, sm90=dq0["sm90"] + 2)
-    assert dkv1 == dict(dkv0, sm90=dkv0["sm90"] + 2)
     q, k, v, do, lse, delta = args
     ref = tfa._bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
                          delta)
-    for got, second, m, r in zip((dq, dk, dv), again, mma, ref):
-        assert got.dtype == torch.bfloat16 and got.shape == m.shape
+    for x, second, m, w, r in zip(got, again, mma, wrapped, ref):
+        assert x.dtype == torch.bfloat16 and x.shape == m.shape
         tol = _bwd_tolerance(r)
-        assert bool(((got.float() - r).abs() <= tol).all())
+        assert bool(((x.float() - r).abs() <= tol).all())
         assert bool(((m.float() - r).abs() <= tol).all())
         # no atomics, a fixed order of every sum: bit-equal from call to
         # call
-        assert torch.equal(got, second)
+        assert torch.equal(x, second)
+    # the wrappers' results are their design's
+    assert torch.equal(wrapped[0], got[0] if want["dq"] == "sm90" else mma[0])
+    for i in (1, 2):
+        assert torch.equal(wrapped[i], got[i] if want["dkv"] == "sm90"
+                           else mma[i])
 
 
 @pytest.mark.parametrize("d", BWD_SM90_DIMS)
@@ -429,7 +451,7 @@ def test_flash_attention_bwd_sm90_reads_strided_views(dev, d):
 
 
 @pytest.mark.parametrize("d", BWD_SM90_DIMS)
-@pytest.mark.parametrize("Lk", [129, 3072])
+@pytest.mark.parametrize("Lk", [77, 129, 3072])
 def test_flash_attention_bwd_sm90_graph_replay_equals_eager(dev, d, Lk):
     """K2 and K3 captured in a CUDA graph (their tensor maps are kernel
     parameters) and replayed on new inputs: bit-equal to the eager calls
@@ -462,10 +484,12 @@ def test_flash_attention_bwd_sm90_graph_replay_equals_eager(dev, d, Lk):
 
 
 @pytest.mark.parametrize("d", BWD_SM90_DIMS)
-def test_flash_attention_bwd_sm90_through_the_function(dev, d):
+@pytest.mark.parametrize("Lk", [77, 300])
+def test_flash_attention_bwd_sm90_through_the_function(dev, d, Lk):
     """FlashAttention.apply's backward launches the Hopper K2 and K3 at a
-    self-attention shape, and its gradients match the plain backward."""
-    q, k, v = _sm90_inputs(2, 300, 300, 3, d, dev)
+    self-attention shape and a 77-key cross-attention, and its gradients
+    match the plain backward."""
+    q, k, v = _sm90_inputs(2, 300, Lk, 3, d, dev)
     do = _randn((2, 300, 3, d), 3, dev).bfloat16()
     o, lse = tfa.flash_attention(q, k, v)
     ref = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
@@ -484,11 +508,13 @@ def test_flash_attention_bwd_sm90_through_the_function(dev, d):
 
 
 @pytest.mark.parametrize("d", BWD_SM90_DIMS)
-@pytest.mark.parametrize("B,Lq,Lk,H", [(1, 200, 129, 2), (1, 3072, 200, 1)])
+@pytest.mark.parametrize("B,Lq,Lk,H", [(1, 200, 129, 2), (1, 3072, 200, 1),
+                                       (9, 3072, 77, 8)])
 def test_flash_attention_bwd_sm90_query_splits(dev, d, B, Lq, Lk, H):
     """The Hopper K3 with the queries split across blocks (a small grid):
     fp32 partials reduced in a fixed order, bit-equal from call to call."""
-    assert tfa.dkv_splits(B, H, Lq, Lk, tfa.sm_count(dev)) > 1
+    assert tfa.dkv_splits(B, H, Lq, Lk, tfa.sm_count(dev),
+                          tfa.dkv_key_tile("sm90", d)) > 1
     args = _bwd_sm90_inputs(B, Lq, Lk, H, d, dev)
     first = tfa.flash_attention_bwd_dkv(*args)
     second = tfa.flash_attention_bwd_dkv(*args)
@@ -502,12 +528,12 @@ def test_flash_attention_bwd_sm90_query_splits(dev, d, B, Lq, Lk, H):
 
 
 def test_flash_attention_bwd_sm90_refuses_what_it_does_not_take(dev):
-    """The Hopper design takes head dims up to 64: its entry refuses 80
-    (forced past bwd_design, which never sends it), and the wrappers
-    refuse views TMA cannot read; nothing falls back to the other
-    design."""
-    args = list(_bwd_sm90_inputs(1, 200, 200, 2, 80, dev))
-    assert tfa.bwd_design(80, 200) == "mma_sync"
+    """The Hopper design takes the head-dim buckets 48, 64, 80 and 160: its
+    entry refuses 128, a bucket no path uses (forced past bwd_design,
+    which never sends it), and the wrappers refuse views TMA cannot read;
+    nothing falls back to the other design."""
+    args = list(_bwd_sm90_inputs(1, 200, 200, 2, 128, dev))
+    assert tfa.bwd_design(128, 200) == "mma_sync"
     with pytest.raises(RuntimeError, match="CUDA error"):
         tfa._launch_bwd_dq(*args, "sm90")
     with pytest.raises(RuntimeError, match="CUDA error"):

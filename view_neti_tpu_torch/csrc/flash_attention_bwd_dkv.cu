@@ -345,8 +345,9 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The tile sizes that the wrapper's split policy (dkv_splits) assumes.
-int flash_attention_bwd_dkv_key_tile() { return kBK; }
+// The tile sizes that the wrapper's split policy (dkv_splits) assumes: the
+// key rows a block (at any head dim d), and the query granule.
+int flash_attention_bwd_dkv_key_tile(int) { return kBK; }
 int flash_attention_bwd_dkv_query_granule() { return kQueryGranule; }
 
 // q, dout: (B, Lq, H, d); k, v: (B, Lk, H, d); dk, dv: (B, Lk, H, d); all

@@ -116,6 +116,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --------------------------------------------------------------- TMA ----
 
+// Brings a tensor map (a kernel parameter) into the cache its TMA copies
+// read it from, ahead of the first copy.
+__device__ __forceinline__ void prefetch_tensor_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // A 4-d box of the tensor map at coordinates (c0 innermost .. c3) into
 // shared memory at dst; its bytes complete a transaction on bar.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
@@ -156,9 +164,11 @@ __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Wait until the committed stores have read their shared memory.
+// Wait until all but the last N committed groups of stores have read their
+// shared memory.
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's shared-memory writes before later TMA reads of them.
@@ -342,6 +352,25 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) {= or +=} A (64 x 16, shared, K-major) B (16 x 32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -563,12 +592,15 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16_mn(float (&d)[128],
 }
 
 // D (64 x N) {= or +=} A B, both from shared memory, K-major: the products
-// of S = Q K^T over N = 64, 80 or 128 keys.
+// of S = Q K^T over N = 32, 64, 80 or 128 keys.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 80 || N == 128, "wgmma_ss: N is 64, 80, 128");
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 64 || N == 80 || N == 128,
+                "wgmma_ss: N is 32, 64, 80, 128");
+  if constexpr (N == 32)
+    wgmma_ss_m64n32k16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64)
     wgmma_ss_m64n64k16(d, desc_a, desc_b, scale_d);
   else if constexpr (N == 80)
     wgmma_ss_m64n80k16(d, desc_a, desc_b, scale_d);

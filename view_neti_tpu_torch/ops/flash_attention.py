@@ -62,8 +62,9 @@ BWD_ENTRIES = {
 # K3 keeps a warp's dK and dV accumulators (2 x 16 x d fp32) in registers
 # beside its score fragments, which caps the head dim of the backward
 MAX_BWD_HEAD_DIM = 192
-# K3's key rows per block and the query granule of its split across blocks;
-# the library reports its own, and the first launch checks they agree
+# K3's key rows per block (dkv_key_tile: 64 in the Hopper design at bucket
+# 160) and the query granule of its split across blocks; the library
+# reports its own, and the first launch at a tile checks they agree
 DKV_KEY_TILE = 128
 DKV_QUERY_GRANULE = 64
 
@@ -74,26 +75,36 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def dkv_key_tile(design: str, d: int) -> int:
+    """The key rows of one K3 block of `design` at head dim d: 128, but 64
+    in the Hopper design at bucket 160 (its two warpgroups share a block's
+    keys, one accumulating dV and the other dK)."""
+    return 64 if design == "sm90" and d > 128 else DKV_KEY_TILE
+
+
 @functools.lru_cache(maxsize=None)
-def _check_dkv_tiles(lib_name: str) -> None:
+def _check_dkv_tiles(lib_name: str, design: str, d: int) -> None:
     """Both K3 designs split the queries by dkv_splits: each library's key
-    tile and query granule must be the wrapper's."""
+    tile at head dim d and its query granule must be the wrapper's."""
     lib = build.load(lib_name)
-    have = (getattr(lib, f"{lib_name}_key_tile")(),
-            getattr(lib, f"{lib_name}_query_granule")())
-    if have != (DKV_KEY_TILE, DKV_QUERY_GRANULE):
+    key_tile = getattr(lib, f"{lib_name}_key_tile")
+    key_tile.argtypes = [ctypes.c_int]
+    have = (key_tile(d), getattr(lib, f"{lib_name}_query_granule")())
+    want = (dkv_key_tile(design, d), DKV_QUERY_GRANULE)
+    if have != want:
         raise RuntimeError(f"{lib_name}: the library's key tile and query "
-                           f"granule {have} are not the wrapper's "
-                           f"{(DKV_KEY_TILE, DKV_QUERY_GRANULE)}")
+                           f"granule {have} at d = {d} are not the "
+                           f"wrapper's {want}")
 
 
-def dkv_splits(B: int, H: int, Lq: int, Lk: int, sms: int) -> int:
-    """How many query splits K3 runs on a card with `sms` multiprocessors:
-    1 when its (key tile, batch*head) blocks already fill two waves, else
-    enough splits of whole 64-query granules to reach about two waves. Each
-    split holds at least one granule:
-    (splits - 1) * dkv_split_rows(Lq, splits) < Lq."""
-    blocks = math.ceil(Lk / DKV_KEY_TILE) * B * H
+def dkv_splits(B: int, H: int, Lq: int, Lk: int, sms: int,
+               key_tile: int = DKV_KEY_TILE) -> int:
+    """How many query splits K3 runs on a card with `sms` multiprocessors
+    with blocks of `key_tile` keys (dkv_key_tile): 1 when its (key tile,
+    batch*head) blocks already fill two waves, else enough splits of whole
+    64-query granules to reach about two waves. Each split holds at least
+    one granule: (splits - 1) * dkv_split_rows(Lq, splits) < Lq."""
+    blocks = math.ceil(Lk / key_tile) * B * H
     if blocks >= 2 * sms:
         return 1
     granules = math.ceil(Lq / DKV_QUERY_GRANULE)
@@ -271,15 +282,38 @@ def _check_bwd(what, q, k, v, do, lse, delta):
                              f"(B, H, Lq) tensor on q's device")
 
 
-def bwd_design(d: int, Lk: int) -> str:
-    """Which design of K2 and K3 a CUDA call with head dim d and Lk keys
-    launches: "sm90" (csrc/flash_attention_bwd_dq_sm90.cu,
-    csrc/flash_attention_bwd_dkv_sm90.cu) for the head-dim buckets 48 and
-    64 above 80 keys (the self-attentions of SD-1.5's d = 40 and SD-2.1's
-    d = 64), else "mma_sync" (csrc/flash_attention_bwd_dq.cu,
-    csrc/flash_attention_bwd_dkv.cu): the 77-key cross-attentions, the
-    buckets 80 and 160 and SD-2.1's 48-key mid block."""
-    return "sm90" if 32 < d <= 64 and Lk > 80 else "mma_sync"
+# The path shapes at which the card measured a kernel's Hopper design slower
+# than its mma.sync design (PERF.md section 6, `tools/ab_times.py
+# backward`): (kernel, head-dim bucket, Lq, Lk), "dq" for K2 and "dkv" for
+# K3. Both are the mid blocks' tiny grids: SD-2.1's 48 x 48 self-attention
+# (K2, 180 tiles of 128 queries on 132 SMs, one block an SM) and SD-1.5's
+# 48 x 77 cross-attention (K3, 144 blocks of 64 keys at bucket 160).
+BWD_MMA_SYNC_SHAPES = frozenset({("dq", 64, 48, 48), ("dkv", 160, 48, 77)})
+
+
+def head_dim_bucket(d: int) -> int:
+    """The head-dim bucket of the Hopper designs that d falls in (48, 64, 80
+    or 160), else d."""
+    for bucket in (48, 64, 80):
+        if 32 < d <= bucket:
+            return bucket
+    return 160 if 144 < d <= 160 else d
+
+
+def bwd_design(d: int, Lk: int, Lq: int = None, kernel: str = None) -> str:
+    """Which design of K2 and K3 a CUDA call with head dim d, Lq queries and
+    Lk keys launches: "sm90" (csrc/flash_attention_bwd_dq_sm90.cu,
+    csrc/flash_attention_bwd_dkv_sm90.cu) for the head-dim buckets 48, 64,
+    80 and 160 (SD-1.5's d = 40, 80 and 160, SD-2.1's 64) at any Lk, as
+    fwd_design, else "mma_sync" (csrc/flash_attention_bwd_dq.cu,
+    csrc/flash_attention_bwd_dkv.cu): the buckets no path uses. Given Lq
+    and the kernel ("dq" or "dkv"), the shapes of BWD_MMA_SYNC_SHAPES stay
+    on "mma_sync" for that kernel: a static rule, not a choice at run
+    time."""
+    design = fwd_design(d, Lk)
+    if (kernel, head_dim_bucket(d), Lq, Lk) in BWD_MMA_SYNC_SHAPES:
+        return "mma_sync"
+    return design
 
 
 def _bwd_entry(kernel: str, design: str):
@@ -295,7 +329,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, design=None):
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     B, Lq, H, d = q.shape
     Lk = k.shape[1]
-    design = design or bwd_design(d, Lk)
+    design = design or bwd_design(d, Lk, Lq, "dq")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib, symbol, fn = _bwd_entry("dq", design)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -312,10 +346,11 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, design=None):
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     B, Lq, H, d = q.shape
     Lk = k.shape[1]
-    design = design or bwd_design(d, Lk)
+    design = design or bwd_design(d, Lk, Lq, "dkv")
     lib, symbol, fn = _bwd_entry("dkv", design)
-    _check_dkv_tiles(lib)
-    splits = dkv_splits(B, H, Lq, Lk, sm_count(q.device))
+    _check_dkv_tiles(lib, design, d)
+    splits = dkv_splits(B, H, Lq, Lk, sm_count(q.device),
+                        dkv_key_tile(design, d))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     part = (torch.empty((2, splits, B * H, Lk, d), dtype=torch.float32,

@@ -3,6 +3,8 @@
 checkouts run alternately in one machine session.
 
     python3 view_neti_tpu_torch/tools/ab_times.py --root DIR attention
+    python3 view_neti_tpu_torch/tools/ab_times.py --root DIR backward \
+        [--launches N]
     python3 view_neti_tpu_torch/tools/ab_times.py --root DIR train [--steps N]
     python3 view_neti_tpu_torch/tools/ab_times.py --root DIR optim \
         [--steps N] [--mappers M]
@@ -16,6 +18,17 @@ name and power limit, then one JSON line:
                median device time of one launch from torch.profiler over
                --launches back-to-back launches, beside the host's time per
                launch of the same loop (CUDA events);
+  backward  -- K2 and K3, each in both designs (the Hopper "sm90" and the
+               mma.sync one), at every backward shape of the training
+               paths (BACKWARD_SHAPES: SD-1.5's train step, SD-2.1's, the
+               folders path's 512x512 one, B 9): the device time of one
+               call from torch.profiler (the kernel and, where K3 splits
+               the queries, its reduction), the mean over --launches
+               back-to-back calls, timed in the order sm90, mma.sync,
+               mma.sync, sm90 and averaged over the two rounds of each;
+               and each step's sums over its 30 K2 and 31 K3 launches
+               (BACKWARD_LAUNCHES), with every shape on the design
+               bwd_design names, on sm90, and on mma.sync;
   train     -- the mode-2 train step of chip_smoke.py's train phase (B 9,
                384x512, SD-1.5 at full width, seeded random weights): 2
                warm-up steps, then --steps steps each timed on the host's
@@ -50,6 +63,23 @@ ATTENTION_SHAPES = (  # (B, Lq, Lk, H, d)
     (6, 108, 77, 8, 160), (9, 3072, 77, 8, 40), (9, 768, 77, 8, 80),
     (9, 192, 77, 8, 160), (9, 48, 77, 8, 160), (6, 6912, 6912, 8, 40),
     (9, 3072, 3072, 8, 40))
+
+BACKWARD_STEPS = {  # a train step's levels: lengths, head dims, heads
+    "sd15_384x512": ((3072, 768, 192, 48), (40, 80, 160, 160), (8,) * 4),
+    "sd21_384x512": ((3072, 768, 192, 48), (64,) * 4, (5, 10, 20, 20)),
+    "sd15_512x512": ((4096, 1024, 256, 64), (40, 80, 160, 160), (8,) * 4)}
+# K2's and K3's launches a step at a level's self- and cross-attention: 5
+# blocks on levels 0 to 2 and 1 in the mid block; level 0's first
+# self-attention has no backward and its first cross-attention's q needs
+# no gradient (no K2)
+BACKWARD_LAUNCHES = {(0, "self"): (4, 4), (0, "cross"): (4, 5),
+                     (1, "self"): (5, 5), (1, "cross"): (5, 5),
+                     (2, "self"): (5, 5), (2, "cross"): (5, 5),
+                     (3, "self"): (1, 1), (3, "cross"): (1, 1)}
+BACKWARD_SHAPES = tuple(  # (B, Lq, Lk, H, d): self- and cross-attention
+    (9, L, Lk, H, d)
+    for lengths, dims, heads in BACKWARD_STEPS.values()
+    for L, d, H in zip(lengths, dims, heads) for Lk in (L, 77))
 
 
 def card_line() -> str:
@@ -92,6 +122,61 @@ def attention(torch, launches: int):
                          device_ms_max=max(device_ms),
                          host_ms_per_launch=start.elapsed_time(end) / launches))
     return dict(mode="attention", launches=launches, rows=rows)
+
+
+def backward(torch, launches: int):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from view_neti_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator("cuda").manual_seed(0)
+    calls = {"dq": fa._launch_bwd_dq, "dkv": fa._launch_bwd_dkv}
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        return sum((e.time_range.end - e.time_range.start) / 1e3
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "flash_bwd" in e.name) / launches
+
+    rows = []
+    for B, Lq, Lk, H, d in BACKWARD_SHAPES:
+        q, k, v, do = (torch.randn(B, L, H, d, generator=g, device="cuda")
+                       .bfloat16() for L in (Lq, Lk, Lk, Lq))
+        o, lse = fa.flash_attention(q, k, v)
+        delta = fa.attention_delta(o, do)
+        row = dict(shape=[B, Lq, Lk, H, d], design=fa.bwd_design(d, Lk))
+        for kernel, launch in calls.items():
+            times = {"sm90": [], "mma_sync": []}
+            for design in ("sm90", "mma_sync", "mma_sync", "sm90"):
+                times[design].append(device_ms(
+                    lambda: launch(q, k, v, do, lse, delta, design)))
+            for design, ms in times.items():
+                row[f"{kernel}_{design}_ms"] = statistics.mean(ms)
+                row[f"{kernel}_{design}_rounds_ms"] = ms
+            row[f"{kernel}_design"] = fa.bwd_design(d, Lk, Lq, kernel)
+        rows.append(row)
+    steps = {}
+    for i, name in enumerate(BACKWARD_STEPS):
+        sums = {f"{k}_{w}_ms": 0.0 for k in calls
+                for w in ("as_run", "sm90", "mma_sync")}
+        for j, row in enumerate(rows[8 * i:8 * i + 8]):
+            n = dict(zip(calls, BACKWARD_LAUNCHES[
+                (j // 2, "cross" if j % 2 else "self")]))
+            for k in calls:
+                for w in ("sm90", "mma_sync"):
+                    sums[f"{k}_{w}_ms"] += n[k] * row[f"{k}_{w}_ms"]
+                sums[f"{k}_as_run_ms"] += n[k] * row[
+                    f"{k}_{row[k + '_design']}_ms"]
+        for w in ("as_run", "sm90", "mma_sync"):
+            sums[f"pair_{w}_ms"] = sums[f"dq_{w}_ms"] + sums[f"dkv_{w}_ms"]
+        steps[name] = sums
+    return dict(mode="backward", launches=launches, rows=rows,
+                steps=steps)
 
 
 def train(torch, steps: int):
@@ -221,7 +306,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", required=True,
                         help="root of the checkout to time")
-    parser.add_argument("mode", choices=("attention", "train", "optim"))
+    parser.add_argument("mode", choices=("attention", "backward", "train",
+                                         "optim"))
     parser.add_argument("--launches", type=int, default=200)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--mappers", type=int, default=88)
@@ -234,6 +320,8 @@ def main() -> int:
     print(card_line(), flush=True)
     if args.mode == "attention":
         out = attention(torch, args.launches)
+    elif args.mode == "backward":
+        out = backward(torch, args.launches)
     elif args.mode == "train":
         out = train(torch, args.steps)
     else:
