@@ -817,6 +817,27 @@ def device_profile(torch, fn, ranges=()):
                 launches_by_range=in_range, top_ms=dict(top))
 
 
+def augment_ranged(fn):
+    """fn with the train step's augmentation inside a record_function range
+    "device_augment", so that device_profile(..., ranges=("device_augment",))
+    groups its kernels."""
+    import torch
+    from view_neti_tpu_torch.training import train_step
+    inner = train_step.augment_batch
+
+    def ranged(*args):
+        with torch.profiler.record_function("device_augment"):
+            return inner(*args)
+
+    def run():
+        train_step.augment_batch = ranged
+        try:
+            return fn()
+        finally:
+            train_step.augment_batch = inner
+    return run
+
+
 def attention_shapes(serve_steps: int):
     """Every attention shape of the paths, with its launches per run of
     each (K1, 30 UNet forwards per serving run; K1, K2, K3 per train step).
@@ -2397,7 +2418,8 @@ def phase_coach(torch, dev, card, train_result, steps):
         def one_replay():
             coach.window_step([batch], [coach._step_draws(10 ** 6, batch)])
 
-        prof = device_profile(torch, one_step, ranges=("device_augment",))
+        prof = device_profile(torch, augment_ranged(one_step),
+                              ranges=("device_augment",))
         prof_graphed = device_profile(torch, one_replay)
         capture = dict(capture_s=cap.capture_s,
                        pool_gib=cap.pool_bytes / 2 ** 30)
@@ -3200,7 +3222,7 @@ def phase_mode3(torch, dev, card, coach_stats):
             coach.train_step(coach.built, batch,
                              coach._step_draws(10 ** 6, batch))
 
-        step_prof = device_profile(torch, one_step,
+        step_prof = device_profile(torch, augment_ranged(one_step),
                                    ranges=("device_augment",))
 
         # the step's v-prediction target on the card against the CPU's
@@ -3623,7 +3645,8 @@ def phase_folders(torch, dev, card):
             coach.train_step(coach.built, batch,
                              coach._step_draws(10 ** 6, batch))
 
-        prof = device_profile(torch, one_step, ranges=("device_augment",))
+        prof = device_profile(torch, augment_ranged(one_step),
+                              ranges=("device_augment",))
         # the step's device time by CUDA events beside the profile's busy
         # time (the batch is on the card: no loader in it)
         step_ms = time_ms(torch, one_step, 1500.0)
@@ -3907,12 +3930,14 @@ def ddp_run_stats(coach, warm=DDP_WARM, steps=DDP_STEPS):
     """A finished Coach's losses, host copies of its mappers, counts, and
     the timed steps' ms a step on the host's clock (the steps after warm),
     its validation rounds left out."""
-    marks = coach.step_marks
+    from view_neti_tpu_torch.utils import profiling
+    ends = [sp.end_ns * 1e-9
+            for sp in profiling.within(coach.loop_span, "coach.step")]
     return dict(
         losses=coach.losses,
         mappers={k: v.numpy() for k, v in mapper_state(coach).items()},
         counts=coach.optimizer.counts,
-        ms_per_step=(coach.loop_end_s - marks[warm - 1]
+        ms_per_step=(coach.loop_end_s - ends[(warm - 1) // coach.accum_k]
                      - sum(getattr(coach, "validate_s", ()))) * 1e3
         / steps)
 

@@ -32,7 +32,7 @@ from view_neti_tpu_torch.data.dtu import dtu_get_train_idxs
 from view_neti_tpu_torch.training import builder as tbuilder
 from view_neti_tpu_torch.training import train_step as tts
 from view_neti_tpu_torch.training.coach import Coach, step_seed
-from view_neti_tpu_torch.utils import msgpack_codec
+from view_neti_tpu_torch.utils import msgpack_codec, profiling
 
 
 # ---------------------------------------------------------- msgpack ----
@@ -439,7 +439,11 @@ def test_coach_true_accumulation_loop_counts_optimizer_steps(tree,
     coach = _coach(tree, tmp_path, "acc",
                    optim={"fuse_accumulation": False, "max_train_steps": 2})
     coach.train()
-    assert coach.global_step == 2 and len(coach.step_marks) == 6
+    # one coach.step span (one window_step call) an optimizer step of
+    # three micro-batches
+    steps = profiling.within(coach.loop_span, "coach.step")
+    feeds = profiling.within(coach.loop_span, "coach.feed")
+    assert coach.global_step == 2 and len(steps) == len(feeds) == 2
     assert len(coach.losses) == 2
 
 

@@ -1,12 +1,13 @@
-"""utils/profiling.py's trace and annotate against the JAX package's, and
+"""utils/profiling.py's trace against the JAX package's, its spans, and
 the Coach's VIEW_NETI_TRACE_DIR, on the CPU.
 
 Both packages' trace(None) write nothing and trace(dir) write a file under
 dir (the JAX package XProf's xplane.pb, the port a Chrome trace that
 parses). A tiny Coach with the variable set writes a trace holding its
 steps, and its losses and mappers are bit-equal to a run without it, which
-writes nothing; when the loop raises, the profiler is closed. The card's
-trace, with K1-K4 in it, is held by chip_smoke.py's coach phase.
+writes nothing; when the loop raises, the profiler is closed. A span shows
+on trace()'s timeline and never on another profiler's. The card's trace,
+with K1-K4 in it, is held by chip_smoke.py's coach phase.
 """
 import glob
 import json
@@ -46,7 +47,7 @@ def _port_trace(root):
 
 def _matmuls():
     x = torch.randn(8, 8)
-    with profiling.annotate("port_region"):
+    with profiling.span("port_region"):
         return (x @ x).sum()
 
 
@@ -87,7 +88,9 @@ def test_trace_refuses_to_nest(tmp_path):
                 pass
         _matmuls()
     assert _files(tmp_path) == []
-    assert "port_region" in {e.name for e in outer.events()}
+    names = {e.name for e in outer.events()}
+    # the outer profiler records; a span opens no range under it
+    assert "aten::mm" in names and "port_region" not in names
 
 
 def test_trace_names_the_rank(tmp_path):
@@ -139,8 +142,10 @@ def test_coach_trace_is_bit_equal_to_no_trace(tmp_path, monkeypatch):
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
     names = {e.get("name") for e in _port_trace(str(tmp_path / "trace"))}
-    # the steps' attention and its backward ran under the trace
-    assert {"FlashAttentionBackward", "aten::einsum"} <= names
+    # the steps' attention and its backward ran under the trace, inside
+    # the Coach's spans
+    assert {"FlashAttentionBackward", "aten::einsum", "coach.loop",
+            "coach.step", "coach.feed"} <= names
     # the final checkpoint is written after the trace closes
     assert (tmp_path / "traced" / "mapper-final_view.msgpack").exists()
 
@@ -158,9 +163,11 @@ def test_coach_closes_the_trace_when_the_loop_raises(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="planted"):
         coach.train()
     assert not torch.autograd.profiler._is_profiler_enabled
+    assert not profiling._TRACING
     assert len(_files(tmp_path / "trace")) == 1
-    # a new profiler opens and records
+    # a new profiler opens and records, and spans open no range under it
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _matmuls()
-    assert "port_region" in {e.name for e in prof.events()}
+    names = {e.name for e in prof.events()}
+    assert "aten::mm" in names and "port_region" not in names

@@ -23,6 +23,7 @@ import torch
 from view_neti_tpu_torch.schedulers.dpm_solver import DPMSolverSchedule
 from view_neti_tpu_torch.utils.device import resolve_device
 from view_neti_tpu_torch.utils.graphs import Graphed
+from view_neti_tpu_torch.utils.profiling import span
 
 
 def make_denoise_fn(unet, schedule: DPMSolverSchedule,
@@ -142,20 +143,25 @@ def generate_batch(unet, vae, schedule: DPMSolverSchedule, contexts,
     prompt (the reference's per-view reseeding). A caller that generates
     more than once passes the denoise_fn and decode_fn it keeps
     (make_denoise_fn, make_decode_fn), so that their graphs are captured
-    once and replayed."""
+    once and replayed. Spans (utils/profiling.span): "render.latents",
+    "render.denoise" and "render.decode"."""
     device = resolve_device(device)
     if denoise_fn is None:
         denoise_fn = make_denoise_fn(unet, schedule, num_inference_steps,
                                      guidance_scale, compute_dtype)
     C, S = contexts.shape[2], len(seeds)
     scale = 2 ** (len(vae.config.channel_mults) - 1)
-    lat0 = initial_latents(seeds, height // scale, width // scale, device)
-    lat0 = lat0.repeat(C, 1, 1, 1)          # cam-major: [c0s0, c0s1, ...]
-    latents = denoise_fn(lat0, contexts.to(device), contexts_bypass.to(device),
-                         uncond_ctx.to(device))
-    imgs = (decode_fn or functools.partial(decode_to_uint8, vae))(
-        latents.to(compute_dtype))
-    imgs = imgs.reshape((C, S) + tuple(imgs.shape[1:]))
+    with span("render.latents"):
+        lat0 = initial_latents(seeds, height // scale, width // scale, device)
+        lat0 = lat0.repeat(C, 1, 1, 1)      # cam-major: [c0s0, c0s1, ...]
+    with span("render.denoise"):
+        latents = denoise_fn(lat0, contexts.to(device),
+                             contexts_bypass.to(device),
+                             uncond_ctx.to(device))
+    with span("render.decode"):
+        imgs = (decode_fn or functools.partial(decode_to_uint8, vae))(
+            latents.to(compute_dtype))
+        imgs = imgs.reshape((C, S) + tuple(imgs.shape[1:]))
     return imgs.cpu().numpy() if as_numpy else imgs
 
 

@@ -14,6 +14,7 @@ import torch
 
 from view_neti_tpu_torch.training.text_forward import (TextModels,
                                                        neti_text_conditioning)
+from view_neti_tpu_torch.utils.profiling import span
 
 
 class PromptManager:
@@ -56,32 +57,43 @@ class PromptManager:
                       chunk: int = 10, object_idx: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(context, context_bypass), each (T, 16, B, L, D) for B prompts.
-        A chunk of Tc timesteps runs as one CLIP batch of Tc*16*B rows."""
+        A chunk of Tc timesteps runs as one CLIP batch of Tc*16*B rows.
+        Spans (utils/profiling.span): "prompt.embed" the call,
+        "prompt.tokenize", "prompt.chunk" a chunk's conditioning and
+        "prompt.stack" the chunks' reshapes, concatenation and cast."""
+        with span("prompt.embed"):
+            return self._embed(texts, truncation_idx, chunk, object_idx)
+
+    def _embed(self, texts, truncation_idx, chunk, object_idx):
         clip = self.text_models.clip
         device = clip.text_model.embeddings.token_embedding.weight.device
         L = clip.config.max_position_embeddings
-        ids = np.asarray(self.tokenizer(
-            list(texts), padding="max_length", truncation=True,
-            max_length=L).input_ids, np.int64)
-        B = ids.shape[0]
-        ph_obj = self._extract_placeholder(ids, self.object_ids)
-        ph_view = self._extract_placeholder(ids, self.view_ids)
+        with span("prompt.tokenize"):
+            ids = np.asarray(self.tokenizer(
+                list(texts), padding="max_length", truncation=True,
+                max_length=L).input_ids, np.int64)
+            B = ids.shape[0]
+            ph_obj = self._extract_placeholder(ids, self.object_ids)
+            ph_view = self._extract_placeholder(ids, self.view_ids)
 
         def dev(a):
             return torch.as_tensor(a, device=device)
 
-        ctxs, ctxbs = [], []
+        chunks = []
         for s in range(0, len(self.timesteps), chunk):
             ts = self.timesteps[s:s + chunk]
             Tc = len(ts)
-            c, cb = neti_text_conditioning(
-                self.text_models, dev(np.tile(ids, (Tc, 1))),
-                dev(np.tile(ph_obj, Tc)), dev(np.tile(ph_view, Tc)),
-                dev(np.repeat(ts, B).astype(np.float32)),
-                object_idx=object_idx, truncation_idx=truncation_idx)
+            with span("prompt.chunk"):
+                chunks.append((Tc, *neti_text_conditioning(
+                    self.text_models, dev(np.tile(ids, (Tc, 1))),
+                    dev(np.tile(ph_obj, Tc)), dev(np.tile(ph_view, Tc)),
+                    dev(np.repeat(ts, B).astype(np.float32)),
+                    object_idx=object_idx, truncation_idx=truncation_idx)))
+        with span("prompt.stack"):
             # (16, Tc*B, L, D) -> (Tc, 16, B, L, D)
-            n = c.shape[0]
-            ctxs.append(c.reshape(n, Tc, B, L, -1).transpose(0, 1))
-            ctxbs.append(cb.reshape(n, Tc, B, L, -1).transpose(0, 1))
-        return (torch.cat(ctxs).to(self.dtype),
-                torch.cat(ctxbs).to(self.dtype))
+            ctxs = [c.reshape(c.shape[0], Tc, B, L, -1).transpose(0, 1)
+                    for Tc, c, _ in chunks]
+            ctxbs = [cb.reshape(cb.shape[0], Tc, B, L, -1).transpose(0, 1)
+                     for Tc, _, cb in chunks]
+            return (torch.cat(ctxs).to(self.dtype),
+                    torch.cat(ctxbs).to(self.dtype))

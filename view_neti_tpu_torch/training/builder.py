@@ -40,6 +40,7 @@ from view_neti_tpu_torch.ops.norm import GroupNorm, LayerNorm
 from view_neti_tpu_torch.schedulers.ddpm import DDPMSchedule
 from view_neti_tpu_torch.training.text_forward import TextModels
 from view_neti_tpu_torch.utils.device import resolve_device
+from view_neti_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -251,7 +252,17 @@ def build_models(cfg: RunConfig, tokenizer,
                  device=None) -> BuiltModels:
     """Build the serving stack for a learnable mode (0/1/2/3/4/5) on
     `device` (None: the card, raising if there is none), with weights drawn
-    from a torch.Generator seeded with cfg.seed."""
+    from a torch.Generator seeded with cfg.seed; a "setup.build_models"
+    span (utils/profiling.span)."""
+    with span("setup.build_models"):
+        return _build_models(cfg, tokenizer, placeholder_view_tokens,
+                             placeholder_object_tokens, arch, compute_dtype,
+                             calibration_dir, device)
+
+
+def _build_models(cfg, tokenizer, placeholder_view_tokens,
+                  placeholder_object_tokens, arch, compute_dtype,
+                  calibration_dir, device) -> BuiltModels:
     device = resolve_device(device)
     mode = cfg.learnable_mode
     arch = arch or resolve_arch(cfg.model.pretrained_model_name_or_path,

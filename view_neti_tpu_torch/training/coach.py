@@ -81,7 +81,11 @@ What it runs, as the JAX Coach runs it:
   * with VIEW_NETI_TRACE_DIR set, the train loop, from the first batch to
     the last window's metrics, runs under torch.profiler
     (utils/profiling.trace), which writes one trace file a process into
-    that directory before the final checkpoint, or when the loop raises.
+    that directory before the final checkpoint, or when the loop raises;
+  * the loop records spans (utils/profiling.span): coach.loop around it,
+    coach.window a dispatch window, coach.feed a step's batch copy and
+    draws, coach.step its window_step call, coach.stage, coach.log,
+    coach.save and coach.validate; setup.cache_fill the cache's fill.
 
 Not ported: the XLA cost hook (TPU tooling) and the orbax format
 (train_state.py writes the port's own).
@@ -124,7 +128,8 @@ from view_neti_tpu_torch.training.train_step import (TrainBatch,
 from view_neti_tpu_torch.utils.device import resolve_device
 from view_neti_tpu_torch.utils.graphs import Graphed
 from view_neti_tpu_torch.utils.misc import fixseed
-from view_neti_tpu_torch.utils.profiling import StepTimer, trace
+from view_neti_tpu_torch.utils.profiling import (SpanRecord, StepTimer,
+                                                 span, trace)
 from view_neti_tpu_torch.utils.vis import downsample_image, get_image_grid
 
 _MASK64 = (1 << 64) - 1
@@ -346,15 +351,23 @@ class Coach:
         seed = cfg.optim.seed if cfg.optim.seed is not None else cfg.seed
         self._base_seed = int(seed)
         self._generator = torch.Generator(self.device)
-        # what the loop measured: the host clock after each micro-step's
-        # launch (a window's k-micro-batch group launches at once),
-        # the end of the loop (after the last step's loss was read), the
-        # logged losses and the cache fill's seconds
-        self.step_marks = []
-        self.loop_end_s = None
+        # what the loop recorded: the logged losses, and the spans of the
+        # last train loop (its coach.step spans lie inside it) and of the
+        # cache fill
         self.losses = []
-        self.cache_fill_s = None
+        self.loop_span: Optional[SpanRecord] = None
+        self.cache_fill_span: Optional[SpanRecord] = None
         self._maybe_resume()
+
+    @property
+    def loop_end_s(self) -> Optional[float]:
+        """The end of the last train loop (after its last loss was read),
+        on the perf_counter clock."""
+        return self.loop_span and self.loop_span.end_ns * 1e-9
+
+    @property
+    def cache_fill_s(self) -> Optional[float]:
+        return self.cache_fill_span and self.cache_fill_span.seconds
 
     # ------------------------------------------------------------------
     def _init_dataset(self, calibration_dir) -> TextualInversionDataset:
@@ -515,13 +528,15 @@ class Coach:
         # set (utils/profiling.py). Unlike the JAX Coach's, the trace is
         # closed when the loop raises too: an open profiler would break
         # every later one in the process.
-        with trace(os.environ.get("VIEW_NETI_TRACE_DIR")):
+        with trace(os.environ.get("VIEW_NETI_TRACE_DIR")), \
+                span("coach.loop") as loop:
             batches = stream()
             while self.global_step < cfg.optim.max_train_steps:
                 # a window holds whole k-micro-batch groups: one optimizer
                 # step with steps_per_dispatch 1
                 w = max(self._dispatch_window(), k)
-                losses = self._run_window(w, batches, micro_step)
+                with span("coach.window"):
+                    losses = self._run_window(w, batches, micro_step)
                 micro_step += w
                 timer.tick()
                 self.global_step += w // k
@@ -530,21 +545,27 @@ class Coach:
                 pending = (self.global_step, self._stage(losses),
                            self.micro_batch_size * w)
                 if prev is not None:
-                    last_loss = self._log_step_metrics(prev, timer)
+                    with span("coach.log"):
+                        last_loss = self._log_step_metrics(prev, timer)
                 self.logger.update_step(self.global_step)
                 if self.global_step % cfg.log.save_steps == 0:
-                    self._save(f"learned_embeds-steps-{self.global_step}"
-                               ".msgpack",
-                               f"mapper-steps-{self.global_step}.msgpack")
+                    with span("coach.save"):
+                        self._save(
+                            f"learned_embeds-steps-{self.global_step}"
+                            ".msgpack",
+                            f"mapper-steps-{self.global_step}.msgpack")
                 if self._should_eval() and self.validator is not None:
-                    self._validate()
+                    with span("coach.validate"):
+                        self._validate()
             if pending is not None:
-                last_loss = self._log_step_metrics(pending, timer)
-        self.loop_end_s = time.perf_counter()
+                with span("coach.log"):
+                    last_loss = self._log_step_metrics(pending, timer)
+        self.loop_span = loop.record
         self.last_step_timer = timer
         if isinstance(loader, PrefetchLoader):
             loader.close()
-        self._save("learned_embeds-final.msgpack", "mapper-final.msgpack")
+        with span("coach.save"):
+            self._save("learned_embeds-final.msgpack", "mapper-final.msgpack")
         wall = time.time() - t0
         self.logger.log_message(
             f"training done: {self.global_step} steps in {wall:.1f}s")
@@ -581,10 +602,12 @@ class Coach:
             self._window_sizes.add(w)
         k, losses = self.accum_k, []
         for m in range(micro_step, micro_step + w, k):
-            group = [self._to_device(next(batches)) for _ in range(k)]
-            draws = [self._step_draws(m + i, b) for i, b in enumerate(group)]
-            losses.append(self.window_step(group, draws))
-            self.step_marks += [time.perf_counter()] * k
+            with span("coach.feed"):
+                group = [self._to_device(next(batches)) for _ in range(k)]
+                draws = [self._step_draws(m + i, b)
+                         for i, b in enumerate(group)]
+            with span("coach.step"):
+                losses.append(self.window_step(group, draws))
         return torch.stack(losses)
 
     def _should_eval(self) -> bool:
@@ -674,10 +697,12 @@ class Coach:
         CPU."""
         if loss.device.type != "cuda":
             return loss, None
-        host = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
-        host.copy_(loss, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("coach.stage"):
+            host = torch.empty(loss.shape, dtype=loss.dtype,
+                               pin_memory=True)
+            host.copy_(loss, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return host, done
 
     def _log_step_metrics(self, pending, timer) -> float:
@@ -774,12 +799,12 @@ class Coach:
         by index."""
         if self.built.pixel_cache is not None:
             return
-        t0 = time.perf_counter()
         ds = self.train_dataset
-        bases = np.stack([ds._load_base(Path(p))
-                          for p in ds.image_paths_flattened])
-        self.built.pixel_cache = torch.from_numpy(bases).to(self.device)
-        self.cache_fill_s = time.perf_counter() - t0
+        with span("setup.cache_fill") as fill:
+            bases = np.stack([ds._load_base(Path(p))
+                              for p in ds.image_paths_flattened])
+            self.built.pixel_cache = torch.from_numpy(bases).to(self.device)
+        self.cache_fill_span = fill.record
         self.logger.log_message(
             f"device base-image cache: {bases.shape[0]} images "
             f"({bases.nbytes / 1e6:.0f} MB uint8) in "
@@ -788,17 +813,17 @@ class Coach:
     @torch.no_grad()
     def _fill_latent_cache(self) -> None:
         """Every image's VAE posterior moments (fp32), encoded once."""
-        t0 = time.perf_counter()
         ds = self.train_dataset
         chunks = []
-        for start in range(0, ds.num_images, 8):
-            pix = np.stack([ds[i]["pixel_values"]
-                            for i in range(start,
-                                           min(start + 8, ds.num_images))])
-            x = torch.from_numpy(pix).to(self.device, self.compute_dtype)
-            chunks.append(self.built.vae.moments(x).float())
-        self.built.pixel_cache = torch.cat(chunks)
-        self.cache_fill_s = time.perf_counter() - t0
+        with span("setup.cache_fill") as fill:
+            for start in range(0, ds.num_images, 8):
+                pix = np.stack([ds[i]["pixel_values"]
+                                for i in range(start, min(start + 8,
+                                                          ds.num_images))])
+                x = torch.from_numpy(pix).to(self.device, self.compute_dtype)
+                chunks.append(self.built.vae.moments(x).float())
+            self.built.pixel_cache = torch.cat(chunks)
+        self.cache_fill_span = fill.record
         self.logger.log_message(
             f"latent cache: {self.built.pixel_cache.shape[0]} images -> "
             f"moments {tuple(self.built.pixel_cache.shape[1:])}")

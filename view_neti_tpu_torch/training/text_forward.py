@@ -16,6 +16,11 @@ Under data parallelism a rank's rows may hold part of a group or straddle
 two; parallel/dist.py (shard_object_idx, shard_draws) hands the rank equal
 groups again (its runs inside each group, or one group per row), so every
 row is still conditioned on its own group's object mapper.
+
+Its spans (utils/profiling.span), "prompt.mappers" around the mappers and
+"prompt.text_encoder" around the CLIP pass, split a conditioning call's
+host time; inside the train step's CUDA graph they run at the warm-up and
+the capture only.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from view_neti_tpu_torch.models.clip_text import NeTICLIPTextEncoder
 from view_neti_tpu_torch.models.neti_mapper import (NestedDropoutDraws,
                                                     NeTIMapper,
                                                     lookup_view_rows)
+from view_neti_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -112,24 +118,27 @@ def _conditioning(models, input_ids, ph_obj_ids, ph_view_ids, timesteps,
     ph_view_k = _tile(ph_view_ids, K)
 
     kwargs = dict(ph_obj_ids=ph_obj_k, ph_view_ids=ph_view_k)
-    if models.obj_mappers:
-        out, word, bypass = _object_pass(models, object_idx, t_k, l_k, K, B,
-                                         truncation_idx, draws.get("object"))
-        kwargs.update(word_obj=word, bypass_obj=bypass,
-                      alpha_obj=out.output_bypass_alpha,
-                      unconstrained_obj=out.bypass_unconstrained)
-    if models.view_mapper is not None:
-        rows = lookup_view_rows(ph_view_k, models.view_table_ids)
-        out = models.view_mapper(
-            t_k, l_k, view_params=models.view_table_params[rows],
-            view_rows=rows, truncation_idx=truncation_idx,
-            norm_scale=models.view_norm_scale, dropout=draws.get("view"))
-        kwargs.update(word_view=out.word_embedding,
-                      bypass_view=out.bypass_output,
-                      alpha_view=out.output_bypass_alpha,
-                      unconstrained_view=out.bypass_unconstrained)
+    with span("prompt.mappers"):
+        if models.obj_mappers:
+            out, word, bypass = _object_pass(models, object_idx, t_k, l_k,
+                                             K, B, truncation_idx,
+                                             draws.get("object"))
+            kwargs.update(word_obj=word, bypass_obj=bypass,
+                          alpha_obj=out.output_bypass_alpha,
+                          unconstrained_obj=out.bypass_unconstrained)
+        if models.view_mapper is not None:
+            rows = lookup_view_rows(ph_view_k, models.view_table_ids)
+            out = models.view_mapper(
+                t_k, l_k, view_params=models.view_table_params[rows],
+                view_rows=rows, truncation_idx=truncation_idx,
+                norm_scale=models.view_norm_scale, dropout=draws.get("view"))
+            kwargs.update(word_view=out.word_embedding,
+                          bypass_view=out.bypass_output,
+                          alpha_view=out.output_bypass_alpha,
+                          unconstrained_view=out.bypass_unconstrained)
 
-    hidden, hidden_bypass, _, _ = models.clip(ids_k, **kwargs)
+    with span("prompt.text_encoder"):
+        hidden, hidden_bypass, _, _ = models.clip(ids_k, **kwargs)
     D = hidden.shape[-1]
     ctx = hidden.reshape(K, B, L, D)
     ctx_b = (hidden_bypass.reshape(K, B, L, D)

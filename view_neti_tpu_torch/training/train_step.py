@@ -162,9 +162,7 @@ def encode_latents(models, batch: TrainBatch, draws: StepDraws,
                    * models.vae.config.scaling_factor)
     else:
         if augment is not None:
-            # a named range, so that a profile can group its kernels
-            with torch.profiler.record_function("device_augment"):
-                pixels = augment_batch(augment, draws.augment, pixels)
+            pixels = augment_batch(augment, draws.augment, pixels)
         latents = models.vae.encode_sample(pixels.to(compute_dtype),
                                            draws.vae_eps)
     return latents.float()

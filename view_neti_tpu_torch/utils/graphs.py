@@ -25,6 +25,10 @@ ops/fused_conv.py) count where a kernel is launched, each also by design
 (launch_counts). A capture launches nothing, so the counts
 it adds are taken back and kept as the graph's record of its launches, and
 every replay adds that record.
+
+Spans (utils/profiling.span), labelled with the Graphed's name: a first
+call's eager run is "graph.warmup", a capture "graph.capture", and a
+replayed call's copy-in, replay and clone-out "graph.replay".
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from view_neti_tpu_torch.utils.profiling import span
+
 
 class CaptureError(RuntimeError):
     """A CUDA graph's capture or replay failed."""
@@ -85,23 +92,26 @@ def flatten(obj) -> Tuple[List[torch.Tensor], Any]:
     tensor replaced by its slot): dataclasses, dicts, lists and tuples are
     walked, anything else is a plain value kept in the structure."""
     tensors: List[torch.Tensor] = []
+    return tensors, _walk(obj, tensors)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            tensors.append(x)
-            return ("T", len(tensors) - 1)
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            return ("D", type(x), tuple(
-                (f.name, walk(getattr(x, f.name)))
-                for f in dataclasses.fields(x)))
-        if isinstance(x, dict):
-            return ("M", tuple((k, walk(v)) for k, v in x.items()))
-        if isinstance(x, (list, tuple)):
-            return ("L" if isinstance(x, list) else "U",
-                    tuple(walk(v) for v in x))
-        return ("V", x)
 
-    return tensors, walk(obj)
+def _walk(x, tensors: List[torch.Tensor]):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep `tensors` alive until the
+    # interpreter's cyclic collector ran, and device memory with them
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+        return ("T", len(tensors) - 1)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return ("D", type(x), tuple(
+            (f.name, _walk(getattr(x, f.name), tensors))
+            for f in dataclasses.fields(x)))
+    if isinstance(x, dict):
+        return ("M", tuple((k, _walk(v, tensors)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return ("L" if isinstance(x, list) else "U",
+                tuple(_walk(v, tensors) for v in x))
+    return ("V", x)
 
 
 def unflatten(tree, tensors: List[torch.Tensor]):
@@ -184,16 +194,20 @@ class Graphed:
         if cap is None:
             if key not in self._warm:
                 self._warm.add(key)
-                return self._warm_up(tensors, tree)
+                with span("graph.warmup", self.name):
+                    return self._warm_up(tensors, tree)
             if self.captures and self.log is not None:
                 shapes = ", ".join(str(tuple(t.shape)) for t in tensors[:2])
                 self.log(f"{self.name}: capturing an additional CUDA graph "
                          f"for inputs {shapes} (a ragged or new shape)")
-            cap = self.captures[key] = self._capture(tensors, tree)
-        for static, t in zip(cap.static_args, tensors):
-            static.copy_(t)
-        self.replay(cap)
-        return unflatten(cap.out_tree, [t.clone() for t in cap.out_tensors])
+            with span("graph.capture", self.name):
+                cap = self.captures[key] = self._capture(tensors, tree)
+        with span("graph.replay", self.name):
+            for static, t in zip(cap.static_args, tensors):
+                static.copy_(t)
+            self.replay(cap)
+            return unflatten(cap.out_tree,
+                             [t.clone() for t in cap.out_tensors])
 
     def replay(self, cap: Capture) -> None:
         """Replay a capture and count its launches."""

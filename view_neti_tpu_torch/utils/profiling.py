@@ -1,5 +1,4 @@
-"""Tracing and step timing for the train loop
-(view_neti_tpu/utils/profiling.py).
+"""Tracing, spans and step timing (view_neti_tpu/utils/profiling.py).
 
 `trace(logdir)` profiles the code it encloses with torch.profiler: the
 host's ops, and the card's kernels and copies when the process uses a card.
@@ -13,8 +12,19 @@ ranks never write the same file. Open it in Perfetto or chrome://tracing,
 or with TensorBoard's PyTorch profiler plugin (`tensorboard --logdir
 <logdir>`). The JAX package writes XProf's plugins/profile/*/*.xplane.pb
 there instead. torch.profiler does not nest: `trace` raises where a
-profiler is already open. `annotate(name)` marks a host-side region, which
-shows on the trace's timeline under that name.
+profiler is already open.
+
+`span(name, label=None)` marks a region of the program at one of its layer
+boundaries (the Coach's loop, the conditioning, the CUDA graphs, set-up):
+it records (name, label, start_ns, end_ns, depth, thread) on
+time.perf_counter_ns() into a buffer in the process that keeps the newest
+MAX_SPANS, always, at 1-2 us a span on the host; `spans()` reads the
+buffer and `clear()` empties it. While `trace(logdir)` is open, a span also
+opens a record_function range of its name, so that it shows on the trace's
+timeline; under any other profiler it does not, since a range that
+launches kernels shows on the device's timeline as an annotation over
+their whole extent. A span inside a function that a CUDA graph captures
+runs at the warm-up and the capture, never at a replay.
 
 `StepTimer` is a cheap steady-state step-time estimate: an EMA of the
 intervals between ticks that skips the first ticks and rejects stalls (a
@@ -22,13 +32,94 @@ save, a cache fill) of more than 5x the EMA, counting them.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import socket
+import threading
 import time
-from typing import Iterator, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
 import torch
+
+MAX_SPANS = 1 << 16
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: times on time.perf_counter_ns(); depth counts
+    the spans open around it on its thread."""
+    name: str
+    label: Optional[str]
+    start_ns: int
+    end_ns: int
+    depth: int
+    thread: int
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+# the finished spans as plain tuples (SpanRecord's fields), newest last
+_SPANS: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_DEPTH = threading.local()
+# True while trace() is open: spans then open record_function ranges
+_TRACING = False
+_now = time.perf_counter_ns
+_thread = threading.get_ident
+
+
+class span:
+    """Record the enclosed region as a span (module docstring); after the
+    block, `record` is its SpanRecord."""
+
+    __slots__ = ("name", "label", "_t0", "_depth", "_range", "_done")
+
+    def __init__(self, name: str, label: Optional[str] = None):
+        self.name = name
+        self.label = label
+        self._done = None
+
+    def __enter__(self) -> "span":
+        depth = getattr(_DEPTH, "n", 0)
+        _DEPTH.n = depth + 1
+        self._depth = depth
+        self._range = None
+        if _TRACING:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = _now()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = _now()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _DEPTH.n = self._depth
+        self._done = (self.name, self.label, self._t0, t1, self._depth,
+                      _thread())
+        _SPANS.append(self._done)
+        return False
+
+    @property
+    def record(self) -> Optional[SpanRecord]:
+        return SpanRecord(*self._done) if self._done is not None else None
+
+
+def spans() -> List[SpanRecord]:
+    """The recorded spans, oldest first (the newest MAX_SPANS)."""
+    return [SpanRecord(*t) for t in list(_SPANS)]
+
+
+def within(outer: SpanRecord, name: str) -> List[SpanRecord]:
+    """The recorded spans of that name inside `outer`, on its thread."""
+    return [s for s in spans()
+            if s.name == name and s.thread == outer.thread
+            and outer.start_ns <= s.start_ns and s.end_ns <= outer.end_ns]
+
+
+def clear() -> None:
+    _SPANS.clear()
 
 
 def _worker_name() -> str:
@@ -56,15 +147,15 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
+    global _TRACING
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(
                      str(logdir), worker_name=_worker_name())):
-        yield
-
-
-def annotate(name: str):
-    """A named host-side region on the trace's timeline."""
-    return torch.profiler.record_function(name)
+        _TRACING = True
+        try:
+            yield
+        finally:
+            _TRACING = False
 
 
 class StepTimer:
