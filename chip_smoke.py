@@ -604,8 +604,9 @@ def check_wgmma_pipelined(logs):
 
 def launch_counts(reset: bool = False):
     """Each kernel wrapper's launch count, {"K1": n, ...}, and each one's by
-    design ("K1 sm90", "K1 mma_sync", ..., "K4 mma_sync"), graph replays
-    included (utils/graphs.py); reset sets them all to 0 first."""
+    design ("K1 sm90", "K1 mma_sync", ..., "K4 mma_sync"; K5 has one
+    design), graph replays included (utils/graphs.py); reset sets them all
+    to 0 first."""
     from view_neti_tpu_torch.utils.graphs import launch_counts as counts
     return counts(reset)
 
@@ -758,8 +759,30 @@ def conv_split_by_path(shapes, design):
     return out
 
 
+# K5's launches (GroupNorm, ops/norm.py: one a forward, a fold or a
+# backward): a UNet forward runs 61 GroupNorms (unet_norm_sites; SD-1.5's
+# and SD-2.1's blocks alike), a train step's backward passes through 58 of
+# them (the first down block's first ResNet and its Transformer2D see no
+# gradient), a VAE encode runs 22 and a decode 30 (a fold before each of
+# K4's 21 and 29 sections, and the mid block's attention norm)
+K5_SITES = {"forward": 61, "backward": 58, "encode": 22, "decode": 30}
+# the first kernel of each K5 launch (csrc/group_norm.cu)
+K5_FIRST_KERNELS = ("group_norm_stats_kernel", "group_norm_bwd_reduce_kernel")
+
+
+def k5(forwards: int = 0, backwards: int = 0, encodes: int = 0,
+       decodes: int = 0):
+    """K5's launches in `forwards` UNet forwards, `backwards` train-step
+    backwards, `encodes` VAE encodes and `decodes` decodes as
+    launch_counts keys them (K5_SITES of each)."""
+    n = dict(forward=forwards, backward=backwards, encode=encodes,
+             decode=decodes)
+    return {"K5": sum(K5_SITES[k] * v for k, v in n.items())}
+
+
 # an SD-1.5 train step's launches
-SD15_STEP = {**unet_k1(1), **unet_bwd(1), **k4(encodes=1)}
+SD15_STEP = {**unet_k1(1), **unet_bwd(1), **k4(encodes=1),
+             **k5(1, 1, encodes=1)}
 
 
 def device_profile(torch, fn, ranges=()):
@@ -1163,64 +1186,66 @@ def attention_rows(torch, F, fa, shape, g, dev,
     return rows
 
 
-def vae_k4_shapes():
-    """Every norm->SiLU->conv3x3 section of the VAE decoder (29 per decode)
-    and of its encoder (21 per train step): (B, H, W, Cin, Cout,
-    epilogue, {path: launches per run}). conv1 of each ResNet block has no
-    epilogue, conv2 adds the residual (" +res"). Decodes: serving B = 3
-    from 72x96 latents (the fused-UNet serving path's too), and the
-    acceptance phase's sweep (3 seeds) once a camera; the DTU sweep
-    B = 2 (one camera's seeds) from 72x96, once a camera; the object
-    renders B = 2 from 64x64. The encoder: B = 9 at 384x512, in the train
-    step and in the validate and acceptance phases' Coach steps. SD-2.1's
-    VAE is SD-1.5's, so the mode3 phase runs the same shapes: its train
-    steps, a decode per camera of its sweeps and one per token's render. The folders phase
-    encodes B = 9 at 512x512 every step and decodes its renders at the
-    render shapes. A tp rank decodes its render at the serving shapes and
-    encodes TP_WARM + TP_STEPS train steps."""
-    def decoder(D, h, w, per):
-        return [(D, h * s, w * s, ci, co, epi, per(n))
-                for s, ci, co, epi, n
-                in ((1, 512, 512, "", 5), (1, 512, 512, " +res", 5),
+# the VAE's norm -> SiLU -> conv3x3 sections (scale below the decoder's
+# latents or the encoder's image, Cin, Cout, epilogue, count): conv1 of
+# each ResNet block has no epilogue, conv2 adds the residual (" +res")
+DECODER_SECTIONS = ((1, 512, 512, "", 5), (1, 512, 512, " +res", 5),
                     (2, 512, 512, "", 3), (2, 512, 512, " +res", 3),
                     (4, 512, 256, "", 1), (4, 256, 256, "", 2),
                     (4, 256, 256, " +res", 3), (8, 256, 128, "", 1),
                     (8, 128, 128, "", 2), (8, 128, 128, " +res", 3),
-                    (8, 128, 3, "", 1))]
-
-    E = TRAIN_BATCH
-    m3_steps = 2 * (M3_WARM + M3_STEPS)
-    folders_steps = 2 * (FOLDERS_WARM + FOLDERS_STEPS)
-
-    def train(n):
-        return {"train": n, "validate": n * VAL_TRAIN_STEPS,
-                "mode3": n * m3_steps, "acceptance": n * ACC_STEPS,
-                "tp": n * (TP_WARM + TP_STEPS)}
-
-    def folders(n):
-        return {"folders": n * folders_steps}
-
-    def encoder(h, w, per):
-        return [(E, h // s, w // s, ci, co, epi, per(n))
-                for s, ci, co, epi, n
-                in ((1, 128, 128, "", 2), (1, 128, 128, " +res", 2),
+                    (8, 128, 3, "", 1))
+ENCODER_SECTIONS = ((1, 128, 128, "", 2), (1, 128, 128, " +res", 2),
                     (2, 128, 256, "", 1), (2, 256, 256, "", 1),
                     (2, 256, 256, " +res", 2), (4, 256, 512, "", 1),
                     (4, 512, 512, "", 1), (4, 512, 512, " +res", 2),
                     (8, 512, 512, "", 4), (8, 512, 512, " +res", 4),
-                    (8, 512, 8, "", 1))]
+                    (8, 512, 8, "", 1))
 
-    return (decoder(BATCH // 2, 72, 96, lambda n: {
-                "serve": n, "serve_fused_unet": n,
-                "acceptance": n * EVAL_CAMS, "tp": n})
-            + decoder(len(VAL_SEEDS), 72, 96, lambda n: {
-                "validate": n * EVAL_CAMS, "inference": n * INFER_CAMS,
-                "mode3": n * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)})
-            + decoder(len(VAL_SEEDS), 64, 64, lambda n: {
-                "validate": n, "mode3": n * M3_TOKENS,
-                "folders": n * FOLDERS_RENDERS})
-            + encoder(TRAIN_HEIGHT, TRAIN_WIDTH, train)
-            + encoder(FOLDERS_SIZE, FOLDERS_SIZE, folders))
+
+def vae_codecs():
+    """The VAE's decodes and encodes on the paths: ("decode", B, latent
+    h, w, {path: decodes per run}) and ("encode", B, image H, W, {path:
+    encodes per run}). Decodes: serving B = 3 from 72x96 latents (the
+    fused-UNet serving path's too), and the acceptance phase's sweep (3
+    seeds) once a camera; the DTU sweep B = 2 (one camera's seeds) from
+    72x96, once a camera; the object renders B = 2 from 64x64. The
+    encoder: B = 9 at 384x512, in the train step and in the validate and
+    acceptance phases' Coach steps. SD-2.1's VAE is SD-1.5's, so the mode3
+    phase runs the same shapes: its train steps, a decode per camera of its
+    sweeps and one per token's render. The folders phase encodes B = 9 at
+    512x512 every step and decodes its renders at the render shapes. A tp
+    rank decodes its render at the serving shapes and encodes TP_WARM +
+    TP_STEPS train steps."""
+    m3_steps = 2 * (M3_WARM + M3_STEPS)
+    return [
+        ("decode", BATCH // 2, 72, 96, {
+            "serve": 1, "serve_fused_unet": 1, "acceptance": EVAL_CAMS,
+            "tp": 1}),
+        ("decode", len(VAL_SEEDS), 72, 96, {
+            "validate": EVAL_CAMS, "inference": INFER_CAMS,
+            "mode3": M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)}),
+        ("decode", len(VAL_SEEDS), 64, 64, {
+            "validate": 1, "mode3": M3_TOKENS, "folders": FOLDERS_RENDERS}),
+        ("encode", TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, {
+            "train": 1, "validate": VAL_TRAIN_STEPS, "mode3": m3_steps,
+            "acceptance": ACC_STEPS, "tp": TP_WARM + TP_STEPS}),
+        ("encode", TRAIN_BATCH, FOLDERS_SIZE, FOLDERS_SIZE, {
+            "folders": 2 * (FOLDERS_WARM + FOLDERS_STEPS)})]
+
+
+def vae_k4_shapes():
+    """Every norm->SiLU->conv3x3 section of the VAE decoder (29 per decode)
+    and of its encoder (21 per encode) on the paths (vae_codecs): (B, H,
+    W, Cin, Cout, epilogue, {path: launches per run})."""
+    out = []
+    for what, B, h, w, per in vae_codecs():
+        for s, ci, co, epi, n in (DECODER_SECTIONS if what == "decode"
+                                  else ENCODER_SECTIONS):
+            H, W = (h * s, w * s) if what == "decode" else (h // s, w // s)
+            out.append((B, H, W, ci, co, epi,
+                        {p: n * k for p, k in per.items()}))
+    return out
 
 
 def unet_k4_shapes(serve_steps: int = SERVE_STEPS):
@@ -1252,6 +1277,315 @@ def k4_shapes(serve_steps: int = SERVE_STEPS):
     """K4's shapes on every path: the VAE's (vae_k4_shapes), then the
     fused UNet's (unet_k4_shapes)."""
     return vae_k4_shapes() + unet_k4_shapes(serve_steps)
+
+
+UNET_LEVELS = (320, 640, 1280, 1280)  # SD-1.5's and SD-2.1's channels
+
+
+def unet_norm_sites(h: int, w: int):
+    """Every GroupNorm of a UNet forward at h x w latents, in order (61):
+    (H, W, C, kind, eps, backward, resnet). kind "silu" for the ResNet
+    norms and conv_norm_out (eps 1e-5, the SiLU after them), "norm" for
+    the Transformer2D norms (eps 1e-6); backward whether a train step's
+    backward passes through it (all but the first down block's first
+    ResNet and Transformer2D: their inputs need no gradient); resnet
+    whether it is a ResNet norm, a fold feeding K4 in the fused UNet. The
+    up blocks' first norms read the skip concatenations."""
+    sites, skips, c, grad = [], [UNET_LEVELS[0]], UNET_LEVELS[0], False
+
+    def resnet(H, W, cin, co):
+        sites.extend([(H, W, cin, "silu", 1e-5, grad, True),
+                      (H, W, co, "silu", 1e-5, grad, True)])
+
+    def transformer(H, W):
+        sites.append((H, W, c, "norm", 1e-6, grad, False))
+
+    for lvl, co in enumerate(UNET_LEVELS):
+        H, W = h >> lvl, w >> lvl
+        for _ in range(2):
+            resnet(H, W, c, co)
+            c = co
+            if lvl < 3:
+                transformer(H, W)
+                grad = True
+            skips.append(c)
+        if lvl < 3:
+            skips.append(c)             # the downsampler's output
+    H, W = h >> 3, w >> 3
+    resnet(H, W, c, c)
+    transformer(H, W)
+    resnet(H, W, c, c)
+    for lvl in (3, 2, 1, 0):
+        H, W = h >> lvl, w >> lvl
+        for _ in range(3):
+            resnet(H, W, c + skips.pop(), UNET_LEVELS[lvl])
+            c = UNET_LEVELS[lvl]
+            if lvl < 3:
+                transformer(H, W)
+    sites.append((h, w, c, "silu", 1e-5, grad, False))   # conv_norm_out
+    return sites
+
+
+def vae_norm_sites(what: str, h: int, w: int):
+    """Every GroupNorm of a VAE decode from h x w latents (30) or of an
+    encode of an h x w image (22), all eps 1e-6: (H, W, C, kind) -- a
+    "fold" before each of K4's sections (DECODER_SECTIONS,
+    ENCODER_SECTIONS) and the mid block's attention "norm" (512 channels
+    at the latents' size)."""
+    dec = what == "decode"
+    sites = [((h * s, w * s) if dec else (h // s, w // s)) + (ci, "fold")
+             for s, ci, _, _, n in (DECODER_SECTIONS if dec
+                                    else ENCODER_SECTIONS)
+             for _ in range(n)]
+    return sites + [((h, w) if dec else (h // 8, w // 8)) + (512, "norm")]
+
+
+def unet_runs(serve_steps: int = SERVE_STEPS):
+    """The UNet's forwards on the paths, as attention_shapes' kinds: (B,
+    h, w, fused, {path: forwards per run}, {path: train-step backwards
+    per run}); fused: the fused-UNet serving path, whose ResNet norms are
+    folds feeding K4."""
+    train = {"train": 1, "validate": VAL_TRAIN_STEPS, "acceptance": ACC_STEPS,
+             "mode3": 2 * (M3_WARM + M3_STEPS), "tp": TP_WARM + TP_STEPS}
+    folders = {"folders": 2 * (FOLDERS_WARM + FOLDERS_STEPS)}
+    return [
+        (BATCH, 72, 96, False, {"serve": serve_steps,
+                                "acceptance": ACC_DENOISE * EVAL_CAMS,
+                                "tp": TP_DENOISE}, {}),
+        (BATCH, 72, 96, True, {"serve_fused_unet": serve_steps}, {}),
+        (SWEEP_BATCH, 72, 96, False, {
+            "validate": VAL_DENOISE * EVAL_CAMS,
+            "inference": VAL_DENOISE * INFER_CAMS, "weights": 2,
+            "mode3": VAL_DENOISE * M3_TOKENS * (M3_SWEEP_CAMS + INFER_CAMS)},
+         {}),
+        (SWEEP_BATCH, 64, 64, False, {
+            "validate": VAL_DENOISE, "folders": VAL_DENOISE * FOLDERS_RENDERS,
+            "mode3": VAL_DENOISE * M3_TOKENS}, {}),
+        (TRAIN_BATCH, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8, False, train,
+         train),
+        (TRAIN_BATCH, FOLDERS_SIZE // 8, FOLDERS_SIZE // 8, False, folders,
+         folders)]
+
+
+def k5_shapes(serve_steps: int = SERVE_STEPS):
+    """K5's shapes on every path, each GroupNorm as the path runs it:
+    dict(B, H, W, C, kind, eps, per_run={path: launches per run}), kind
+    "silu" (the normalize and its SiLU), "norm", "fold" (the affine K4
+    reads), "backward silu" or "backward norm"; the UNet's forwards and
+    train-step backwards (unet_runs, unet_norm_sites) and the VAE's
+    decodes and encodes (vae_codecs, vae_norm_sites), equal shapes
+    merged."""
+    rows = {}
+
+    def add(B, H, W, C, kind, eps, per):
+        row = rows.setdefault((B, H, W, C, kind, eps), {})
+        for p, n in per.items():
+            row[p] = row.get(p, 0) + n
+
+    for B, h, w, fused, fwd, bwd in unet_runs(serve_steps):
+        for H, W, C, kind, eps, grad, resnet in unet_norm_sites(h, w):
+            add(B, H, W, C, "fold" if fused and resnet else kind, eps, fwd)
+            if grad and bwd:
+                add(B, H, W, C, f"backward {kind}", eps, bwd)
+    for what, B, h, w, per in vae_codecs():
+        for H, W, C, kind in vae_norm_sites(what, h, w):
+            add(B, H, W, C, kind, 1e-6, per)
+    return [dict(B=B, H=H, W=W, C=C, kind=kind, eps=eps, per_run=per)
+            for (B, H, W, C, kind, eps), per in rows.items()]
+
+
+def path_k5(serve_steps: int = SERVE_STEPS):
+    """Each path's K5 launches in one run: its UNet forwards and
+    backwards (unet_runs) and its VAE encodes and decodes (vae_codecs)."""
+    n = {}
+    for _, _, _, _, fwd, bwd in unet_runs(serve_steps):
+        for key, per in (("forwards", fwd), ("backwards", bwd)):
+            for p, k in per.items():
+                n.setdefault(p, {})
+                n[p][key] = n[p].get(key, 0) + k
+    for what, _, _, _, per in vae_codecs():
+        for p, k in per.items():
+            n.setdefault(p, {})
+            n[p][what + "s"] = n[p].get(what + "s", 0) + k
+    return {p: k5(**c) for p, c in n.items()}
+
+
+def k5_split_by_path(shapes):
+    """K5's launches on each path of k5_shapes' rows: {path:
+    launch_counts-style counts}. Every path must give path_k5()[path]
+    (phase_kernels checks)."""
+    out = {}
+    for row in shapes:
+        for p, n in row["per_run"].items():
+            out.setdefault(p, {"K5": 0})["K5"] += n
+    return out
+
+
+# K5's bytes an element of the activation, in units of its size: a fold
+# reads it once, a forward twice and writes once, a backward reads the
+# gradient and x twice each and writes dx
+K5_PASSES = {"fold": 1, "norm": 3, "silu": 3, "backward norm": 5,
+             "backward silu": 5}
+# K5's fp32 affine against the plain fold's: relative and absolute (the
+# sums run in another order); its normalize bit for bit the plain one's on
+# its own affine (half an ulp); its dx within two ulps at the scale of
+# autograd of the plain chain's, dgamma and dbeta within 1e-4 of their
+# scale and relative
+K5_AFFINE_TOL = 2e-5
+K5_PARAM_GRAD_TOL = 1e-4
+
+
+def k5_input(torch, B, H, W, C, g, dev):
+    """A bf16 activation with a mean of its own in each channel and a ramp
+    along the pixels, so that a lost chunk of pixels or a channel read in
+    the wrong group moves the statistics."""
+    P = H * W
+    x = torch.randn(B, P, C, generator=g, device=dev) * 2
+    x += torch.randn(C, generator=g, device=dev)
+    x += torch.linspace(-1, 1, P, device=dev)[None, :, None]
+    return x.reshape(B, H, W, C).bfloat16()
+
+
+def k5_row(torch, tn, shape, g, dev, graphed=False):
+    """K5 at one shape of the paths (k5_shapes), as the path runs it. A
+    fold or a forward: its fp32 affine against the plain fold's
+    (K5_AFFINE_TOL), with two controls the limit has to catch -- the
+    last chunk of norm_plan's pixels left out of the statistics, and each
+    channel read one to the left (a misaligned vector column) -- and a
+    forward's output against the plain normalize on K5's affine, bit for
+    bit. A backward: dx, dgamma and dbeta against autograd of the plain
+    chain, with two controls -- the gradient's last chunk of pixels lost,
+    and the parameter gradients one channel over. Timed eagerly beside the
+    plain chain (a backward: autograd of the plain chain less its
+    forward), in a CUDA graph and on the host where `graphed`; the bound
+    is the activation's bytes (K5_PASSES)."""
+    B, H, W, C, kind, eps = (shape[k] for k in ("B", "H", "W", "C", "kind",
+                                                 "eps"))
+    label = f"B{B} {H}x{W} C{C} {kind}"
+    silu = kind.endswith("silu")
+    P = H * W
+    x = k5_input(torch, B, H, W, C, g, dev)
+    w = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
+    b = 0.2 * torch.randn(C, generator=g, device=dev)
+    _, _, rows, nchunks = tn.norm_plan(B, P, C, tn._vec(C, 2, x))
+    lost = rows if nchunks > 1 else P // 2
+    if kind.startswith("backward"):
+        gy = torch.randn(B, H, W, C, generator=g, device=dev).bfloat16()
+        _, a, ab, stats = tn._forward_kernels(x, 32, w, b, eps, silu,
+                                              apply=False)
+        got = tn._backward_kernels(gy, x, w, a, ab, stats, 32, eps, silu,
+                                   True, True)
+
+        def plain(grad):
+            leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+            y = tn.group_norm_ref(*leaves[:1], 32, *leaves[1:], eps, silu)
+            return torch.autograd.grad(y, leaves, grad)
+
+        want = plain(gy)
+        m = want[0].float().abs().max().item()
+        tols = (2 * 2.0 ** (math.floor(math.log2(m)) - 7),
+                *(K5_PARAM_GRAD_TOL * (r.abs().max() + r.abs())
+                  for r in want[1:]))
+
+        def ratio(grads):
+            return max(of_limit(u, v.float(), t)
+                       for u, v, t in zip(grads, want, tols))
+
+        err = ratio(got)
+        max_err = (got[0].float() - want[0].float()).abs().max().item()
+        cut = gy.reshape(B, P, C).clone()
+        cut[:, P - lost:] = 0
+        controls = dict(chunk=ratio(plain(cut.reshape(gy.shape))),
+                        group=ratio((want[0], *(r.roll(1)
+                                                for r in want[1:]))))
+
+        def run():
+            return tn._backward_kernels(gy, x, w, a, ab, stats, 32, eps,
+                                        silu, True, False)
+
+        xg = x.detach().requires_grad_(True)
+        plain_ms = (time_ms(torch, lambda: torch.autograd.grad(
+            tn.group_norm_ref(xg, 32, w, b, eps, silu), xg, gy), 50.0)
+            - time_ms(torch, lambda: tn.group_norm_ref(x, 32, w, b, eps,
+                                                       silu), 50.0))
+    else:
+        apply = kind != "fold"
+        out, a, ab, _ = tn._forward_kernels(x, 32, w, b, eps, silu, apply)
+        ra, rb = tn.group_norm_fold_ref(x, 32, w, b, eps)
+
+        def ratio(fa, fb):
+            return max(of_limit(fa, ra, K5_AFFINE_TOL * (1 + ra.abs())),
+                       of_limit(fb, rb, K5_AFFINE_TOL * (1 + rb.abs())))
+
+        err = ratio(a, ab)
+        max_err = max((a - ra).abs().max().item(),
+                      (ab - rb).abs().max().item())
+        if apply:
+            ref = tn._apply_ref(x, a, ab, silu).float()
+            err = max(err, of_limit(out, ref, 2.0 ** -9 * ref.abs()
+                                    + 2.0 ** -133))
+            del out, ref
+        controls = dict(
+            chunk=ratio(*tn.group_norm_fold_ref(
+                x.reshape(B, P, C)[:, :P - lost], 32, w, b, eps)),
+            group=ratio(*tn.group_norm_fold_ref(torch.roll(x, 1, -1), 32,
+                                                w, b, eps)))
+        if apply:
+            def run():
+                return tn.group_norm(x, 32, w, b, eps, silu)
+            plain_ms = time_ms(torch, lambda: tn.group_norm_ref(
+                x, 32, w, b, eps, silu), 50.0)
+        else:
+            def run():
+                return tn.group_norm_fold(x, 32, w, b, eps)
+            plain_ms = time_ms(torch, lambda: tn.group_norm_fold_ref(
+                x, 32, w, b, eps), 50.0)
+    check(err <= 1, f"K5 disagrees at {label}: {err:.3g} of the limit")
+    check(min(controls.values()) > 1,
+          f"K5's limit at {label} misses a control's fault: {controls}")
+    bms, by = bound(0.0, K5_PASSES[kind] * x.numel() * x.element_size())
+    row = dict(shape=label, B=B, H=H, W=W, C=C, kind=kind, eps=eps,
+               per_run=shape["per_run"],
+               max_abs_err=max_err, err_of_limit=err,
+               control_of_limit=min(controls.values()), controls=controls,
+               ms=time_ms(torch, run), plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by)
+    if graphed:
+        row.update(graph_ms=graph_ms(torch, run, calls=10, replays=3),
+                   host_us=host_us(torch, run, calls=20))
+    return row
+
+
+def k5_heaviest(shapes):
+    """The heaviest of k5_shapes' shapes or of k5_row's rows, by the bytes
+    K5 moves, in each group of kinds: {"fold": ..., "forward": ...,
+    "backward": ...}."""
+    def group(kind):
+        return ("fold" if kind == "fold" else
+                "backward" if kind.startswith("backward") else "forward")
+
+    def weight(s):
+        return K5_PASSES[s["kind"]] * s["B"] * s["H"] * s["W"] * s["C"]
+
+    out = {}
+    for s in shapes:
+        k = group(s["kind"])
+        if k not in out or weight(s) > weight(out[k]):
+            out[k] = s
+    return out
+
+
+def print_k5_row(row, card):
+    extra = (f"; graphed {row['graph_ms']:.4f} ms; host "
+             f"{row['host_us']:.1f} us a call" if "graph_ms" in row else "")
+    print(f"K5 {row['shape']}: err {row['max_abs_err']:.3g} "
+          f"({row['err_of_limit']:.3g} of the limit; control "
+          f"{row['control_of_limit']:.3g}), controls "
+          + ", ".join(f"{k} {v:.3g}" for k, v in row["controls"].items())
+          + f"{extra} | kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.4f} of the "
+          f"kernel's time) [{card}]", flush=True)
 
 
 def k4_row(torch, F, fc, shape, g, dev, time_mma=True):
@@ -1472,6 +1806,7 @@ def phase_kernels(torch, dev, card, serve_steps):
     import torch.nn.functional as F
     from view_neti_tpu_torch.ops import flash_attention as fa
     from view_neti_tpu_torch.ops import fused_conv as fc
+    from view_neti_tpu_torch.ops import norm as tn
 
     # the plain versions in full fp32: no TF32 in matmuls or convolutions
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -1479,7 +1814,7 @@ def phase_kernels(torch, dev, card, serve_steps):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(dev).manual_seed(0)
-    results = {"K1": [], "K2": [], "K3": [], "K4": []}
+    results = {"K1": [], "K2": [], "K3": [], "K4": [], "K5": []}
     shapes = attention_shapes(serve_steps)
     # the launch checks' split of K2 and K3 by design is bwd_design's
     split = bwd_split_by_path(shapes, fa.bwd_design)
@@ -1529,11 +1864,26 @@ def phase_kernels(torch, dev, card, serve_steps):
         print_row("K4", row, card)
     print(f"conv paths [{card}]: {json.dumps(conv_paths(results['K4']))}",
           flush=True)
+    shapes = k5_shapes(serve_steps)
+    # every path's K5 launches in k5_shapes are what the launch checks hold
+    # the path's counted run to
+    split, want = k5_split_by_path(shapes), path_k5(serve_steps)
+    check(split == want, f"K5 in k5_shapes: {split}, the launch checks "
+                         f"{want}")
+    heaviest = k5_heaviest(shapes).values()
+    for shape in shapes:
+        t0 = time.perf_counter()
+        row = k5_row(torch, tn, shape, g, dev,
+                     any(shape is s for s in heaviest))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["row_s"] = time.perf_counter() - t0
+        results["K5"].append(row)
+        print_k5_row(row, card)
     # the phase's seconds: the attention shapes' rows (K1 with K2 and K3
-    # where the shape has them) and K4's
+    # where the shape has them), K4's and K5's
     print("kernels seconds: " + json.dumps({
-        key: sum(r["row_s"] for r in results[key]) for key in ("K1", "K4")}),
-        flush=True)
+        key: sum(r["row_s"] for r in results[key])
+        for key in ("K1", "K4", "K5")}), flush=True)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     return results
@@ -1620,15 +1970,18 @@ def phase_slice(torch, dev, card, steps):
     check(imgs.shape == (3, HEIGHT, WIDTH, 3) and imgs.dtype == np.uint8,
           f"images {imgs.shape} {imgs.dtype}")
     check(imgs.min() != imgs.max(), "images are constant")
-    want = {**unet_k1(2 * steps), **unet_bwd(0), **k4(decodes=2)}
+    want = {**unet_k1(2 * steps), **unet_bwd(0), **k4(decodes=2),
+            **k5(2 * steps, decodes=2)}
     check(launches == want, f"serving launches in 2 runs {launches}, want "
                             f"{want} (no backward)")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
-    check(loop_cap.launches == capture_record(unet_k1(steps))
+    check(loop_cap.launches == capture_record({**unet_k1(steps),
+                                               **k5(steps)})
           and loop_cap.replays == 1,
           f"the denoise graph's launches {loop_cap.launches}, replays "
           f"{loop_cap.replays}")
-    check(dec_cap.launches == capture_record(k4(decodes=1))
+    check(dec_cap.launches == capture_record({**k4(decodes=1),
+                                              **k5(decodes=1)})
           and dec_cap.replays == 1,
           f"the decode graph's launches {dec_cap.launches}")
     print(f"slice: first run {first_s:.2f} s, capture run "
@@ -1801,14 +2154,16 @@ def slice_fused_unet(torch, dev, card, built, vae, sched, steps, seeds,
     capture_run_s = time.perf_counter() - t0
     launches = launch_counts()
     want = {**unet_k1(2 * steps), **unet_bwd(0),
-            **add_counts(k4(decodes=2), k4_unet(2 * steps))}
+            **add_counts(k4(decodes=2), k4_unet(2 * steps)),
+            **k5(2 * steps, decodes=2)}
     check(launches == want, f"fused serving launches in 2 runs {launches}, "
                             f"want {want}")
     (loop_cap,), (dec_cap,) = (list(f.captures.values()) for f in graphed)
     check(loop_cap.launches == capture_record(
-        add_counts(unet_k1(steps), k4_unet(steps))),
+        add_counts(unet_k1(steps), k4_unet(steps), k5(steps))),
         f"the fused denoise graph's launches {loop_cap.launches}")
-    check(dec_cap.launches == capture_record(k4(decodes=1)),
+    check(dec_cap.launches == capture_record({**k4(decodes=1),
+                                              **k5(decodes=1)}),
           f"the fused decode graph's launches {dec_cap.launches}")
 
     # sec/image with the switch off and on, their graphed rounds
@@ -2264,12 +2619,17 @@ def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
     for key, n_sm90 in sm90.items():
         in_trace.update({f"{key} sm90": n_sm90,
                          f"{key} mma_sync": in_trace[key] - n_sm90})
+    # K5 files under reduction/norm with PyTorch's norms: a launch's first
+    # kernel, the forward's statistics or the backward's sums, by name
+    in_trace["K5"] = sum(
+        1 for e in events if e.get("cat") == "kernel"
+        and any(k in e.get("name", "") for k in K5_FIRST_KERNELS))
     n = len(untraced["losses"])
     per_step = {k: v // n for k, v in launches.items()}
     # the warm-up step runs eagerly under the trace: at least its kernels.
     # K3's group holds its split reduction's launches too
     check(all(in_trace[k] >= per_step[k] for k in per_step),
-          f"the trace holds {in_trace} kernels of K1-K4, want at least one "
+          f"the trace holds {in_trace} kernels of K1-K5, want at least one "
           f"step's {per_step}")
     stats = dict(
         steps=n, timed_steps=steps,
@@ -2277,10 +2637,10 @@ def coach_trace(torch, dev, card, cfg, cal, trace_dir, warm, steps,
         traced_over_untraced=traced_ms / untraced["ms"],
         write_s=marks["written"] - marks["loop_end"], parse_s=parse_s,
         trace_mb=os.path.getsize(paths[0]) / 2 ** 20, events=len(events),
-        kernels_in_trace=sum(kernels.values()), k1_k4_in_trace=in_trace,
+        kernels_in_trace=sum(kernels.values()), k1_k5_in_trace=in_trace,
         launches=launches, graph_launches_in_trace=graph_launches,
         replays_traced_kernel_by_kernel=all(
-            in_trace[k] >= launches[k] for k in ("K1", "K2", "K4")),
+            in_trace[k] >= launches[k] for k in ("K1", "K2", "K4", "K5")),
         losses_equal=True, mapper_max_abs_diff=mapper_diff,
         run_s=time.perf_counter() - t_run)
     print(f"coach trace [{card}]: {json.dumps(stats)}", flush=True)
@@ -2614,7 +2974,7 @@ def phase_weights(torch, dev, card, rect, cal):
     check(torch.equal(out_loaded, out_mem),
           f"the loaded UNet's forward differs from the written stack's by "
           f"{(out_loaded.float() - out_mem.float()).abs().max().item()}")
-    check(launches == {**unet_k1(2), **unet_bwd(0), **k4()},
+    check(launches == {**unet_k1(2), **unet_bwd(0), **k4(), **k5(2)},
           f"weights launches {launches}")
     stats = dict(gb_read=nbytes / 1e9, dtypes=dtypes, write_s=write_s,
                  coach_build_s=coach_s, load_s=load_s,
@@ -2768,7 +3128,9 @@ def phase_acceptance(torch, dev, card, root, weights, cal, masks_root):
     check(fill is not None and loop is not None,
           "no cache fill or training line in the run's log")
     want = {**unet_k1(ACC_STEPS + ACC_DENOISE * EVAL_CAMS),
-            **unet_bwd(ACC_STEPS), **k4(ACC_STEPS, EVAL_CAMS)}
+            **unet_bwd(ACC_STEPS), **k4(ACC_STEPS, EVAL_CAMS),
+            **k5(ACC_STEPS + ACC_DENOISE * EVAL_CAMS, ACC_STEPS, ACC_STEPS,
+                 EVAL_CAMS)}
     check(launches == want, f"acceptance launches {launches}, want {want}")
     check(loaded["cam_idxs"] == res["cam_idxs"][:INFER_CAMS],
           f"offline cameras {loaded['cam_idxs']}")
@@ -2847,7 +3209,8 @@ def phase_validate(torch, dev, card, rect, cal, masks_root, run_dir):
     check(os.path.exists(bundle), "no validation bundle")
     n = VAL_TRAIN_STEPS
     want = {**unet_k1(n + VAL_DENOISE * (EVAL_CAMS + 1)), **unet_bwd(n),
-            **k4(n, EVAL_CAMS + 1)}
+            **k4(n, EVAL_CAMS + 1),
+            **k5(n + VAL_DENOISE * (EVAL_CAMS + 1), n, n, EVAL_CAMS + 1)}
     check(launches == want, f"validate launches {launches}, want {want}")
     (loop_cap,) = [c for f, _ in coach._sampling.values()
                    for c in f.captures.values()
@@ -2962,7 +3325,8 @@ def phase_inference(torch, dev, card, cal, masks_root, run_dir, val):
     infer_s = time.perf_counter() - t0
     launches = launch_counts()
     want = {**unet_k1(VAL_DENOISE * INFER_CAMS), **unet_bwd(0),
-            **k4(decodes=INFER_CAMS)}
+            **k4(decodes=INFER_CAMS),
+            **k5(VAL_DENOISE * INFER_CAMS, decodes=INFER_CAMS)}
     check(launches == want, f"inference launches {launches}, want {want}")
     check(res["cam_idxs"] == val["cam_idxs"][:INFER_CAMS],
           f"cameras {res['cam_idxs']}")
@@ -3082,7 +3446,7 @@ def phase_mode3(torch, dev, card, coach_stats):
 
     B, n = TRAIN_BATCH, M3_WARM + M3_STEPS
     per_step = {**unet_k1(1, M3_SM90["train"]), **unet_bwd(1, M3_BWD_SM90),
-                **k4(encodes=1)}
+                **k4(encodes=1), **k5(1, 1, encodes=1)}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_mode3")
     shutil.rmtree(root, ignore_errors=True)
@@ -3327,7 +3691,9 @@ def phase_mode3(torch, dev, card, coach_stats):
             unet_k1(VAL_DENOISE * M3_TOKENS * M3_SWEEP_CAMS,
                     M3_SM90["sweep"]),
             unet_k1(VAL_DENOISE * M3_TOKENS, M3_SM90["render"]),
-            k4(decodes=M3_TOKENS * (M3_SWEEP_CAMS + 1)))
+            k4(decodes=M3_TOKENS * (M3_SWEEP_CAMS + 1)),
+            k5(VAL_DENOISE * M3_TOKENS * (M3_SWEEP_CAMS + 1),
+               decodes=M3_TOKENS * (M3_SWEEP_CAMS + 1)))
         check(launches_b == want_b, f"resumed run launches {launches_b}, "
                                     f"want {want_b}")
 
@@ -3385,7 +3751,9 @@ def phase_mode3(torch, dev, card, coach_stats):
         launches_c = launch_counts()
         want_c = {**unet_k1(VAL_DENOISE * INFER_CAMS * M3_TOKENS,
                             M3_SM90["sweep"]), **unet_bwd(0),
-                  **k4(decodes=INFER_CAMS * M3_TOKENS)}
+                  **k4(decodes=INFER_CAMS * M3_TOKENS),
+                  **k5(VAL_DENOISE * INFER_CAMS * M3_TOKENS,
+                       decodes=INFER_CAMS * M3_TOKENS)}
         check(launches_c == want_c, f"mode-3 inference launches "
                                     f"{launches_c}, want {want_c}")
         check(sorted(offline_res) == sorted(tokens),
@@ -3573,7 +3941,7 @@ def phase_folders(torch, dev, card):
 
     B, n = TRAIN_BATCH, FOLDERS_WARM + FOLDERS_STEPS
     per_step = {**unet_k1(1), **unet_bwd(1, FOLDERS_BWD_SM90),
-                **k4(encodes=1)}
+                **k4(encodes=1), **k5(1, 1, encodes=1)}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_folders")
     shutil.rmtree(root, ignore_errors=True)
@@ -3620,7 +3988,8 @@ def phase_folders(torch, dev, card):
             1 + FOLDERS_SHEET_TOKENS)
         want = add_counts({k: v * n for k, v in per_step.items()},
                           unet_k1(VAL_DENOISE * renders),
-                          k4(decodes=renders))
+                          k4(decodes=renders),
+                          k5(VAL_DENOISE * renders, decodes=renders))
         check(launches == want, f"{name} launches {launches}, want {want}")
         # the mappers as the final checkpoint saved them (the profiled
         # step below moves them)
@@ -4266,7 +4635,8 @@ def phase_ddp(torch, dev, card):
                                                   DDP_WORLD))
                              + (r["rank"] == 0))
                      for k, n in {**unet_k1(DDP_VAL_DENOISE), **unet_bwd(0),
-                                  **k4(decodes=1)}.items()}
+                                  **k4(decodes=1),
+                                  **k5(DDP_VAL_DENOISE, decodes=1)}.items()}
                     for r in ranks]
     stats = dict(
         backend=main["backend"], world=DDP_WORLD,
@@ -4699,7 +5069,8 @@ def phase_tp(torch, dev, card):
     steps = TP_WARM + TP_STEPS
     per_step = SD15_STEP
     want_launches = {k: v * steps for k, v in per_step.items()}
-    want_render = {**unet_k1(TP_DENOISE), **unet_bwd(0), **k4(decodes=1)}
+    want_render = {**unet_k1(TP_DENOISE), **unet_bwd(0), **k4(decodes=1),
+                   **k5(TP_DENOISE, decodes=1)}
     unet_blocks, clip_layers = 16, 12
     want_gathers = tp_collectives_per_step(unet_blocks, clip_layers) * steps
     with tempfile.TemporaryDirectory() as root:
@@ -4874,13 +5245,14 @@ def phase_tp(torch, dev, card):
 # its depth cut (BENCH_STEPS, BENCH_INFER_STEPS), and the kernels each
 # mode's path launches
 BENCH_RUNS = (
-    ("raw", {"BENCH_E2E": "0", "BENCH_STEPS": "8"}, "K1 K2 K3 K4"),
-    ("coach_mode2", {"BENCH_STEPS": "16"}, "K1 K2 K3 K4"),
-    ("coach_mode3", {"BENCH_MODE": "3", "BENCH_STEPS": "8"}, "K1 K2 K3 K4"),
-    ("serving", {"BENCH_INFER": "1"}, "K1 K4"),
+    ("raw", {"BENCH_E2E": "0", "BENCH_STEPS": "8"}, "K1 K2 K3 K4 K5"),
+    ("coach_mode2", {"BENCH_STEPS": "16"}, "K1 K2 K3 K4 K5"),
+    ("coach_mode3", {"BENCH_MODE": "3", "BENCH_STEPS": "8"},
+     "K1 K2 K3 K4 K5"),
+    ("serving", {"BENCH_INFER": "1"}, "K1 K4 K5"),
     ("serving_fused_unet", {"BENCH_INFER": "1", "BENCH_FUSE_UNET": "1"},
-     "K1 K4"),
-    ("sweep", {"BENCH_VAL": "1", "BENCH_INFER_STEPS": "3"}, "K1 K4"),
+     "K1 K4 K5"),
+    ("sweep", {"BENCH_VAL": "1", "BENCH_INFER_STEPS": "3"}, "K1 K4 K5"),
 )
 BENCH_RATIO = (0.67, 1.5)   # a bench rate over the same rate of a phase
 BENCH_TIMEOUT_S = 300
@@ -4938,7 +5310,9 @@ def phase_bench(card, slice_stats, coach_stats):
                       for k in ("K1", "K2", "K3", "K4")),
               f"bench {name}: launches {counts}, want {kernels} only")
         # each launching kernel's wrapper added its FLOPs to the count
-        check(sorted(flops) == sorted(["aten"] + kernels.split())
+        # (K5 does no model FLOPs: ops/flop_count.py counts none)
+        sources = ["aten"] + [k for k in kernels.split() if k != "K5"]
+        check(sorted(flops) == sorted(sources)
               and all(v > 0 for v in flops.values()),
               f"bench {name}: FLOPs by source {flops}")
         launches[name] = counts
@@ -5014,6 +5388,27 @@ def mma_sync_rows(rows):
     return out
 
 
+# the paths kernel_report sums each kernel over
+REPORT_PATHS = ("serve", "serve_fused_unet", "train", "weights",
+                "acceptance", "validate", "inference", "mode3", "folders",
+                "tp")
+
+
+def path_sums(rows, fields):
+    """Each of `fields` summed over one run of each path of REPORT_PATHS
+    that runs some of the rows' shapes, each shape weighted by its
+    launches there (<path>_path_<field>), and the path's share of the
+    bound (<path>_path_share_of_bound)."""
+    out = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0) for r in rows)
+           for p in REPORT_PATHS if any(p in r["per_run"] for r in rows)
+           for k in fields}
+    for p in REPORT_PATHS:
+        if f"{p}_path_ms" in out:
+            out[f"{p}_path_share_of_bound"] = (out[f"{p}_path_bound_ms"]
+                                               / out[f"{p}_path_ms"])
+    return out
+
+
 def kernel_report(kernels, launches, card):
     """The {"kernels": [...]} line: per kernel (the two designs of K1, K2,
     K3 and K4 apart),
@@ -5032,7 +5427,8 @@ def kernel_report(kernels, launches, card):
     Each entry carries its heaviest shape's time in a CUDA graph and on
     the host where the rows have them.
     `launches` holds each path's counted run (launch_counts' keys): a
-    kernel's launches, by path, are those of its key there."""
+    kernel's launches, by path, are those of its key there. K5's entry
+    (k5_entry) comes last where `kernels` holds its rows."""
     report = []
     for key, name, source, replaces, tol, design in (
             ("K1", "flash_attention_fwd_sm90",
@@ -5079,19 +5475,8 @@ def kernel_report(kernels, launches, card):
                       r["control_of_limit"]) for r in kernels[key]
                      if "mma_sync_err_of_limit" in r]
         top = max(rows, key=lambda r: r["bound_ms"] * bool(r["per_run"]))
-        paths = ("serve", "serve_fused_unet", "train", "weights",
-                 "acceptance", "validate", "inference", "mode3", "folders",
-                 "tp")
         # a path's sums over the shapes the design runs there
-        path = {f"{p}_path_{k}": sum(r[k] * r["per_run"].get(p, 0)
-                                     for r in own)
-                for p in paths
-                if any(p in r["per_run"] for r in own)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        for p in paths:
-            if f"{p}_path_ms" in path:
-                path[f"{p}_path_share_of_bound"] = (
-                    path[f"{p}_path_bound_ms"] / path[f"{p}_path_ms"])
+        path = path_sums(own, ("ms", "plain_ms", "bound_ms", "library_ms"))
         count = f"{key} {design}" if design else key
         by_path = {p: n.get(count, 0) for p, n in launches.items()}
         entry = dict(
@@ -5113,7 +5498,42 @@ def kernel_report(kernels, launches, card):
             if k in top:
                 entry[k] = top[k]
         report.append(entry)
+    if "K5" in kernels:
+        report.append(k5_entry(kernels["K5"], launches, card))
     return report
+
+
+def k5_entry(rows, launches, card):
+    """K5's entry of the kernels line: its launches by path (launch_counts'
+    "K5"), its worst check and weakest control over every shape, the
+    heaviest shape of each of its kinds (fold, forward, backward: ms,
+    plain_ms, bound_ms and share_of_bound, and graph_ms and host_us where
+    timed), the heaviest of all at the top level, and ms / plain_ms /
+    bound_ms summed over one run of each path that launches it, each
+    shape weighted by its launches there."""
+    heaviest = k5_heaviest(rows)
+    by_kind = {k: {f: r[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "share_of_bound", "graph_ms",
+                                      "host_us") if f in r}
+               for k, r in heaviest.items()}
+    top = max(heaviest.values(), key=lambda r: r["bound_ms"])
+    path = path_sums(rows, ("ms", "plain_ms", "bound_ms"))
+    by_path = {p: n.get("K5", 0) for p, n in launches.items()}
+    return dict(
+        name="group_norm", route="cuda",
+        source="view_neti_tpu_torch/csrc/group_norm.cu",
+        replaces="none: XLA's fusion of view_neti_tpu/ops/norm.py:22",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        checked=True,
+        tolerance=(f"affine: {K5_AFFINE_TOL}(1 + |ref|); out: bit for bit; "
+                   f"dx: 2 ulps at its scale; dgamma, dbeta: "
+                   f"{K5_PARAM_GRAD_TOL}(max|ref| + |ref|)"),
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        err_of_limit=max(r["err_of_limit"] for r in rows),
+        control_of_limit=min(r["control_of_limit"] for r in rows),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], share_of_bound=top["share_of_bound"],
+        shape=top["shape"], by_kind=by_kind, **path, card=card)
 
 
 PHASE_S = {}

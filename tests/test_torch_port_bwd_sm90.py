@@ -181,7 +181,7 @@ def test_launch_checks_agree_with_bwd_design_on_every_path():
     assert chip_smoke.SD15_STEP == {
         "K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K2": 30, "K2 sm90": 30,
         "K2 mma_sync": 0, "K3": 31, "K3 sm90": 30, "K3 mma_sync": 1,
-        "K4": 21, "K4 sm90": 20, "K4 mma_sync": 1}
+        "K4": 21, "K4 sm90": 20, "K4 mma_sync": 1, "K5": 141}
 
 
 # the names ptxas reports for each bucket's instantiation of the two

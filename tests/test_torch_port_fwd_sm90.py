@@ -112,7 +112,8 @@ def test_unet_k1_and_add_counts_build_the_launch_checks():
     assert chip_smoke.SD15_STEP == {"K1": 32, "K1 sm90": 32,
                                     "K1 mma_sync": 0,
                                     **chip_smoke.unet_bwd(1), "K4": 21,
-                                    "K4 sm90": 20, "K4 mma_sync": 1}
+                                    "K4 sm90": 20, "K4 mma_sync": 1,
+                                    "K5": 141}
     got = chip_smoke.add_counts(
         {"K1": 32, "K1 sm90": 32, "K1 mma_sync": 0, "K4": 21},
         chip_smoke.unet_k1(2, chip_smoke.M3_SM90["sweep"]), {"K4": 29})
@@ -365,16 +366,16 @@ def saved_counts():
 
 
 def test_launch_counts_split_k1_by_design_and_reset_together(saved_counts):
-    """K1's launches by design are keys of launch_counts beside K1-K4,
+    """K1's launches by design are keys of launch_counts beside K1-K5,
     and its reset clears them with the rest."""
     graphs.set_launch_counts({"K1": 7, "K1 sm90": 3, "K1 mma_sync": 4,
                               "K4": 2})
     assert tfa.flash_attention.launches == 7
     assert tfa.flash_attention.designs == {"sm90": 3, "mma_sync": 4}
     got = graphs.launch_counts()
-    assert list(got) == ["K1", "K2", "K3", "K4", "K1 sm90", "K1 mma_sync",
-                         "K2 sm90", "K2 mma_sync", "K3 sm90", "K3 mma_sync",
-                         "K4 sm90", "K4 mma_sync"]
+    assert list(got) == ["K1", "K2", "K3", "K4", "K5", "K1 sm90",
+                         "K1 mma_sync", "K2 sm90", "K2 mma_sync", "K3 sm90",
+                         "K3 mma_sync", "K4 sm90", "K4 mma_sync"]
     assert {k: got[k] for k in ("K1", "K1 sm90", "K1 mma_sync", "K4")} == {
         "K1": 7, "K1 sm90": 3, "K1 mma_sync": 4, "K4": 2}
     assert graphs.launch_counts(reset=True) == dict.fromkeys(got, 0)
@@ -394,7 +395,7 @@ def test_capture_record_keeps_only_the_counts_a_capture_moved():
     assert chip_smoke.capture_record(chip_smoke.SD15_STEP) == {
         "K1": 32, "K1 sm90": 32, "K2": 30, "K2 sm90": 30, "K3": 31,
         "K3 sm90": 30, "K3 mma_sync": 1, "K4": 21, "K4 sm90": 20,
-        "K4 mma_sync": 1}
+        "K4 mma_sync": 1, "K5": 141}
 
 
 class _Graph:
@@ -416,7 +417,8 @@ def test_a_replay_adds_its_capture_record_by_design(saved_counts):
     g.replay(cap)
     assert cap.replays == 2
     assert graphs.launch_counts() == {"K1": 64, "K2": 1, "K3": 0, "K4": 0,
-                                      "K1 sm90": 10, "K1 mma_sync": 54,
+                                      "K5": 0, "K1 sm90": 10,
+                                      "K1 mma_sync": 54,
                                       "K2 sm90": 0, "K2 mma_sync": 0,
                                       "K3 sm90": 0, "K3 mma_sync": 0,
                                       "K4 sm90": 0, "K4 mma_sync": 0}

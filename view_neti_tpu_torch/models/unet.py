@@ -7,8 +7,10 @@ checkpoint loads strictly. As in the JAX module:
     (16, B, 77, D) context; K comes from the context and V from the bypass
     stack (reference models/xti_attention_processor.py:38-42);
   * activations are NHWC; GroupNorm statistics are fp32, eps 1e-5 in the
-    ResNets and 1e-6 in the Transformer2D norm; GEGLU uses exact GELU;
-    conv_out runs in fp32;
+    ResNets and 1e-6 in the Transformer2D norm; on the card every
+    GroupNorm, with the SiLU after it where one follows, runs as the
+    hand-written kernel K5 (ops/norm.py), forward and backward; GEGLU uses
+    exact GELU; conv_out runs in fp32;
   * every attention call goes through ops.attention.multi_head_attention,
     the flash-attention kernel on the card;
   * under tensor parallelism (parallel/tensor.py shard_frozen_) an
@@ -128,9 +130,9 @@ class ResnetBlock(nn.Module):
             return fused_affine_silu_conv3x3(
                 h, a2, b2, conv3x3_hwio(self.conv2), self.conv2.bias,
                 residual=x, out_dtype=x.dtype)
-        h = conv_nhwc(self.conv1, F.silu(self.norm1(x)))
+        h = conv_nhwc(self.conv1, self.norm1(x, silu=True))
         h = h + t[:, None, None, :]
-        h = conv_nhwc(self.conv2, F.silu(self.norm2(h)))
+        h = conv_nhwc(self.conv2, self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = conv_nhwc(self.conv_shortcut, x)
         return x + h
@@ -380,5 +382,5 @@ class UNet2DCondition(nn.Module):
                 x = conv_nhwc(block.upsamplers[0].conv,
                               nearest_upsample_2x(x))
 
-        x = F.silu(self.conv_norm_out(x))
+        x = self.conv_norm_out(x, silu=True)
         return conv_nhwc(self.conv_out, x.float())

@@ -3,7 +3,8 @@
 The whole autoencoder is built, with diffusers' state_dict keys, so a
 diffusers checkpoint loads strictly. Serving runs `decode`; training runs
 `encode_sample` (or `moments`) under no_grad. Activations are NHWC;
-GroupNorm eps 1e-6 with fp32 statistics.
+GroupNorm eps 1e-6 with fp32 statistics; on the card every GroupNorm, the
+SiLU after it and each fold that feeds K4 run as K5 (ops/norm.py).
 
 With `fuse_conv=True` every norm -> SiLU -> conv3x3 section of the encoder
 and the decoder (both convs of each ResNet block and conv_out) runs through
@@ -56,7 +57,7 @@ def _norm_silu_conv(norm: GroupNorm, conv: nn.Conv2d, x: torch.Tensor,
         return fused_affine_silu_conv3x3(x, a, b, conv3x3_hwio(conv),
                                          conv.bias, residual=residual,
                                          out_dtype=x.dtype)
-    h = conv_nhwc(conv, F.silu(norm(x)))
+    h = conv_nhwc(conv, norm(x, silu=True))
     return h if residual is None else residual + h
 
 

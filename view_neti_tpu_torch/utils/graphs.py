@@ -21,7 +21,7 @@ A capture or replay that fails raises CaptureError, naming fn's frame where
 the capture broke; nothing falls back to eager.
 
 The kernel wrappers' launch counters (ops/flash_attention.py,
-ops/fused_conv.py) count where a kernel is launched, each also by design
+ops/fused_conv.py, ops/norm.py) count where a kernel is launched, each also by design
 (launch_counts). A capture launches nothing, so the counts
 it adds are taken back and kept as the graph's record of its launches, and
 every replay adds that record.
@@ -48,22 +48,23 @@ class CaptureError(RuntimeError):
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
-    """The four kernel wrappers, by the kernels' ids, whose `launches`
+    """The five kernel wrappers, by the kernels' ids, whose `launches`
     count their launches."""
     from view_neti_tpu_torch.ops import flash_attention as fa
     from view_neti_tpu_torch.ops import fused_conv as fc
+    from view_neti_tpu_torch.ops import norm
     return {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_dq,
             "K3": fa.flash_attention_bwd_dkv,
-            "K4": fc.fused_affine_silu_conv3x3}
+            "K4": fc.fused_affine_silu_conv3x3, "K5": norm.group_norm}
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Each kernel wrapper's launch count, {"K1": n, ...}, and the split by
     design of K1 ("K1 sm90", "K1 mma_sync": ops/flash_attention.py::
     fwd_design), K2 and K3 ("K2 sm90", ..., "K3 mma_sync": bwd_design)
-    and K4 ("K4 sm90", "K4 mma_sync": ops/fused_conv.py::conv_design),
-    the launches inside CUDA graph replays included; reset sets them all
-    to 0 first."""
+    and K4 ("K4 sm90", "K4 mma_sync": ops/fused_conv.py::conv_design);
+    K5 (ops/norm.py, GroupNorm) has one design. The launches inside CUDA
+    graph replays are included; reset sets them all to 0 first."""
     wrappers = kernel_wrappers()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     counts.update({f"{k} {design}": n for k in ("K1", "K2", "K3", "K4")
